@@ -1,0 +1,202 @@
+// Factored LDA topic draws for Hopper (sm_90a): the paper's fused inner
+// loop, z ~ Categorical(theta[doc] * phi[word]), without ever forming the
+// (samples, K) weight tensor.
+//
+// Replaces the TPU kernels of src/repro/kernels/lda_draw/kernel.py:
+//   lda_fused_draw   <- _fused_factored_kernel    (lda_fused_draw_pallas)  K8
+//   lda_blocksums    <- _factored_blocksum_kernel (lda_blocksums_pallas)   K6
+//   lda_walk         <- _factored_walk_kernel     (lda_walk_pallas)        K7
+//
+// Design.  One warp owns one sample from start to end; kWarps warps share a
+// block only to fill the SM, never to exchange data.  The TPU kernels fetch
+// the theta and phi rows with scalar-prefetch index maps and carry a (tb, Kp)
+// tile across a sequential grid axis; here each warp loads its own doc and
+// word ids and reads the two rows coalesced (lane i reads k = i, i+32, ...),
+// and nothing is carried between blocks, which run in no order.  The TPU's
+// one-hot lane reductions become shuffles and direct shared-memory reads
+// (draw_tile.cuh).  K is padded to Kp = nb * W virtually: columns at or past
+// the rows' width read as zero, so callers never copy phi to pad it.
+//
+// Bound.  All three are memory-bound gathers: per sample K8 and K6 read two
+// K-wide rows (8K bytes in fp32) and do 2K flops; K7 reads one running row
+// (4 nb bytes) and two W-wide slices.  The design keeps the only other
+// traffic to 4 bytes of ids, 4 of u and 4 (K6: 4 nb) of output per sample;
+// theta rows repeat across a document's words and hit L1/L2.  Wide (16-byte)
+// loads and several samples per warp are left for later work.
+//
+// Block address.  K7 computes its block jb from the running row itself, so
+// the reference's separate XLA block search before pass B is not needed;
+// the indices are the same.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "draw_tile.cuh"
+
+namespace {
+
+constexpr int kWarps = 4;  // warps (samples in flight) per block
+
+using draw_tile::warp_block_sums;
+using draw_tile::warp_draw_tile;
+using draw_tile::warp_fenwick;
+using draw_tile::warp_running;
+using draw_tile::warp_select;
+using draw_tile::descent;
+using draw_tile::to_f32;
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    lda_fused_draw_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
+                          const int* __restrict__ doc_ids,
+                          const int* __restrict__ words,
+                          const float* __restrict__ u, int* __restrict__ out,
+                          int Bt, int ncols, int nb, int W) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int s = blockIdx.x * kWarps + wib;
+  if (s >= Bt) return;  // warp-uniform: the whole warp leaves together
+  const int Kp = nb * W;
+  float* prod = smem + wib * (Kp + nb);
+  float* run = prod + Kp;
+  const T* a = theta + static_cast<size_t>(doc_ids[s]) * ncols;
+  const T* b = phi + static_cast<size_t>(words[s]) * ncols;
+  warp_block_sums<T, true>(a, b, ncols, nb, W, prod, run, lane);
+  const int idx = warp_draw_tile(prod, run, nb, W, u[s], lane);
+  if (lane == 0) out[s] = idx;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    lda_blocksums_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
+                         const int* __restrict__ doc_ids,
+                         const int* __restrict__ words,
+                         float* __restrict__ running, int Bt, int ncols, int nb,
+                         int W) {
+  const int lane = threadIdx.x & 31;
+  const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (s >= Bt) return;
+  const T* a = theta + static_cast<size_t>(doc_ids[s]) * ncols;
+  const T* b = phi + static_cast<size_t>(words[s]) * ncols;
+  // the output row doubles as the scan buffer (__syncwarp orders global
+  // memory among the warp's lanes as well as shared memory)
+  float* row = running + static_cast<size_t>(s) * nb;
+  warp_block_sums<T, false>(a, b, ncols, nb, W, nullptr, row, lane);
+  warp_running(row, nb, lane);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWarps * 32)
+    lda_walk_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
+                    const float* __restrict__ running,
+                    const float* __restrict__ u, const int* __restrict__ rows,
+                    const int* __restrict__ doc_ids,
+                    const int* __restrict__ words, int* __restrict__ out,
+                    int Bt, int ncols, int nb, int W) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int s = blockIdx.x * kWarps + wib;
+  if (s >= Bt) return;
+  float* t = smem + wib * W;
+  const float* run = running + static_cast<size_t>(rows[s]) * nb;
+  const float stop = __fmul_rn(run[nb - 1], u[s]);
+  int jb;
+  float lo;
+  warp_select(run, nb, stop, lane, jb, lo);
+  // fetch only block jb of the two rows
+  const int Kp = nb * W;
+  const int kv = ncols < Kp ? ncols : Kp;
+  const T* a = theta + static_cast<size_t>(doc_ids[s]) * ncols;
+  const T* b = phi + static_cast<size_t>(words[s]) * ncols;
+  for (int i = lane; i < W; i += 32) {
+    const int k = jb * W + i;
+    t[i] = k < kv ? __fmul_rn(to_f32(a[k]), to_f32(b[k])) : 0.f;
+  }
+  warp_fenwick(t, W, lane);
+  const int R = descent(t, stop, lo, W);
+  if (lane == 0) out[s] = jb * W + R;
+}
+
+inline unsigned grid_for(int Bt) {
+  return static_cast<unsigned>((Bt + kWarps - 1) / kWarps);
+}
+
+}  // namespace
+
+// Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
+// Every function launches on the given stream, does not synchronise, and
+// returns cudaGetLastError() (0 on success).
+extern "C" {
+
+int lda_fused_draw(const void* theta, const void* phi, const void* doc_ids,
+                   const void* words, const void* u, void* out, int Bt,
+                   int ncols, int nb, int W, int dtype, void* stream) {
+  if (Bt <= 0) return 0;
+  const size_t smem = sizeof(float) * kWarps * (nb * W + nb);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int* d = static_cast<const int*>(doc_ids);
+  const int* w = static_cast<const int*>(words);
+  const float* uu = static_cast<const float*>(u);
+  int* o = static_cast<int*>(out);
+  if (dtype == 1)
+    lda_fused_draw_kernel<__nv_bfloat16><<<grid_for(Bt), kWarps * 32, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(theta),
+        static_cast<const __nv_bfloat16*>(phi), d, w, uu, o, Bt, ncols, nb, W);
+  else
+    lda_fused_draw_kernel<float><<<grid_for(Bt), kWarps * 32, smem, st>>>(
+        static_cast<const float*>(theta), static_cast<const float*>(phi), d, w,
+        uu, o, Bt, ncols, nb, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int lda_blocksums(const void* theta, const void* phi, const void* doc_ids,
+                  const void* words, void* running, int Bt, int ncols, int nb,
+                  int W, int dtype, void* stream) {
+  if (Bt <= 0) return 0;
+  auto st = static_cast<cudaStream_t>(stream);
+  const int* d = static_cast<const int*>(doc_ids);
+  const int* w = static_cast<const int*>(words);
+  float* r = static_cast<float*>(running);
+  if (dtype == 1)
+    lda_blocksums_kernel<__nv_bfloat16><<<grid_for(Bt), kWarps * 32, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(theta),
+        static_cast<const __nv_bfloat16*>(phi), d, w, r, Bt, ncols, nb, W);
+  else
+    lda_blocksums_kernel<float><<<grid_for(Bt), kWarps * 32, 0, st>>>(
+        static_cast<const float*>(theta), static_cast<const float*>(phi), d, w,
+        r, Bt, ncols, nb, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int lda_walk(const void* theta, const void* phi, const void* running,
+             const void* u, const void* rows, const void* doc_ids,
+             const void* words, void* out, int Bt, int ncols, int nb, int W,
+             int dtype, void* stream) {
+  if (Bt <= 0) return 0;
+  const size_t smem = sizeof(float) * kWarps * W;
+  auto st = static_cast<cudaStream_t>(stream);
+  const float* r = static_cast<const float*>(running);
+  const float* uu = static_cast<const float*>(u);
+  const int* rw = static_cast<const int*>(rows);
+  const int* d = static_cast<const int*>(doc_ids);
+  const int* w = static_cast<const int*>(words);
+  int* o = static_cast<int*>(out);
+  if (dtype == 1)
+    lda_walk_kernel<__nv_bfloat16><<<grid_for(Bt), kWarps * 32, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(theta),
+        static_cast<const __nv_bfloat16*>(phi), r, uu, rw, d, w, o, Bt, ncols,
+        nb, W);
+  else
+    lda_walk_kernel<float><<<grid_for(Bt), kWarps * 32, smem, st>>>(
+        static_cast<const float*>(theta), static_cast<const float*>(phi), r, uu,
+        rw, d, w, o, Bt, ncols, nb, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Warps per block; the wrapper sizes the fused draw's shared memory
+// (kWarps * (nb * W + nb) floats) from it to pick the fused or two-pass route.
+int lda_warps_per_block(void) { return kWarps; }
+
+}  // extern "C"

@@ -1,0 +1,282 @@
+"""Factored LDA z-draw kernels: wrappers for the Hopper kernels, and the
+plain PyTorch version of each beside it.
+
+Three kernels (``csrc/lda_draw.cu``) replace the reference's three Pallas
+kernels in ``repro/kernels/lda_draw/kernel.py``:
+
+==================  =====================================  =============
+wrapper             replaces                               plain version
+==================  =====================================  =============
+``lda_fused_draw``  ``_fused_factored_kernel`` (K8)        ``lda_fused_draw_torch``
+``lda_blocksums``   ``_factored_blocksum_kernel`` (K6)     ``lda_blocksums_torch``
+``lda_walk``        ``_factored_walk_kernel`` (K7)         ``lda_walk_torch``
+==================  =====================================  =============
+
+A wrapper takes CUDA tensors only: it checks device, dtype, shape and
+contiguity, allocates its output with ``torch.empty``, launches on the
+current stream without synchronising, raises if the launch failed, and
+adds one to its count in :data:`LAUNCHES`.  The plain versions run on any
+device and never form a (samples, K) tensor: every intermediate is
+(samples, W), (samples, TK) or (samples, nb), as in the reference's XLA
+twin.
+
+Rows may be narrower than Kp = nb * W: columns at or past a row's width
+count as zero (the padding of K to a multiple of W), so nobody copies
+``phi`` to pad it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import runtime
+from repro_torch.kernels.butterfly_sample.kernel import (
+    _descent_tile,
+    _fenwick_tile,
+    _select_tile,
+)
+
+# launches per wrapper since the last reset_launches()
+LAUNCHES: Dict[str, int] = {"lda_fused_draw": 0, "lda_blocksums": 0, "lda_walk": 0}
+
+# Fused / two-pass switch.  The fused kernel keeps one sample's product row
+# and block sums in shared memory, _WARPS_PER_BLOCK samples per block; it
+# runs while that fits the 48 KB of dynamic shared memory a block gets
+# without opting in (Kp + nb <= 3072 floats per sample), and the two-pass
+# route (K6 then K7, which need no more than W floats per sample) beyond.
+_WARPS_PER_BLOCK = 4
+_FUSED_SMEM_BYTES = 48 << 10
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def num_blocks(K: int, W: int) -> int:
+    return -(-K // W)
+
+
+def fused_fits(nb: int, W: int) -> bool:
+    """True when the fused kernel's shared memory fits one block."""
+    return 4 * _WARPS_PER_BLOCK * (nb * W + nb) <= _FUSED_SMEM_BYTES
+
+
+# ---------------------------------------------------------------------------
+# ctypes binding
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGS = {
+    "lda_fused_draw": [_P] * 6 + [_I] * 5 + [_P],
+    "lda_blocksums": [_P] * 5 + [_I] * 5 + [_P],
+    "lda_walk": [_P] * 8 + [_I] * 5 + [_P],
+}
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("lda_draw")
+    if not getattr(lib, "_bound", False):
+        for name, argtypes in _SIGS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.lda_warps_per_block.argtypes = []
+        lib.lda_warps_per_block.restype = ctypes.c_int
+        if lib.lda_warps_per_block() != _WARPS_PER_BLOCK:
+            raise RuntimeError("lda_draw library disagrees on warps per block")
+        lib._bound = True
+    return lib
+
+
+def _launch(name: str, *args) -> None:
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(_lib(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _check_factors(theta, phi, nb: int, W: int) -> int:
+    runtime.check_w(W)
+    for n, t in (("theta", theta), ("phi", phi)):
+        if not t.is_cuda:
+            raise ValueError(f"{n} must be a CUDA tensor, got {t.device}")
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"{n} must be float32 or bfloat16, got {t.dtype}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{n} must be a contiguous 2-D tensor")
+    if phi.dtype != theta.dtype or phi.shape[1] != theta.shape[1]:
+        raise ValueError("theta and phi must share dtype and row width")
+    if phi.device != theta.device:
+        raise ValueError("theta and phi must be on one device")
+    ncols = theta.shape[1]
+    if not (nb - 1) * W < ncols <= nb * W:
+        raise ValueError(f"row width {ncols} does not give nb={nb} blocks of W={W}")
+    return ncols
+
+
+def _check_vec(name: str, t: torch.Tensor, dtype, n: int, like: torch.Tensor):
+    if t.device != like.device or t.dtype != dtype or t.shape != (n,) \
+            or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous ({n},) {dtype} tensor on {like.device}, "
+            f"got {tuple(t.shape)} {t.dtype} on {t.device}"
+        )
+
+
+# ---------------------------------------------------------------------------
+# K8: fused factored draw
+# ---------------------------------------------------------------------------
+
+
+def lda_fused_draw(theta, phi, doc_ids, words, u, W: int) -> torch.Tensor:
+    """(Bt,) int32 draws in [0, Kp) from theta[doc_ids] * phi[words], one
+    launch (K8).  Ids int32, u float32, all contiguous (Bt,) CUDA tensors;
+    ids must index valid rows (not checked: that would synchronise)."""
+    nb = num_blocks(theta.shape[1], W)
+    ncols = _check_factors(theta, phi, nb, W)
+    Bt = u.shape[0]
+    _check_vec("doc_ids", doc_ids, torch.int32, Bt, theta)
+    _check_vec("words", words, torch.int32, Bt, theta)
+    _check_vec("u", u, torch.float32, Bt, theta)
+    if not fused_fits(nb, W):
+        raise ValueError(f"fused draw needs too much shared memory at nb={nb}, W={W}")
+    out = torch.empty((Bt,), dtype=torch.int32, device=theta.device)
+    _launch(
+        "lda_fused_draw", theta.data_ptr(), phi.data_ptr(), doc_ids.data_ptr(),
+        words.data_ptr(), u.data_ptr(), out.data_ptr(), Bt, ncols, nb, W,
+        _DTYPES[theta.dtype],
+    )
+    return out
+
+
+def lda_fused_draw_torch(theta, phi, doc_ids, words, u, W: int) -> torch.Tensor:
+    """Plain version of :func:`lda_fused_draw`: pass A then pass B."""
+    nb = num_blocks(theta.shape[1], W)
+    running = lda_blocksums_torch(theta, phi, doc_ids, words, W, nb)
+    rows = torch.arange(u.shape[0], device=u.device)
+    return lda_walk_torch(theta, phi, running, u, rows, doc_ids, words, W)
+
+
+# ---------------------------------------------------------------------------
+# K6: running block sums of the factored weights
+# ---------------------------------------------------------------------------
+
+
+def lda_blocksums(theta, phi, doc_ids, words, W: int, nb: int) -> torch.Tensor:
+    """(Bt, nb) float32 running W-block sums of theta[doc_ids] *
+    phi[words] (K6); the (Bt, K) product never exists."""
+    ncols = _check_factors(theta, phi, nb, W)
+    Bt = doc_ids.shape[0]
+    _check_vec("doc_ids", doc_ids, torch.int32, Bt, theta)
+    _check_vec("words", words, torch.int32, Bt, theta)
+    out = torch.empty((Bt, nb), dtype=torch.float32, device=theta.device)
+    _launch(
+        "lda_blocksums", theta.data_ptr(), phi.data_ptr(), doc_ids.data_ptr(),
+        words.data_ptr(), out.data_ptr(), Bt, ncols, nb, W, _DTYPES[theta.dtype],
+    )
+    return out
+
+
+def _tile_cols(Kp: int, W: int) -> int:
+    """Column tile of the plain pass A: per-block slices at small K,
+    ~128-wide tiles beyond (the reference XLA twin's choice)."""
+    return W if Kp <= 512 else max(W, 128)
+
+
+def lda_blocksums_torch(theta, phi, doc_ids, words, W: int, nb: int) -> torch.Tensor:
+    """Plain version of :func:`lda_blocksums`, streamed in (Bt, TK)
+    column tiles."""
+    Kp = nb * W
+    ncols = theta.shape[1]
+    TK = _tile_cols(Kp, W)
+    doc_ids = doc_ids.long()
+    words = words.long()
+    sums = []
+    for c0 in range(0, Kp, TK):
+        c1 = min(c0 + TK, Kp)
+        th = theta[:, c0:min(c1, ncols)][doc_ids].float()
+        ph = phi[:, c0:min(c1, ncols)][words].float()
+        prod = th * ph
+        if prod.shape[1] < c1 - c0:  # the zero padding of the last block
+            prod = torch.nn.functional.pad(prod, (0, c1 - c0 - prod.shape[1]))
+        sums.append(prod.view(prod.shape[0], -1, W).sum(dim=-1))
+    return torch.cumsum(torch.cat(sums, dim=1), dim=1)
+
+
+# ---------------------------------------------------------------------------
+# K7: walk only the selected W-block of each sample's rows
+# ---------------------------------------------------------------------------
+
+
+def lda_walk(theta, phi, running, u, rows, doc_ids, words, W: int) -> torch.Tensor:
+    """(Bt,) int32 draws in [0, Kp) from prebuilt running block sums
+    (K7): draw s uses running row ``rows[s]``, and reads only block jb of
+    theta[doc_ids[s]] and phi[words[s]].  The kernel finds jb itself."""
+    nb = running.shape[1]
+    ncols = _check_factors(theta, phi, nb, W)
+    Bt = u.shape[0]
+    if running.device != theta.device or running.dtype != torch.float32 \
+            or running.dim() != 2 or not running.is_contiguous():
+        raise ValueError("running must be a contiguous 2-D float32 CUDA tensor")
+    _check_vec("u", u, torch.float32, Bt, theta)
+    for n, t in (("rows", rows), ("doc_ids", doc_ids), ("words", words)):
+        _check_vec(n, t, torch.int32, Bt, theta)
+    out = torch.empty((Bt,), dtype=torch.int32, device=theta.device)
+    _launch(
+        "lda_walk", theta.data_ptr(), phi.data_ptr(), running.data_ptr(),
+        u.data_ptr(), rows.data_ptr(), doc_ids.data_ptr(), words.data_ptr(),
+        out.data_ptr(), Bt, ncols, nb, W, _DTYPES[theta.dtype],
+    )
+    return out
+
+
+def lda_walk_torch(theta, phi, running, u, rows, doc_ids, words, W: int) -> torch.Tensor:
+    """Plain version of :func:`lda_walk`: gathers one W-block per draw."""
+    ncols = theta.shape[1]
+    run = running[rows.long()]
+    stop = run[:, -1] * u.float()
+    jb, lo = _select_tile(run, stop, W)
+    cols = jb.long()[:, None] * W + torch.arange(W, device=theta.device)[None, :]
+    valid = cols < ncols
+    cc = cols.clamp(max=ncols - 1)
+    th = theta[doc_ids.long()[:, None], cc].float()
+    ph = phi[words.long()[:, None], cc].float()
+    blk = torch.where(valid, th * ph, torch.zeros((), device=theta.device))
+    R = _descent_tile(_fenwick_tile(blk, W), stop, lo, W)
+    return jb * W + R
+
+
+# ---------------------------------------------------------------------------
+# The reference's _lda_draw_impl: route switch and clipping
+# ---------------------------------------------------------------------------
+
+
+def lda_draw_docs(theta, phi, doc_ids, words, u, W: int, impl: Optional[str] = None,
+                  route: Optional[str] = None) -> torch.Tensor:
+    """(B,) int32 draws in [0, K): one launch of K8, or K6 then K7 when
+    ``route="two_pass"`` or when the fused kernel's shared memory does not
+    fit (``route=None``).  Both routes return the same indices."""
+    K = theta.shape[1]
+    nb = num_blocks(K, W)
+    if route is None:
+        route = "fused" if fused_fits(nb, W) else "two_pass"
+    if route not in ("fused", "two_pass"):
+        raise ValueError(f"route must be 'fused' or 'two_pass', got {route!r}")
+    if runtime.resolve_impl(impl, theta) == "torch":
+        idx = lda_fused_draw_torch(theta, phi, doc_ids, words, u, W)
+    elif route == "fused":
+        idx = lda_fused_draw(theta, phi, doc_ids, words, u, W)
+    else:
+        running = lda_blocksums(theta, phi, doc_ids, words, W, nb)
+        rows = torch.arange(u.shape[0], dtype=torch.int32, device=u.device)
+        idx = lda_walk(theta, phi, running, u, rows, doc_ids, words, W)
+    return idx.clamp_(max=K - 1)

@@ -1,0 +1,112 @@
+"""Counter-based draw RNG (Threefry-2x32), bit-exact with the reference.
+
+The uniform for (row, draw) is a pure function of a (2,) seed pair and
+two counter words::
+
+    u = uniform(seed, counter0=global_row, counter1=draw_index)
+
+so multi-draw and sharded callers need no per-draw keys (see the
+reference ``repro.kernels.rng`` for the design).  The cipher is the one
+behind JAX's default PRNG; this module reproduces its bits exactly.
+
+PyTorch on the CPU has no uint32 ``+``, ``<<`` or ``>>``, so every word
+is held in an int64 tensor and masked back to 32 bits after each add and
+shift.  Seeds and outputs are int64 tensors whose values lie in
+[0, 2**32).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_MASK = 0xFFFFFFFF
+# Threefry-2x32 constants (Salmon et al. 2011; identical to JAX's PRNG).
+_KS_PARITY = 0x1BD11BDA
+_ROTS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+# domain tags: independent streams derived from one seed via fold()
+TAG_U = 1          # u-driven variants' per-(row, draw) uniform
+TAG_GUMBEL = 2     # per-(row, category) Gumbel noise
+TAG_ALIAS_J = 3    # alias draw: column pick
+TAG_ALIAS_A = 4    # alias draw: accept coordinate
+TAG_SPARSE_MH = 5  # sparse LDA MH-alias sweep: per-(token, use) uniforms
+
+
+def _u32(x, device=None) -> torch.Tensor:
+    """An int64 tensor holding x's values reduced modulo 2**32."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64) & _MASK
+    return torch.as_tensor(np.asarray(x, dtype=np.int64), device=device) & _MASK
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _MASK
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """The Threefry-2x32 block cipher (20 rounds).
+
+    Inputs are integers or integer tensors (broadcast together); returns
+    the two output words as int64 tensors with values in [0, 2**32)."""
+    dev = next(
+        (a.device for a in (k0, k1, x0, x1) if isinstance(a, torch.Tensor)), None
+    )
+    k0, k1, x0, x1 = (_u32(a, dev) for a in (k0, k1, x0, x1))
+    ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
+    x0 = (x0 + ks[0]) & _MASK
+    x1 = (x1 + ks[1]) & _MASK
+    for i in range(5):
+        for r in _ROTS[i % 2]:
+            x0 = (x0 + x1) & _MASK
+            x1 = _rotl(x1, r)
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK
+        x1 = (x1 + ks[(i + 2) % 3] + (i + 1)) & _MASK
+    return x0, x1
+
+
+def seed_from_key(key) -> torch.Tensor:
+    """(2,) seed pair from a raw uint32 key pair (or a single word, which
+    is taken as ``(0, word)`` like the reference)."""
+    arr = _u32(key).reshape(-1)
+    if arr.shape[0] == 1:
+        arr = torch.cat([torch.zeros_like(arr), arr])
+    return arr[-2:]
+
+
+def fold(seed: torch.Tensor, a, b=0) -> torch.Tensor:
+    """An independent (2,) seed derived from (seed, a, b)."""
+    seed = _u32(seed)
+    s0, s1 = threefry2x32(seed[0], seed[1], a, b)
+    return torch.stack([s0.reshape(()), s1.reshape(())])
+
+
+def bits_to_uniform(bits) -> torch.Tensor:
+    """uint32 bits -> float32 uniforms in [0, 1) (top 24 bits)."""
+    return (_u32(bits) >> 8).to(torch.float32) * (2.0 ** -24)
+
+
+def uniform(seed: torch.Tensor, counter0, counter1=0) -> torch.Tensor:
+    """Uniforms in [0, 1), one per broadcast element of the counters."""
+    seed = _u32(seed)
+    c0 = _u32(counter0, seed.device)
+    c1 = _u32(counter1, seed.device)
+    c0, c1 = torch.broadcast_tensors(c0, c1)
+    b0, _ = threefry2x32(seed[0], seed[1], c0, c1)
+    return bits_to_uniform(b0)
+
+
+def row_uniforms(seed: torch.Tensor, row0, n: int, draw=0) -> torch.Tensor:
+    """(n,) uniforms for global rows [row0, row0 + n) at one draw index."""
+    seed = _u32(seed)
+    rows = int(row0) + torch.arange(n, dtype=torch.int64, device=seed.device)
+    return uniform(seed, rows, draw)
+
+
+def multi_row_uniforms(seed: torch.Tensor, row0, n: int, S: int) -> torch.Tensor:
+    """(S, n) uniforms: draw s of global row r is counter (r, s)."""
+    seed = _u32(seed)
+    rows = int(row0) + torch.arange(n, dtype=torch.int64, device=seed.device)
+    draws = torch.arange(S, dtype=torch.int64, device=seed.device)
+    return uniform(seed, rows[None, :], draws[:, None])

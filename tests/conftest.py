@@ -19,3 +19,7 @@ def pytest_configure(config):
         "markers",
         "slow: long-running tests (multi-device subprocesses, full sweeps)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (skips, with its reason, without them)",
+    )
