@@ -9,7 +9,10 @@ sources and flags, under ``build/kernels/`` at the root of the checkout
 :func:`load` builds on the first launch, :func:`build_all` builds every
 library at once, one ``nvcc`` process per source, all started together.
 
-There is no fallback: a missing ``nvcc`` or a failed build raises.
+:func:`bind` sets the C functions' argument types, and :func:`launch`
+calls one on PyTorch's current stream, raises on a CUDA error and counts
+the launch.  There is no fallback: a missing ``nvcc``, a failed build or a
+failed launch raises.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 _KERNELS = Path(__file__).resolve().parent
 BUILD_DIR = _KERNELS.parents[2] / "build" / "kernels"
@@ -33,6 +36,8 @@ NVCC_FLAGS = (
 
 # library name -> main source, relative to kernels/
 SOURCES: Dict[str, str] = {
+    "butterfly_table": "butterfly_table/csrc/butterfly_table.cu",
+    "butterfly_sample": "butterfly_sample/csrc/butterfly_sample.cu",
     "lda_draw": "lda_draw/csrc/lda_draw.cu",
 }
 _INCLUDES = ("csrc",)
@@ -140,3 +145,37 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         _loaded[name] = lib
         return lib
+
+
+def bind(name: str, sigs: Dict[str, Sequence], warps: Optional[Tuple[str, int]] = None
+         ) -> ctypes.CDLL:
+    """The library ``name`` (built first if needed) with the argument types
+    of each C function in ``sigs`` set and an int return (the CUDA error).
+    ``warps`` = (C function, value): the library's warps per block, which
+    must equal the wrapper's (it sizes shared memory from it)."""
+    lib = load(name)
+    if not getattr(lib, "_bound", False):
+        for fn, argtypes in sigs.items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        if warps is not None:
+            fn = getattr(lib, warps[0])
+            fn.argtypes = []
+            fn.restype = ctypes.c_int
+            if fn() != warps[1]:
+                raise RuntimeError(f"{name} library disagrees on warps per block")
+        lib._bound = True
+    return lib
+
+
+def launch(lib: ctypes.CDLL, fn: str, counts: Dict[str, int], *args) -> None:
+    """Call kernel launcher ``fn`` of ``lib`` on PyTorch's current stream
+    (no synchronisation), raise if the launch failed, and add one to
+    ``counts[fn]``."""
+    import torch
+
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, fn)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: CUDA error {err}")
+    counts[fn] += 1

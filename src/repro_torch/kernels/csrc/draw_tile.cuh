@@ -28,24 +28,41 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// Per-W-block sums of w[k] = a[k] * b[k] over k < Kp = nb * W, with
+// Row loaders: load(k) is the weight of category k of one sample's row,
+// for k below the row's width.  A loader reads one element per call, so
+// the lanes of a warp that call it with neighbouring k read neighbouring
+// addresses (coalesced).
+template <typename T>
+struct ProductRow {  // w[k] = a[k] * b[k]: a theta row times a phi row
+  const T* __restrict__ a;
+  const T* __restrict__ b;
+  __device__ __forceinline__ float operator()(int k) const {
+    return __fmul_rn(to_f32(a[k]), to_f32(b[k]));
+  }
+};
+
+template <typename T>
+struct WeightRow {  // w[k]: one row of given weights
+  const T* __restrict__ w;
+  __device__ __forceinline__ float operator()(int k) const { return to_f32(w[k]); }
+};
+
+// Per-W-block sums of the loaded row w[k] over k < Kp = nb * W, with
 // w[k] = 0 for k >= ncols (the zero padding of K up to a multiple of W).
 // Lanes read neighbouring k (coalesced).  Block sums go to bs[0..nb); with
-// STORE the products also go to prod[0..Kp).  W is a power of two in
+// STORE the loaded values also go to prod[0..Kp).  W is a power of two in
 // [8, 128].  bs and prod may be shared or global memory.
-template <typename T, bool STORE>
-__device__ __forceinline__ void warp_block_sums(const T* __restrict__ a,
-                                                const T* __restrict__ b,
-                                                int ncols, int nb, int W,
-                                                float* prod, float* bs,
-                                                int lane) {
+template <bool STORE, typename Load>
+__device__ __forceinline__ void warp_block_sums(const Load& load, int ncols,
+                                                int nb, int W, float* prod,
+                                                float* bs, int lane) {
   const int Kp = nb * W;
   const int kv = ncols < Kp ? ncols : Kp;
   const int g = W < 32 ? W : 32;  // lanes that share one block per step
   for (int base = 0; base < Kp; base += 32) {
     const int k = base + lane;
     float v = 0.f;
-    if (k < kv) v = __fmul_rn(to_f32(a[k]), to_f32(b[k]));
+    if (k < kv) v = load(k);
     if (STORE && k < Kp) prod[k] = v;
     for (int off = 1; off < g; off <<= 1)
       v = __fadd_rn(v, __shfl_xor_sync(kFullMask, v, off));
@@ -56,6 +73,17 @@ __device__ __forceinline__ void warp_block_sums(const T* __restrict__ a,
     }
   }
   __syncwarp();
+}
+
+// Block jb of the loaded row into t[0..W), zero past the row's width.
+template <typename Load>
+__device__ __forceinline__ void warp_load_block(const Load& load, int ncols,
+                                                int jb, int W, float* t,
+                                                int lane) {
+  for (int i = lane; i < W; i += 32) {
+    const int k = jb * W + i;
+    t[i] = k < ncols ? load(k) : 0.f;
+  }
 }
 
 // In-place inclusive running sum of bs[0..nb): a warp scan over chunks of

@@ -37,13 +37,14 @@ namespace {
 
 constexpr int kWarps = 4;  // warps (samples in flight) per block
 
+using draw_tile::ProductRow;
 using draw_tile::warp_block_sums;
 using draw_tile::warp_draw_tile;
 using draw_tile::warp_fenwick;
+using draw_tile::warp_load_block;
 using draw_tile::warp_running;
 using draw_tile::warp_select;
 using draw_tile::descent;
-using draw_tile::to_f32;
 
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -60,9 +61,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int Kp = nb * W;
   float* prod = smem + wib * (Kp + nb);
   float* run = prod + Kp;
-  const T* a = theta + static_cast<size_t>(doc_ids[s]) * ncols;
-  const T* b = phi + static_cast<size_t>(words[s]) * ncols;
-  warp_block_sums<T, true>(a, b, ncols, nb, W, prod, run, lane);
+  const ProductRow<T> row{theta + static_cast<size_t>(doc_ids[s]) * ncols,
+                          phi + static_cast<size_t>(words[s]) * ncols};
+  warp_block_sums<true>(row, ncols, nb, W, prod, run, lane);
   const int idx = warp_draw_tile(prod, run, nb, W, u[s], lane);
   if (lane == 0) out[s] = idx;
 }
@@ -77,13 +78,13 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int lane = threadIdx.x & 31;
   const int s = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (s >= Bt) return;
-  const T* a = theta + static_cast<size_t>(doc_ids[s]) * ncols;
-  const T* b = phi + static_cast<size_t>(words[s]) * ncols;
+  const ProductRow<T> row{theta + static_cast<size_t>(doc_ids[s]) * ncols,
+                          phi + static_cast<size_t>(words[s]) * ncols};
   // the output row doubles as the scan buffer (__syncwarp orders global
   // memory among the warp's lanes as well as shared memory)
-  float* row = running + static_cast<size_t>(s) * nb;
-  warp_block_sums<T, false>(a, b, ncols, nb, W, nullptr, row, lane);
-  warp_running(row, nb, lane);
+  float* out = running + static_cast<size_t>(s) * nb;
+  warp_block_sums<false>(row, ncols, nb, W, nullptr, out, lane);
+  warp_running(out, nb, lane);
 }
 
 template <typename T>
@@ -106,14 +107,9 @@ __global__ void __launch_bounds__(kWarps * 32)
   float lo;
   warp_select(run, nb, stop, lane, jb, lo);
   // fetch only block jb of the two rows
-  const int Kp = nb * W;
-  const int kv = ncols < Kp ? ncols : Kp;
-  const T* a = theta + static_cast<size_t>(doc_ids[s]) * ncols;
-  const T* b = phi + static_cast<size_t>(words[s]) * ncols;
-  for (int i = lane; i < W; i += 32) {
-    const int k = jb * W + i;
-    t[i] = k < kv ? __fmul_rn(to_f32(a[k]), to_f32(b[k])) : 0.f;
-  }
+  const ProductRow<T> row{theta + static_cast<size_t>(doc_ids[s]) * ncols,
+                          phi + static_cast<size_t>(words[s]) * ncols};
+  warp_load_block(row, ncols, jb, W, t, lane);
   warp_fenwick(t, W, lane);
   const int R = descent(t, stop, lo, W);
   if (lane == 0) out[s] = jb * W + R;

@@ -35,9 +35,12 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import runtime
 from repro_torch.kernels.butterfly_sample.kernel import (
+    _DTYPES,
+    _check_vec,
     _descent_tile,
     _fenwick_tile,
     _select_tile,
+    num_blocks,
 )
 
 # launches per wrapper since the last reset_launches()
@@ -51,16 +54,10 @@ LAUNCHES: Dict[str, int] = {"lda_fused_draw": 0, "lda_blocksums": 0, "lda_walk":
 _WARPS_PER_BLOCK = 4
 _FUSED_SMEM_BYTES = 48 << 10
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
-
-
-def num_blocks(K: int, W: int) -> int:
-    return -(-K // W)
 
 
 def fused_fits(nb: int, W: int) -> bool:
@@ -81,27 +78,9 @@ _SIGS = {
 }
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("lda_draw")
-    if not getattr(lib, "_bound", False):
-        for name, argtypes in _SIGS.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.lda_warps_per_block.argtypes = []
-        lib.lda_warps_per_block.restype = ctypes.c_int
-        if lib.lda_warps_per_block() != _WARPS_PER_BLOCK:
-            raise RuntimeError("lda_draw library disagrees on warps per block")
-        lib._bound = True
-    return lib
-
-
 def _launch(name: str, *args) -> None:
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(_lib(), name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    lib = _build.bind("lda_draw", _SIGS, ("lda_warps_per_block", _WARPS_PER_BLOCK))
+    _build.launch(lib, name, LAUNCHES, *args)
 
 
 def _check_factors(theta, phi, nb: int, W: int) -> int:
@@ -121,15 +100,6 @@ def _check_factors(theta, phi, nb: int, W: int) -> int:
     if not (nb - 1) * W < ncols <= nb * W:
         raise ValueError(f"row width {ncols} does not give nb={nb} blocks of W={W}")
     return ncols
-
-
-def _check_vec(name: str, t: torch.Tensor, dtype, n: int, like: torch.Tensor):
-    if t.device != like.device or t.dtype != dtype or t.shape != (n,) \
-            or not t.is_contiguous():
-        raise ValueError(
-            f"{name} must be a contiguous ({n},) {dtype} tensor on {like.device}, "
-            f"got {tuple(t.shape)} {t.dtype} on {t.device}"
-        )
 
 
 # ---------------------------------------------------------------------------

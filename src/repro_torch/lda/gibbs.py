@@ -6,8 +6,12 @@ One sweep =
      loop.  ``method="lda_kernel"`` (the default here) draws straight from
      the factors — on CUDA the fused Hopper kernel, one launch per chunk
      of documents — and the (chunk*maxN, K) weight tensor never exists.
-     ``prefix`` / ``butterfly`` / ``fenwick`` / ``two_level`` form one
-     chunk's weights at a time and draw through their tables.
+     ``prefix`` / ``butterfly`` / ``fenwick`` / ``two_level`` / ``kernel``
+     form one chunk's weights at a time and draw through their tables.
+     On CUDA, ``butterfly`` builds the paper's Alg. 8 table with the
+     Hopper kernel K1 (one launch per chunk) and searches it in PyTorch;
+     ``kernel`` is the two-pass draw on given weights, pass A (K2) then
+     pass B (K3), one launch each per chunk.
   2. UPDATE THETA — theta[m,:] ~ Dirichlet(alpha + doc-topic counts).
   3. UPDATE PHI   — phi[:,k]  ~ Dirichlet(beta + word-topic counts).
 
@@ -20,9 +24,9 @@ In place: :func:`gibbs_step` writes the new topics into ``state.z``, where
 the reference donates that buffer — after a sweep the old state's ``z``
 must not be read again (rebind the returned state).
 
-Not in this slice (each raises ``NotImplementedError`` naming the ROADMAP
-queue-1 slice that brings it): ``method="auto"``, the ``gumbel``,
-``kernel``, ``alias`` strategies, ``dists=`` and ``sparse=``.
+Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
+queue-1 slice that brings it): ``method="auto"``, the ``gumbel`` and
+``alias`` strategies, ``dists=`` and ``sparse=``.
 """
 
 from __future__ import annotations
@@ -36,10 +40,9 @@ from repro_torch.kernels import runtime
 from repro_torch.lda.corpus import Corpus
 from repro_torch.sampling import distribution as _dist
 
-METHODS = ("lda_kernel", "prefix", "butterfly", "fenwick", "two_level")
+METHODS = ("lda_kernel", "prefix", "butterfly", "fenwick", "two_level", "kernel")
 _LATER = {
     "auto": "slice 9 (candidates and autotune)",
-    "kernel": "slice 3 (draws on given weights)",
     "gumbel": "slice 6 (remaining frozen-distribution strategies)",
     "alias": "slice 6 (remaining frozen-distribution strategies)",
     "alias_device": "slice 6 (remaining frozen-distribution strategies)",

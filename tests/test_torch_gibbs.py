@@ -52,7 +52,7 @@ def test_state_round_trip(ref_state):
 
 
 @pytest.mark.parametrize("method", ["lda_kernel", "prefix", "butterfly", "fenwick",
-                                    "two_level"])
+                                    "two_level", "kernel"])
 def test_chunked_draw_reproduces_reference(small_corpus, ref_state, method):
     """Fed the reference's per-chunk uniforms, the port's chunked draw gives
     the reference's z; a mismatch must be a float64-checked boundary tie."""
@@ -153,9 +153,25 @@ def test_lda_kernel_sweeps_lower_perplexity():
     assert z.shape == (3, *corpus.docs.shape) and 0 <= int(z.min()) and int(z.max()) < 6
 
 
+@pytest.mark.parametrize("method", ["butterfly", "kernel"])
+def test_table_sweeps_lower_perplexity(method):
+    """A few sweeps of the two methods this slice brings lower perplexity
+    and keep theta on the simplex (plain versions on the CPU)."""
+    corpus = tcorpus.synthesize_corpus(seed=4, M=48, V=80, K=6, avg_len=30, max_len=60)
+    state = tg.init_state(0, corpus, 6, device=CPU)
+    p0 = tg.perplexity(state, corpus)
+    for _ in range(6):
+        state = tg.gibbs_step(state, corpus, method=method, W=8, chunk=16)
+    p1 = tg.perplexity(state, corpus)
+    assert np.isfinite(p1) and p1 < p0, (p0, p1)
+    th = state.theta
+    assert torch.allclose(th.sum(dim=1), torch.ones(th.shape[0]), atol=1e-5)
+    assert 0 <= int(state.z.min()) and int(state.z.max()) < 6
+
+
 def test_unported_options_raise(small_corpus):
     state = tg.init_state(0, small_corpus, 8, device=CPU)
-    for m in ("auto", "gumbel", "kernel", "alias"):
+    for m in ("auto", "gumbel", "alias"):
         with pytest.raises(NotImplementedError, match="slice"):
             tg.gibbs_step(state, small_corpus, method=m)
     with pytest.raises(NotImplementedError, match="slice 8"):
