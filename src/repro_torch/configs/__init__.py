@@ -1,1 +1,2 @@
-"""Run configurations of the port (this slice: the LDA sweep)."""
+"""Run configurations of the port: the LDA sweep, the sampler spec and
+gemma2-9b's decode sampler."""

@@ -38,7 +38,9 @@ NVCC_FLAGS = (
 SOURCES: Dict[str, str] = {
     "butterfly_table": "butterfly_table/csrc/butterfly_table.cu",
     "butterfly_sample": "butterfly_sample/csrc/butterfly_sample.cu",
+    "butterfly_trunc": "butterfly_sample/csrc/butterfly_trunc.cu",
     "lda_draw": "lda_draw/csrc/lda_draw.cu",
+    "alias_build": "alias_build/csrc/alias_build.cu",
 }
 _INCLUDES = ("csrc",)
 

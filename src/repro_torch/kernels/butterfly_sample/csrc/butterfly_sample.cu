@@ -38,12 +38,9 @@ namespace {
 
 constexpr int kWarps = 4;  // warps (samples in flight) per block
 
-using draw_tile::descent;
 using draw_tile::warp_block_sums;
-using draw_tile::warp_fenwick;
-using draw_tile::warp_load_block;
 using draw_tile::warp_running;
-using draw_tile::warp_select;
+using draw_tile::warp_walk;
 using draw_tile::WeightRow;
 
 template <typename T>
@@ -60,22 +57,6 @@ __global__ void __launch_bounds__(kWarps * 32)
   warp_running(out, nb, lane);
 }
 
-// Select, Fenwick and descend for one sample whose running row is run:
-// block jb of the loaded row goes to t[0..W).  Returns the index in
-// [0, Kp).
-template <typename T>
-__device__ __forceinline__ int walk_row(const WeightRow<T>& row,
-                                        const float* run, int ncols, int nb,
-                                        int W, float u, float* t, int lane) {
-  const float stop = __fmul_rn(run[nb - 1], u);
-  int jb;
-  float lo;
-  warp_select(run, nb, stop, lane, jb, lo);
-  warp_load_block(row, ncols, jb, W, t, lane);
-  warp_fenwick(t, W, lane);
-  return jb * W + descent(t, stop, lo, W);
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     walk_kernel(const T* __restrict__ w, const float* __restrict__ running,
@@ -88,7 +69,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (s >= Bt) return;
   const size_t r = static_cast<size_t>(rows[s]);
   const WeightRow<T> row{w + r * ncols};
-  const int idx = walk_row(row, running + r * nb, ncols, nb, W, u[s],
+  const int idx = warp_walk(row, running + r * nb, ncols, nb, W, u[s],
                            smem + wib * W, lane);
   if (lane == 0) out[s] = idx;
 }
@@ -107,7 +88,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const WeightRow<T> row{w + static_cast<size_t>(s) * ncols};
   warp_block_sums<false>(row, ncols, nb, W, nullptr, run, lane);
   warp_running(run, nb, lane);
-  const int idx = walk_row(row, run, ncols, nb, W, u[s], t, lane);
+  const int idx = warp_walk(row, run, ncols, nb, W, u[s], t, lane);
   if (lane == 0) out[s] = idx;
 }
 

@@ -18,16 +18,21 @@ kernels below use.  The reference's one-hot lane reductions become direct
 gathers here; the arithmetic (which values are added, in which order) is
 the same, so on equal tiles the results are equal bit for bit.
 
-Three kernels (``csrc/butterfly_sample.cu``) replace the reference's
-Pallas kernels in ``repro/kernels/butterfly_sample/kernel.py``:
+Six kernels replace the reference's Pallas kernels in
+``repro/kernels/butterfly_sample/kernel.py``; the first three are in
+``csrc/butterfly_sample.cu``, the truncated draws in
+``csrc/butterfly_trunc.cu``:
 
-================  ================================  =====================
-wrapper           replaces                          plain version
-================  ================================  =====================
-``blocksums``     ``_blocksum_kernel`` (K2)         ``blocksums_torch``
-``walk``          ``_walk_kernel`` (K3)             ``walk_torch``
-``fused_draw``    ``_fused_draw_kernel`` (K4)       ``fused_draw_torch``
-================  ================================  =====================
+====================  ===================================  ===========================
+wrapper               replaces                             plain version
+====================  ===================================  ===========================
+``blocksums``         ``_blocksum_kernel`` (K2)            ``blocksums_torch``
+``walk``              ``_walk_kernel`` (K3)                ``walk_torch``
+``fused_draw``        ``_fused_draw_kernel`` (K4)          ``fused_draw_torch``
+``fused_trunc_draw``  ``_fused_trunc_draw_kernel`` (K9)    ``fused_trunc_draw_torch``
+``masked_blocksums``  ``_masked_blocksum_kernel`` (K11)    ``masked_blocksums_torch``
+``walk_trunc``        ``_walk_trunc_kernel`` (K12)         ``walk_trunc_torch``
+====================  ===================================  ===========================
 
 A wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates its output with ``torch.empty``, launches on the
@@ -48,7 +53,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import runtime
 
 # launches per wrapper since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"blocksums": 0, "walk": 0, "fused_draw": 0}
+LAUNCHES: Dict[str, int] = {"blocksums": 0, "walk": 0, "fused_draw": 0,
+                            "fused_trunc_draw": 0, "masked_blocksums": 0,
+                            "walk_trunc": 0}
 
 # Fused / two-pass switch.  The fused kernel (K4) keeps one sample's nb
 # running sums and one W-block in shared memory, _WARPS_PER_BLOCK samples
@@ -59,6 +66,15 @@ _WARPS_PER_BLOCK = 4
 _FUSED_SMEM_BYTES = 48 << 10
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The fused truncated draw (K9) runs one block of _TRUNC_THREADS threads per
+# row and stages the row (as fp32) in dynamic shared memory while
+# (2 * _TRUNC_THREADS / 32 + nb + W + K) floats fit the 227 KB a block may
+# opt into; a longer row is read from global memory (L2) on every pass.
+# Staging is the faster of the two where both run (chip_smoke.py times both
+# at K = 32,000 and 56,000; PERF.md).
+_TRUNC_THREADS = 1024
+_MAX_SMEM_BYTES = 232448
 
 
 def _log2(W: int) -> int:
@@ -138,6 +154,11 @@ def fused_fits(nb: int, W: int) -> bool:
     return 4 * _WARPS_PER_BLOCK * (nb + W) <= _FUSED_SMEM_BYTES
 
 
+def trunc_row_staged(ncols: int, nb: int, W: int) -> bool:
+    """True when K9 can stage a row of ``ncols`` weights in shared memory."""
+    return 4 * (2 * _TRUNC_THREADS // 32 + nb + W + ncols) <= _MAX_SMEM_BYTES
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
@@ -156,9 +177,20 @@ _SIGS = {
 }
 
 
+_TRUNC_SIGS = {
+    "fused_trunc_draw": [_P] * 4 + [_I] * 7 + [_P],
+    "masked_blocksums": [_P] * 3 + [_I] * 5 + [_P],
+    "walk_trunc": [_P] * 6 + [_I] * 5 + [_P],
+}
+
+
 def _launch(name: str, *args) -> None:
-    lib = _build.bind("butterfly_sample", _SIGS,
-                      ("butterfly_sample_warps_per_block", _WARPS_PER_BLOCK))
+    if name in _TRUNC_SIGS:
+        lib = _build.bind("butterfly_trunc", _TRUNC_SIGS,
+                          ("butterfly_trunc_threads", _TRUNC_THREADS))
+    else:
+        lib = _build.bind("butterfly_sample", _SIGS,
+                          ("butterfly_sample_warps_per_block", _WARPS_PER_BLOCK))
     _build.launch(lib, name, LAUNCHES, *args)
 
 
@@ -285,3 +317,124 @@ def fused_draw_torch(w, u, W: int) -> torch.Tensor:
     running = blocksums_torch(w, W, nb)
     rows = torch.arange(w.shape[0], device=w.device)
     return walk_torch(w, running, u, rows, W)
+
+
+# ---------------------------------------------------------------------------
+# K9: fused truncated draw (threshold, mask, draw), one launch per batch
+# ---------------------------------------------------------------------------
+
+
+def _check_params(params: torch.Tensor, B: int, like: torch.Tensor) -> None:
+    if params.device != like.device or params.dtype != torch.float32 \
+            or tuple(params.shape) != (B, 3) or not params.is_contiguous():
+        raise ValueError(
+            f"params must be a contiguous ({B}, 3) float32 tensor on {like.device}, "
+            f"got {tuple(params.shape)} {params.dtype} on {params.device}"
+        )
+
+
+def fused_trunc_draw(w, u, params, W: int, iters: int = 32) -> torch.Tensor:
+    """(B,) int32 draws in [0, Kp) from (B, K) weights truncated per row by
+    ``params`` (B, 3) ``[top_k, top_p, min_p]`` (K9): the threshold tau by
+    bisection, the mask ``w >= tau`` and the draw, in one launch."""
+    return _fused_trunc_draw(w, u, params, W, iters, None)
+
+
+def _fused_trunc_draw(w, u, params, W: int, iters: int, staged) -> torch.Tensor:
+    """:func:`fused_trunc_draw` with each row staged in shared memory
+    (``staged`` True) or read from L2 (False); None stages where it fits.
+    Forcing is for measuring the two row sources against each other."""
+    nb = num_blocks(w.shape[1], W)
+    ncols = _check_weights(w, nb, W)
+    B = w.shape[0]
+    _check_vec("u", u, torch.float32, B, w)
+    _check_params(params, B, w)
+    fits = trunc_row_staged(ncols, nb, W)
+    if staged and not fits:
+        raise ValueError(f"a row of {ncols} weights does not fit shared memory")
+    out = torch.empty((B,), dtype=torch.int32, device=w.device)
+    _launch("fused_trunc_draw", w.data_ptr(), u.data_ptr(), params.data_ptr(),
+            out.data_ptr(), B, ncols, nb, W, int(iters),
+            int(fits if staged is None else staged), _DTYPES[w.dtype])
+    return out
+
+
+def _mask(wf: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
+    """``wf * [wf >= tau[row]]``: the truncated rows."""
+    return torch.where(wf >= tau[:, None], wf, torch.zeros((), dtype=wf.dtype,
+                                                           device=wf.device))
+
+
+def fused_trunc_draw_torch(w, u, params, W: int, iters: int = 32) -> torch.Tensor:
+    """Plain version of :func:`fused_trunc_draw`: tau from
+    ``transforms.thresholds_from_params``, then the draw on the masked
+    weights."""
+    from repro_torch.sampling import transforms as _tr
+
+    wf = _float_rows(w)
+    return fused_draw_torch(_mask(wf, _tr.thresholds_from_params(wf, params, iters=iters)),
+                            u, W)
+
+
+# ---------------------------------------------------------------------------
+# K11: running block sums of the masked weights w * [w >= tau]
+# ---------------------------------------------------------------------------
+
+
+def masked_blocksums(w, tau, W: int, nb: int) -> torch.Tensor:
+    """(B, nb) float32 running W-block sums of ``w * [w >= tau[row]]``
+    (K11); the masked weights are never written."""
+    ncols = _check_weights(w, nb, W)
+    B = w.shape[0]
+    _check_vec("tau", tau, torch.float32, B, w)
+    out = torch.empty((B, nb), dtype=torch.float32, device=w.device)
+    _launch("masked_blocksums", w.data_ptr(), tau.data_ptr(), out.data_ptr(), B,
+            ncols, nb, W, _DTYPES[w.dtype])
+    return out
+
+
+def masked_blocksums_torch(w, tau, W: int, nb: int) -> torch.Tensor:
+    """Plain version of :func:`masked_blocksums`."""
+    return blocksums_torch(_mask(_float_rows(w), tau), W, nb)
+
+
+# ---------------------------------------------------------------------------
+# K12: walk the selected W-block of each draw's row, re-masked by its tau
+# ---------------------------------------------------------------------------
+
+
+def walk_trunc(w, running, u, tau, rows, W: int) -> torch.Tensor:
+    """(Bt,) int32 draws in [0, Kp) from masked running sums (K12): draw s
+    uses row ``rows[s]``, reads only block jb of that row and masks it
+    with ``tau[rows[s]]``.  rows must index valid rows (not checked)."""
+    nb = running.shape[1]
+    ncols = _check_weights(w, nb, W)
+    _check_running(running, w)
+    B = w.shape[0]
+    if running.shape[0] != B:
+        raise ValueError("running and weights must have one row per sample")
+    _check_vec("tau", tau, torch.float32, B, w)
+    Bt = u.shape[0]
+    _check_vec("u", u, torch.float32, Bt, w)
+    _check_vec("rows", rows, torch.int32, Bt, w)
+    out = torch.empty((Bt,), dtype=torch.int32, device=w.device)
+    _launch("walk_trunc", w.data_ptr(), running.data_ptr(), u.data_ptr(),
+            tau.data_ptr(), rows.data_ptr(), out.data_ptr(), Bt, ncols, nb, W,
+            _DTYPES[w.dtype])
+    return out
+
+
+def walk_trunc_torch(w, running, u, tau, rows, W: int) -> torch.Tensor:
+    """Plain version of :func:`walk_trunc`."""
+    ncols = w.shape[1]
+    rows = rows.long()
+    run = running[rows]
+    stop = run[:, -1] * u.float()
+    jb, lo = _select_tile(run, stop, W)
+    cols = jb.long()[:, None] * W + torch.arange(W, device=w.device)[None, :]
+    valid = cols < ncols
+    blk = _float_rows(w[rows[:, None], cols.clamp(max=ncols - 1)])
+    blk = torch.where(valid & (blk >= tau[rows][:, None]), blk,
+                      torch.zeros((), dtype=blk.dtype, device=w.device))
+    R = _descent_tile(_fenwick_tile(blk, W), stop, lo, W)
+    return jb * W + R

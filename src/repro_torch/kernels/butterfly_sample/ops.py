@@ -11,7 +11,11 @@ Counterparts of ``repro.kernels.butterfly_sample.ops``:
   pair, with (B,) or (S, B) uniforms (all S*B walks in one launch);
 * :func:`butterfly_sample_from_sums_rng` — pass B with counter-RNG
   uniforms derived outside the kernel, as the reference's
-  ``sample_from_block_sums_rng_pallas`` does.
+  ``sample_from_block_sums_rng_pallas`` does;
+* :func:`butterfly_sample_truncated` — the truncated (top-k, top-p,
+  min-p) draw: the fused kernel (K9) for one draw per row, or tau in
+  plain PyTorch (``sampling.transforms.thresholds_from_params``) then
+  masked pass A (K11) and masked pass B (K12) for S draws per row.
 
 Every entry point resolves ``impl`` through
 :func:`repro_torch.kernels.runtime.resolve_impl`: the Hopper kernels for
@@ -22,8 +26,9 @@ The reference returns its weights padded to a multiple of its column
 tile; the port's kernels pad K virtually, so :func:`build_block_sums`
 returns the weights as given (contiguous) and ``running`` has
 ceil(K / W) columns.  Either form is accepted by the draws.  The seeded
-fused draw (``butterfly_sample_rng``, K5) and the truncated draws (K9-K12)
-are not ported yet.
+fused draws (``butterfly_sample_rng``, K5, and
+``butterfly_sample_truncated_rng``, K10) come with the mesh-sharded draw
+(ROADMAP slice 11); calling them raises.
 """
 
 from __future__ import annotations
@@ -40,9 +45,15 @@ from repro_torch.kernels.butterfly_sample.kernel import (
     fused_draw,
     fused_draw_torch,
     fused_fits,
+    fused_trunc_draw,
+    fused_trunc_draw_torch,
+    masked_blocksums,
+    masked_blocksums_torch,
     num_blocks,
     walk,
     walk_torch,
+    walk_trunc,
+    walk_trunc_torch,
 )
 
 ROUTES = ("fused", "two_pass")
@@ -135,3 +146,71 @@ def butterfly_sample_from_sums_rng(wp, running, seed, B: int, K: int, S: int = 1
     else:
         u = _rng.multi_row_uniforms(seed2, row_offset, B, S)
     return butterfly_sample_from_sums(wp, running, u, K=K, W=W, impl=impl)
+
+
+def butterfly_sample_truncated(weights, u, params, W: int = 32, iters: int = 32,
+                               route: Optional[str] = None,
+                               impl: Optional[str] = None) -> torch.Tensor:
+    """Truncated draw: (B, K) weights, uniforms and a (B, 3) canonical
+    ``[top_k, top_p, min_p]`` block -> indices from the renormalized
+    truncated distribution, (B,) for (B,) uniforms, (S, B) for (S, B).
+
+    ``route=None`` takes the fused kernel (K9) for (B,) uniforms at any K
+    and the two-pass route for (S, B) uniforms; ``"fused"`` (one launch
+    of K9, (B,) uniforms only) or ``"two_pass"`` (tau by
+    ``transforms.thresholds_from_params`` in plain PyTorch, then K11 and
+    K12, all S*B walks in one launch) forces one.  The reference switches
+    to the two-pass route where its row tile outgrows VMEM; K9 stages a
+    row in shared memory while it fits and reads a longer one from L2,
+    and was measured faster than the two-pass route at (64, 256000)
+    (PERF.md), so only S draws per row take the two-pass route.  No
+    route sorts."""
+    from repro_torch.sampling import transforms as _tr
+
+    runtime.check_w(W)
+    w = _weights(weights)
+    u = _floats(u, w)
+    prm = _floats(params, w)
+    B, K = w.shape
+    if tuple(prm.shape) != (B, 3):
+        raise ValueError(f"params must be (B, 3) [top_k, top_p, min_p], got {tuple(prm.shape)}")
+    multi = u.dim() == 2
+    if route is None:
+        route = "two_pass" if multi else "fused"
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    impl = runtime.resolve_impl(impl, w)
+    if route == "fused":
+        if multi:
+            raise ValueError("the fused truncated draw takes (B,) uniforms; "
+                             "S draws per row take the two-pass route")
+        fn = fused_trunc_draw if impl == "cuda" else fused_trunc_draw_torch
+        return fn(w, u, prm, W, iters).clamp_(max=K - 1)
+    nb = num_blocks(K, W)
+    tau = _tr.thresholds_from_params(w, prm, iters=iters).contiguous()
+    S = u.shape[0] if multi else 1
+    rows = torch.arange(B, dtype=torch.int32, device=w.device).repeat(S)
+    if impl == "cuda":
+        run = masked_blocksums(w, tau, W, nb)
+        idx = walk_trunc(w, run, u.reshape(-1), tau, rows, W)
+    else:
+        run = masked_blocksums_torch(w, tau, W, nb)
+        idx = walk_trunc_torch(w, run, u.reshape(-1), tau, rows, W)
+    idx = idx.clamp_(max=K - 1)
+    return idx.view(S, B) if multi else idx
+
+
+def butterfly_sample_rng(*args, **kwargs):
+    """The seeded fused draw (K5) comes with the mesh-sharded draw."""
+    raise NotImplementedError(
+        "butterfly_sample_rng (K5, Threefry uniforms made in the kernel) is not "
+        "ported yet: ROADMAP queue 1, slice 11 (multi-device draws)"
+    )
+
+
+def butterfly_sample_truncated_rng(*args, **kwargs):
+    """The seeded truncated draw (K10) comes with the mesh-sharded draw."""
+    raise NotImplementedError(
+        "butterfly_sample_truncated_rng (K10) is not ported yet: ROADMAP "
+        "queue 1, slice 11 (multi-device draws)"
+    )

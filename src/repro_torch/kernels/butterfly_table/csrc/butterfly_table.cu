@@ -19,9 +19,13 @@
 // bit for bit wherever their adds agree, and the closed form on integer
 // weights.
 //
-// Limit.  One lane keeps W floats in registers and the xor partner is a
-// lane of the same warp, so W <= 32 (W = 64 or 128 would need shared
-// memory for the rounds with bit >= 32).  The wrapper rejects larger W.
+// W = 64 and 128.  One lane still keeps W floats in registers, but a
+// block's W lanes span W / 32 warps, so one thread block holds one group:
+// the rounds with bit < 32 stay __shfl_xor_sync inside a warp, and the
+// rounds with bit >= 32 exchange through shared memory between the warps
+// of the block (at most W / 64 values per lane per round), with a barrier
+// before each read and before the next write.  The wrapper rejects any W
+// that is not a power of two in [2, 128].
 //
 // Layouts.  layout 0 writes the reference's (B, K) table: block (g, c)
 // at rows g*W.., columns c*W..; layout 1 writes (G, nb, W, W), the form
@@ -99,6 +103,85 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// W in {64, 128}: one group of W samples per thread block of W threads;
+// thread r is the group's lane r (category r of each block).
+template <typename T, int W, bool BLOCKS>
+__global__ void __launch_bounds__(W)
+    butterfly_table_wide_kernel(const T* __restrict__ w,
+                                float* __restrict__ out, int nb) {
+  constexpr int kLog2 = ilog2(W);
+  __shared__ float xs[(W / 64) * W];  // exchange rows for bit >= 32
+  const int r = threadIdx.x;
+  const int g = blockIdx.x;
+  const int Kp = nb * W;
+  const size_t row0 = static_cast<size_t>(g) * W;
+  float carry = 0.f;
+  for (int c = 0; c < nb; ++c) {
+    float a[W];
+#pragma unroll
+    for (int k = 0; k < W; ++k) a[k] = to_f32(w[(row0 + k) * Kp + c * W + r]);
+#pragma unroll
+    for (int b = 0; b < kLog2; ++b) {
+      const int bit = 1 << b;
+      const bool has = (r & bit) != 0;
+      if (bit < 32) {
+#pragma unroll
+        for (int i = 0; i < W / (2 * bit); ++i) {
+          const int d = bit - 1 + 2 * bit * i;
+          const float ad = a[d];
+          const float adb = a[d + bit];
+          const float v = __shfl_xor_sync(kFullMask, has ? ad : adb, bit);
+          const float nd = has ? adb : ad;
+          a[d] = nd;
+          a[d + bit] = __fadd_rn(nd, v);
+        }
+      } else {
+        constexpr int kMaxPairs = W / 64;
+        const int pairs = W / (2 * bit);
+#pragma unroll
+        for (int i = 0; i < kMaxPairs; ++i) {
+          if (i < pairs) {
+            const int d = bit - 1 + 2 * bit * i;
+            xs[i * W + r] = has ? a[d] : a[d + bit];
+          }
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < kMaxPairs; ++i) {
+          if (i < pairs) {
+            const int d = bit - 1 + 2 * bit * i;
+            const float v = xs[i * W + (r ^ bit)];
+            const float nd = has ? a[d + bit] : a[d];
+            a[d] = nd;
+            a[d + bit] = __fadd_rn(nd, v);
+          }
+        }
+        __syncthreads();
+      }
+    }
+    carry = __fadd_rn(carry, a[W - 1]);  // sample r's running prefix
+    a[W - 1] = carry;
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const size_t idx = BLOCKS ? ((static_cast<size_t>(g) * nb + c) * W + i) * W + r
+                                : (row0 + i) * Kp + c * W + r;
+      out[idx] = a[i];
+    }
+  }
+}
+
+template <typename T, int W>
+int launch_wide(const void* w, void* out, int G, int nb, int layout,
+                cudaStream_t st) {
+  const T* src = static_cast<const T*>(w);
+  float* dst = static_cast<float*>(out);
+  if (layout == 1)
+    butterfly_table_wide_kernel<T, W, true><<<G, W, 0, st>>>(src, dst, nb);
+  else
+    butterfly_table_wide_kernel<T, W, false><<<G, W, 0, st>>>(src, dst, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int W>
 int launch(const void* w, void* out, int G, int nb, int layout,
            cudaStream_t st) {
@@ -123,6 +206,8 @@ int dispatch_w(const void* w, void* out, int G, int nb, int W, int layout,
     case 8: return launch<T, 8>(w, out, G, nb, layout, st);
     case 16: return launch<T, 16>(w, out, G, nb, layout, st);
     case 32: return launch<T, 32>(w, out, G, nb, layout, st);
+    case 64: return launch_wide<T, 64>(w, out, G, nb, layout, st);
+    case 128: return launch_wide<T, 128>(w, out, G, nb, layout, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -133,7 +218,7 @@ int dispatch_w(const void* w, void* out, int G, int nb, int W, int layout,
 // 0 = float32, 1 = bfloat16; out: float32, layout 0 = (B, K), 1 = (G, nb,
 // W, W).  Launches on the given stream, does not synchronise, and returns
 // cudaGetLastError() (0 on success; cudaErrorInvalidValue for a W outside
-// {2, 4, 8, 16, 32}).
+// {2, 4, 8, 16, 32, 64, 128}).
 extern "C" {
 
 int butterfly_table(const void* weights, void* out, int G, int nb, int W,

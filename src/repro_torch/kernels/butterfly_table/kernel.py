@@ -13,8 +13,10 @@ Two layouts of the same table:
   reads; the kernel writes it directly, so no permuted copy is made.
 
 Row W-1 of every block holds each sample's running prefix through that
-block.  The kernel keeps a W x W block in the registers of W lanes, so it
-takes W a power of two in [2, 32].
+block.  The kernel keeps a W x W block in the registers of W lanes (for
+W = 64 and 128 the lanes of W / 32 warps, which exchange through shared
+memory in the rounds with bit >= 32), so it takes W a power of two in
+[2, 128].
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.kernels.butterfly_sample.kernel import _DTYPES
 # launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"butterfly_table": 0}
 LAYOUTS = ("rows", "blocks")
-MAX_W = 32
+MAX_W = 128
 _SIGS = {"butterfly_table": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]}
 
 
@@ -40,12 +42,12 @@ def reset_launches() -> None:
 
 
 def check_table_w(W: int) -> int:
-    """K1 takes W a power of two in [2, 32]: one W x W block lives in the
-    registers of W lanes of one warp."""
+    """K1 takes W a power of two in [2, 128]: one W x W block lives in the
+    registers of W lanes."""
     if W < 2 or W > MAX_W or (W & (W - 1)) != 0:
         raise ValueError(
             f"the butterfly table kernel takes W a power of two in [2, {MAX_W}] "
-            f"(one block in one warp's registers), got {W}"
+            f"(one block in the registers of W lanes), got {W}"
         )
     return W
 

@@ -48,31 +48,48 @@ struct WeightRow {  // w[k]: one row of given weights
 };
 
 // Per-W-block sums of the loaded row w[k] over k < Kp = nb * W, with
-// w[k] = 0 for k >= ncols (the zero padding of K up to a multiple of W).
-// Lanes read neighbouring k (coalesced).  Block sums go to bs[0..nb); with
-// STORE the loaded values also go to prod[0..Kp).  W is a power of two in
-// [8, 128].  bs and prod may be shared or global memory.
+// w[k] = 0 for k >= ncols (the zero padding of K up to a multiple of W),
+// over a strided share of the row: this warp sums units u0, u0 + ustep,
+// ... of max(W, 32) columns each (one block for W >= 32, 32 / W blocks
+// below), so the warps of a thread block can split one row and still
+// write the values one warp (u0 = 0, ustep = 1) would.  Lanes read
+// neighbouring k (coalesced).  Block sums go to bs[0..nb); with STORE the
+// loaded values also go to prod[0..Kp).  W is a power of two in [8, 128].
+// bs and prod may be shared or global memory.
+template <bool STORE, typename Load>
+__device__ __forceinline__ void warp_block_sums_strided(const Load& load,
+                                                        int ncols, int nb,
+                                                        int W, float* prod,
+                                                        float* bs, int lane,
+                                                        int u0, int ustep) {
+  const int Kp = nb * W;
+  const int kv = ncols < Kp ? ncols : Kp;
+  const int g = W < 32 ? W : 32;  // lanes that share one block per step
+  const int unit = W < 32 ? 32 : W;
+  for (int ub = u0 * unit; ub < Kp; ub += ustep * unit) {
+    for (int base = ub; base < ub + unit && base < Kp; base += 32) {
+      const int k = base + lane;
+      float v = 0.f;
+      if (k < kv) v = load(k);
+      if (STORE && k < Kp) prod[k] = v;
+      for (int off = 1; off < g; off <<= 1)
+        v = __fadd_rn(v, __shfl_xor_sync(kFullMask, v, off));
+      if ((lane & (g - 1)) == 0 && k < Kp) {
+        const int c = k / W;
+        // W > 32: one lane adds the block's 32-wide pieces in order
+        bs[c] = (W <= 32 || (k & (W - 1)) == 0) ? v : __fadd_rn(bs[c], v);
+      }
+    }
+  }
+  __syncwarp();
+}
+
+// The whole row by one warp.
 template <bool STORE, typename Load>
 __device__ __forceinline__ void warp_block_sums(const Load& load, int ncols,
                                                 int nb, int W, float* prod,
                                                 float* bs, int lane) {
-  const int Kp = nb * W;
-  const int kv = ncols < Kp ? ncols : Kp;
-  const int g = W < 32 ? W : 32;  // lanes that share one block per step
-  for (int base = 0; base < Kp; base += 32) {
-    const int k = base + lane;
-    float v = 0.f;
-    if (k < kv) v = load(k);
-    if (STORE && k < Kp) prod[k] = v;
-    for (int off = 1; off < g; off <<= 1)
-      v = __fadd_rn(v, __shfl_xor_sync(kFullMask, v, off));
-    if ((lane & (g - 1)) == 0 && k < Kp) {
-      const int c = k / W;
-      // W > 32: one lane adds the block's 32-wide pieces in order
-      bs[c] = (W <= 32 || (k & (W - 1)) == 0) ? v : __fadd_rn(bs[c], v);
-    }
-  }
-  __syncwarp();
+  warp_block_sums_strided<STORE>(load, ncols, nb, W, prod, bs, lane, 0, 1);
 }
 
 // Block jb of the loaded row into t[0..W), zero past the row's width.
@@ -146,6 +163,22 @@ __device__ __forceinline__ int descent(const float* t, float stop, float lo,
     }
   }
   return R;
+}
+
+// Select, Fenwick and descend for one sample whose running row is run
+// (the walk of pass B): block jb of the loaded row goes to t[0..W).
+// Returns the index in [0, Kp); the caller clips it to K-1.
+template <typename Load>
+__device__ __forceinline__ int warp_walk(const Load& row, const float* run,
+                                         int ncols, int nb, int W, float u,
+                                         float* t, int lane) {
+  const float stop = __fmul_rn(run[nb - 1], u);
+  int jb;
+  float lo;
+  warp_select(run, nb, stop, lane, jb, lo);
+  warp_load_block(row, ncols, jb, W, t, lane);
+  warp_fenwick(t, W, lane);
+  return jb * W + descent(t, stop, lo, W);
 }
 
 // The complete draw for one sample whose products are in prod[0..Kp) and

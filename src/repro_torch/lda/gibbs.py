@@ -24,14 +24,22 @@ In place: :func:`gibbs_step` writes the new topics into ``state.z``, where
 the reference donates that buffer — after a sweep the old state's ``z``
 must not be read again (rebind the returned state).
 
+``gumbel``, ``alias``, ``alias_device`` and ``radix_forest`` build the
+chunk's weights into their ``Categorical`` state; ``gumbel`` and the
+alias methods draw from the state's generator (Gumbel noise, alias
+columns and coins), the others from one (C*N,) uniform vector per chunk.
+``dists=`` (a dict chunk start -> ``Categorical``) holds each chunk's
+distribution across sweeps and refreshes it from the new theta and phi
+(``refresh_from_factors`` for ``lda_kernel``, ``refreshed`` otherwise);
+on the same uniforms it draws what the fresh build draws.
+
 Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-queue-1 slice that brings it): ``method="auto"``, the ``gumbel`` and
-``alias`` strategies, ``dists=`` and ``sparse=``.
+queue-1 slice that brings it): ``method="auto"`` and ``sparse=``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,13 +48,10 @@ from repro_torch.kernels import runtime
 from repro_torch.lda.corpus import Corpus
 from repro_torch.sampling import distribution as _dist
 
-METHODS = ("lda_kernel", "prefix", "butterfly", "fenwick", "two_level", "kernel")
+METHODS = ("lda_kernel", "prefix", "butterfly", "fenwick", "two_level", "kernel",
+           "gumbel", "alias", "alias_device", "radix_forest")
 _LATER = {
     "auto": "slice 9 (candidates and autotune)",
-    "gumbel": "slice 6 (remaining frozen-distribution strategies)",
-    "alias": "slice 6 (remaining frozen-distribution strategies)",
-    "alias_device": "slice 6 (remaining frozen-distribution strategies)",
-    "radix_forest": "slice 6 (remaining frozen-distribution strategies)",
 }
 
 
@@ -129,43 +134,70 @@ def _chunks(theta: torch.Tensor, docs: torch.Tensor, chunk: int):
         yield start, end, theta_c, docs_c
 
 
-def _draw_chunk(theta_c, phi, docs_c, u, method: str, W: Optional[int]) -> torch.Tensor:
-    """(C, N) topics for one chunk from its (C*N,) uniforms.  The factored
-    ``lda_kernel`` never forms the (C*N, K) weights; the table strategies
-    form this chunk's only."""
+def _chunk_dist(theta_c, phi, docs_c, method: str, W: int, dist=None):
+    """This chunk's ``Categorical``: ``dist`` refreshed when it fits (same
+    method, W and shape), else a fresh build.  The factored ``lda_kernel``
+    never forms the (C*N, K) weights; the other methods form this chunk's
+    only."""
+    C, N = docs_c.shape
+    K = theta_c.shape[-1]
+    words = docs_c.reshape(-1)
+    fits = dist is not None and dist.method == method and dist.W == W \
+        and dist.shape == (C * N, K)
+    if method in _dist.FACTORED_VARIANTS:
+        if fits:
+            return dist.refresh_from_factors(theta_c, phi, words)
+        doc_ids = torch.arange(C * N, dtype=torch.int32, device=theta_c.device) // N
+        return _dist.Categorical._build_factored(theta_c, phi, doc_ids, words, method, W)
+    flat = (theta_c[:, None, :] * phi[docs_c.long()]).reshape(C * N, K)
+    if fits:
+        return dist.refreshed(flat)
+    return _dist.Categorical._build(flat, method, W)
+
+
+def _draw_chunk(theta_c, phi, docs_c, u, method: str, W: Optional[int],
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """(C, N) topics for one chunk from its (C*N,) uniforms (``u``) or, for
+    ``gumbel`` and the alias methods, from ``generator``.  ``lda_kernel``
+    draws straight from the factors (K8 on CUDA)."""
     C, N = docs_c.shape
     K = theta_c.shape[-1]
     W = W or runtime.default_w(K)
-    words = docs_c.reshape(-1)
     if method in _dist.FACTORED_VARIANTS:
         from repro_torch.kernels.lda_draw import lda_draw_factored
 
         doc_ids = torch.arange(C * N, dtype=torch.int32, device=theta_c.device) // N
-        return lda_draw_factored(theta_c, phi, doc_ids, words, u, W=W).view(C, N)
-    flat = (theta_c[:, None, :] * phi[docs_c.long()]).reshape(C * N, K)
-    state = _dist._build_state(method, flat, W)
-    return _dist._draw_with_u(method, state, u, (C * N, K), W).view(C, N)
+        return lda_draw_factored(theta_c, phi, doc_ids, docs_c.reshape(-1), u,
+                                 W=W).view(C, N)
+    dist = _chunk_dist(theta_c, phi, docs_c, method, W)
+    return _dist.draw(dist, generator=generator, u=u).view(C, N)
 
 
 def draw_z(state: LDAState, docs, method: str = "lda_kernel", W: Optional[int] = None,
-           chunk: int = 256, dists=None, out: Optional[torch.Tensor] = None
-           ) -> torch.Tensor:
+           chunk: int = 256, dists: Optional[Dict[int, _dist.Categorical]] = None,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Chunked z-draw over all documents: (M, maxN) int32.  Uniforms come
-    from ``state.key``, one (chunk*maxN,) vector per chunk.  ``out``
-    receives the topics in place when given."""
+    from ``state.key``, one (chunk*maxN,) vector per chunk (``gumbel`` and
+    the alias methods draw from ``state.key`` directly).  ``dists`` holds
+    each chunk's ``Categorical`` across calls (see the module note).
+    ``out`` receives the topics in place when given."""
     _check_method(method)
-    if dists is not None:
-        raise NotImplementedError(
-            "dists= (held per-chunk Categoricals) is not ported yet: "
-            "ROADMAP queue 1, slice 8 (sampling API)"
-        )
     dev = state.theta.device
     docs = torch.as_tensor(docs, device=dev)
     M, maxN = docs.shape
+    K = state.theta.shape[-1]
+    Wr = W or runtime.default_w(K)
+    keyed = method in _dist.KEY_VARIANTS
     z = torch.empty((M, maxN), dtype=torch.int32, device=dev) if out is None else out
     for start, end, theta_c, docs_c in _chunks(state.theta, docs, chunk):
-        u = torch.rand(docs_c.numel(), generator=state.key, device=dev)
-        z[start:end] = _draw_chunk(theta_c, state.phi, docs_c, u, method, W)[: end - start]
+        u = None if keyed else torch.rand(docs_c.numel(), generator=state.key, device=dev)
+        if dists is None:
+            zc = _draw_chunk(theta_c, state.phi, docs_c, u, method, Wr, state.key)
+        else:
+            dist = _chunk_dist(theta_c, state.phi, docs_c, method, Wr, dists.get(start))
+            dists[start] = dist
+            zc = _dist.draw(dist, generator=state.key, u=u).view(docs_c.shape)
+        z[start:end] = zc[: end - start]
     return z
 
 
@@ -184,10 +216,10 @@ def sample_z(state: LDAState, corpus: Corpus, num_samples: int = 4,
     for start, end, theta_c, docs_c in _chunks(state.theta, docs, chunk):
         C, N = docs_c.shape
         doc_ids = torch.arange(C * N, dtype=torch.int32, device=dev) // N
-        st = _dist._build_state_factored(theta_c, state.phi, doc_ids,
-                                         docs_c.reshape(-1), W)
+        dist = _dist.Categorical._build_factored(theta_c, state.phi, doc_ids,
+                                                 docs_c.reshape(-1), "lda_kernel", W)
         u = torch.rand((num_samples, C * N), generator=state.key, device=dev)
-        idx = _dist._draw_with_u("lda_kernel", st, u, (C * N, K), W)
+        idx = dist.draw(u=u)
         z[:, start:end] = idx.view(num_samples, C, N)[:, : end - start]
     return z
 
@@ -217,10 +249,13 @@ def _update_phi(g: torch.Generator, word_topic, beta):
 
 def gibbs_step(state: LDAState, corpus: Corpus, alpha: float = 0.1, beta: float = 0.05,
                method: str = "lda_kernel", W: Optional[int] = None, chunk: int = 256,
-               dists=None, sparse=False) -> LDAState:
+               dists: Optional[Dict[int, _dist.Categorical]] = None,
+               sparse=False) -> LDAState:
     """One full uncollapsed Gibbs sweep; returns the next state.  The new
-    topics are written into ``state.z`` (see the module note).  The
-    corpus arrays may be numpy or tensors already on the state's device."""
+    topics are written into ``state.z`` (see the module note).  Pass the
+    same dict as ``dists=`` on every call to hold the per-chunk
+    distributions across sweeps.  The corpus arrays may be numpy or
+    tensors already on the state's device."""
     _check_method(method)
     if sparse:
         raise NotImplementedError(

@@ -69,11 +69,13 @@ def test_running_row_carry_across_blocks():
 
 
 def test_kernel_limits_and_device_checks():
-    with pytest.raises(ValueError, match=r"\[2, 32\]"):
-        K1.check_table_w(64)
+    with pytest.raises(ValueError, match=r"\[2, 128\]"):
+        K1.check_table_w(256)
     with pytest.raises(ValueError, match="power of two"):
         K1.check_table_w(12)
-    assert K1.check_table_w(4) == 4
+    with pytest.raises(ValueError, match="power of two"):
+        K1.check_table_w(1)
+    assert [K1.check_table_w(W) for W in (4, 64, 128)] == [4, 64, 128]
     w = torch.ones(8, 16)
     with pytest.raises(ValueError, match="CUDA"):
         butterfly_table(w, W=8, impl="cuda")

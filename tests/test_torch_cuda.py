@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import runtime
 from repro_torch.kernels.lda_draw import kernel as K
 from repro_torch.kernels.lda_draw import ops
 from repro_torch.kernels.lda_draw.ref import boundary_ties
@@ -124,6 +125,7 @@ from repro_torch.kernels.butterfly_table import kernel as KT  # noqa: E402
 from repro_torch.kernels.butterfly_table import butterfly_table  # noqa: E402
 
 GRID_BK = [(5, 17), (24, 300), (3, 2000), (1000, 240), (64, 4099)]
+_NO_LAUNCHES = {k: 0 for k in KB.LAUNCHES}
 
 
 def _weights(dev, seed, B, K, kind="int", dtype=torch.float32):
@@ -136,7 +138,7 @@ def _weights(dev, seed, B, K, kind="int", dtype=torch.float32):
     return torch.as_tensor(w, device=dev).to(dtype), torch.as_tensor(u, device=dev)
 
 
-@pytest.mark.parametrize("W", [4, 8, 16, 32])
+@pytest.mark.parametrize("W", [4, 8, 16, 32, 64, 128])
 @pytest.mark.parametrize("layout", ["rows", "blocks"])
 def test_butterfly_table_equals_plain(dev, W, layout):
     """Integer weights: equal bit for bit.  Dirichlet weights: equal except
@@ -155,8 +157,8 @@ def test_butterfly_table_equals_plain(dev, W, layout):
         torch.testing.assert_close(g4[:, W - 1], w4[:, W - 1], rtol=8 * 2.0 ** -23, atol=0)
     wb, _ = _weights(dev, W + 1, 64 * W, 8 * W, dtype=torch.bfloat16)
     assert torch.equal(butterfly_table(wb, W=W), butterfly_table(wb, W=W, impl="torch"))
-    with pytest.raises(ValueError, match="32"):
-        butterfly_table(torch.ones(128, 128, device=dev), W=64)
+    with pytest.raises(ValueError, match="128"):
+        butterfly_table(torch.ones(256, 256, device=dev), W=256)
 
 
 @pytest.mark.parametrize("W", GRID_W)
@@ -200,7 +202,7 @@ def test_given_weight_bf16_zero_rows_and_route_switch(dev):
     assert KB.fused_fits(KB.num_blocks(32000, 128), 128)
     KB.reset_launches()
     fused = bops.butterfly_sample(w, u, W=128)
-    assert KB.LAUNCHES == {"blocksums": 0, "walk": 0, "fused_draw": 1}
+    assert KB.LAUNCHES == {**_NO_LAUNCHES, "fused_draw": 1}
     assert torch.equal(fused, bops.butterfly_sample(w, u, W=128, route="two_pass"))
     res = weight_ties(fused, bops.butterfly_sample(w, u, W=128, impl="torch"), w, u)
     assert res["faults"] == 0, res
@@ -215,7 +217,7 @@ def test_given_weight_launch_counts_and_checks(dev):
     bops.butterfly_sample_from_sums_rng(wp, run, np.array([1, 2], np.uint32), B=64,
                                         K=240, S=3, W=16)
     butterfly_table(w, W=16)
-    assert KB.LAUNCHES == {"blocksums": 1, "walk": 1, "fused_draw": 1}
+    assert KB.LAUNCHES == {**_NO_LAUNCHES, "blocksums": 1, "walk": 1, "fused_draw": 1}
     assert KT.LAUNCHES == {"butterfly_table": 1}
     with pytest.raises(ValueError):
         KB.walk(w, run, u, torch.arange(64, device=dev), 16)   # int64 rows
@@ -234,5 +236,179 @@ def test_sweep_methods_launch_once_per_chunk(dev):
     state = gibbs.gibbs_step(state, corpus, method="butterfly", W=8, chunk=40)
     state = gibbs.gibbs_step(state, corpus, method="kernel", W=8, chunk=40)
     assert KT.LAUNCHES["butterfly_table"] == 3
-    assert KB.LAUNCHES == {"blocksums": 3, "walk": 3, "fused_draw": 0}
+    assert KB.LAUNCHES == {**_NO_LAUNCHES, "blocksums": 3, "walk": 3}
     assert 0 <= int(state.z.min()) and int(state.z.max()) < 8
+
+
+
+# ---------------------------------------------------------------------------
+# K9, K11, K12 (truncated draws), K13 (alias assembly) and the sampling API
+# ---------------------------------------------------------------------------
+
+from repro_torch import sampling  # noqa: E402
+from repro_torch.core import butterfly as bfly  # noqa: E402
+from repro_torch.kernels.alias_build import kernel as KA  # noqa: E402
+from repro_torch.kernels.alias_build import ops as aops  # noqa: E402
+from repro_torch.kernels.alias_build.ref import prob_tolerance, table_mass  # noqa: E402
+from repro_torch.kernels.butterfly_sample.ref import (  # noqa: E402
+    cuda_sum_depth, trunc_boundary_ties)
+from repro_torch.sampling import transforms as tr  # noqa: E402
+
+TRUNC_BK = [(24, 300), (8, 20000), (8, 100000), (64, 256000)]
+
+
+def _trunc_inputs(dev, seed, B, K, kind, dtype=torch.float32):
+    """Integer or peaked-softmax weights, per-row params with row r % 4
+    disabling top-k, top-p, min-p or all three, and u."""
+    g = np.random.default_rng(seed)
+    if kind == "int":
+        w = g.integers(1, 100, (B, K)).astype(np.float32)
+    else:
+        z = g.normal(0, 4.0, (B, K)).astype(np.float32)
+        w = np.exp(z - z.max(axis=1, keepdims=True))
+    prm = np.stack([g.integers(1, 200, B), g.uniform(0.5, 1.0, B),
+                    g.uniform(0.0, 0.05, B)], axis=1).astype(np.float32)
+    r = np.arange(B) % 4
+    prm[(r == 0) | (r == 3), 0] = 0.0
+    prm[(r == 1) | (r == 3), 1] = 1.0
+    prm[(r == 2) | (r == 3), 2] = 0.0
+    u = g.uniform(0, 1, B).astype(np.float32)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    return t(w).to(dtype), t(prm), t(u)
+
+
+@pytest.mark.parametrize("kind", ["int", "softmax"])
+@pytest.mark.parametrize("B,K", TRUNC_BK)
+def test_truncated_kernels_equal_plain(dev, B, K, kind):
+    """K9 (staged and L2-read rows), K11 and K12 (S=1 and S=4) and both
+    routes against the plain versions: equal on integer weights, float64
+    ties only on real weights."""
+    w, prm, u = _trunc_inputs(dev, B + K, B, K, kind)
+    W = runtime.default_w(K)
+    nb = KB.num_blocks(K, W)
+    exact = kind == "int"
+    got = KB.fused_trunc_draw(w, u, prm, W)
+    want = KB.fused_trunc_draw_torch(w, u, prm, W)
+    res = trunc_boundary_ties(got, want, w, u, prm, depth=cuda_sum_depth(K))
+    assert res["faults"] == 0 and (not exact or res["mismatches"] == 0), res
+    tau = tr.thresholds_from_params(w, prm).contiguous()
+    run = KB.masked_blocksums(w, tau, W, nb)
+    run_p = KB.masked_blocksums_torch(w, tau, W, nb)
+    if exact:
+        assert torch.equal(run, run_p)
+    torch.testing.assert_close(run, run_p, rtol=(W + nb) * 2.0 ** -23, atol=0)
+    wm = torch.where(w >= tau[:, None], w, 0.0)
+    for S in (1, 4):
+        us = torch.rand((S, B), device=dev)
+        rows = torch.arange(B, dtype=torch.int32, device=dev).repeat(S)
+        a = KB.walk_trunc(w, run, us.reshape(-1), tau, rows, W)
+        b = KB.walk_trunc_torch(w, run, us.reshape(-1), tau, rows, W)
+        res = weight_ties(a, b, wm, us.reshape(-1))
+        assert res["faults"] == 0 and (not exact or res["mismatches"] == 0), res
+        two = bops.butterfly_sample_truncated(w, us, prm, W=W)
+        assert two.shape == (S, B)
+    fused = bops.butterfly_sample_truncated(w, u, prm, W=W, route="fused")
+    two = bops.butterfly_sample_truncated(w, u, prm, W=W, route="two_pass")
+    res = trunc_boundary_ties(fused, two, w, u, prm, depth=cuda_sum_depth(K))
+    assert res["faults"] == 0 and (not exact or res["mismatches"] == 0), res
+
+
+def test_truncated_bf16_zero_rows(dev):
+    w, prm, u = _trunc_inputs(dev, 9, 16, 50000, "int", torch.bfloat16)
+    w[::3] = 0
+    for route in ("fused", "two_pass"):
+        got = bops.butterfly_sample_truncated(w, u, prm, W=128, route=route)
+        want = bops.butterfly_sample_truncated(w, u, prm, W=128, route=route, impl="torch")
+        assert torch.equal(got, want), route
+        assert (got[::3] == 49999).all()
+
+
+def test_truncated_launch_counts_and_checks(dev):
+    w, prm, u = _trunc_inputs(dev, 5, 8, 3000, "softmax")
+    KB.reset_launches()
+    bops.butterfly_sample_truncated(w, u, prm, W=64)
+    bops.butterfly_sample_truncated(w, torch.rand((3, 8), device=dev), prm, W=64)
+    assert KB.LAUNCHES == {**_NO_LAUNCHES, "fused_trunc_draw": 1, "masked_blocksums": 1,
+                           "walk_trunc": 1}
+    with pytest.raises(ValueError, match="params"):
+        KB.fused_trunc_draw(w, u, prm.double(), 64)
+    with pytest.raises(ValueError, match="tau"):
+        KB.masked_blocksums(w, torch.zeros(8, device=dev, dtype=torch.float64), 64, 47)
+    with pytest.raises(ValueError, match="rows"):
+        KB.walk_trunc(w, torch.zeros((8, 47), device=dev), u, torch.zeros(8, device=dev),
+                      torch.arange(8, device=dev), 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        KB.fused_trunc_draw(w.cpu(), u.cpu(), prm.cpu(), 64)
+    assert KB.LAUNCHES["fused_trunc_draw"] == 1
+    # the row staged in shared memory or read from L2: the same draws
+    assert torch.equal(KB._fused_trunc_draw(w, u, prm, 64, 32, True),
+                       KB._fused_trunc_draw(w, u, prm, 64, 32, False))
+    wl, pl, ul = _trunc_inputs(dev, 6, 4, 100000, "softmax")
+    with pytest.raises(ValueError, match="shared memory"):
+        KB._fused_trunc_draw(wl, ul, pl, 128, 32, True)
+
+
+@pytest.mark.parametrize("B,K", [(37286, 240), (64, 4096), (4, 70000)])
+def test_alias_assembly_equals_plain(dev, B, K):
+    """K13 against its plain version on the same partition and ranks:
+    alias positions equal, prob within ref.prob_tolerance(Kp); the induced
+    mass of the device build equals the weights (the reference's 5e-6)."""
+    g = torch.Generator(device=dev).manual_seed(K)
+    w = torch._standard_gamma(torch.full((B, K), 0.3, device=dev), generator=g)
+    w[1] = 0
+    s_sorted, _o, _i, nL = aops._partition(w)
+    Kp = aops._next_pow2(K)
+    sp = torch.nn.functional.pad(s_sorted, (0, Kp - K), value=1.0).contiguous()
+    rank = aops._merged_rank(sp, nL).contiguous()
+    KA.reset_launches()
+    prob, apos = KA.alias_assemble(sp, nL, rank)
+    pp, ap = KA.alias_assemble_torch(sp, nL, rank)
+    assert KA.LAUNCHES == {"alias_assemble": 1}
+    assert torch.equal(apos, ap)
+    torch.testing.assert_close(prob, pp, rtol=0, atol=prob_tolerance(Kp))
+    t = aops.build_alias_tables_device(w[:64])
+    mass = table_mass(t.prob.cpu().numpy(), t.alias.cpu().numpy())
+    wd = w[:64].double().cpu().numpy()
+    tot = wd.sum(1, keepdims=True)
+    target = np.where(tot > 0, wd / np.where(tot > 0, tot, 1), 1.0 / K)
+    assert np.abs(mass - target).max() < 5e-6
+    with pytest.raises(ValueError, match="rank"):
+        KA.alias_assemble(sp, nL, rank.long())
+
+
+def test_categorical_butterfly_at_vocabulary_width(dev):
+    """Categorical(method="butterfly") at (64, 256000): K1 at W=128 builds
+    the table; the draws equal those from the plain table under the tie
+    rule."""
+    g = torch.Generator(device=dev).manual_seed(0)
+    logits = 4.0 * torch.randn((64, 256000), generator=g, device=dev)
+    w = sampling.logits_to_weights(logits)
+    KT.reset_launches()
+    d = sampling.Categorical.from_weights(w, method="butterfly")
+    assert d.W == 128 and KT.LAUNCHES == {"butterfly_table": 1}
+    u = torch.rand(64, generator=g, device=dev)
+    wp, _, _ = bfly._prep(w, 128, group_pad=True)
+    want = bfly.draw_butterfly_from_table(KT.butterfly_table_torch(wp, 128, "blocks"), u,
+                                          W=128, B=64, K=256000)
+    res = weight_ties(d.draw(u=u), want, w, u)
+    assert res["faults"] == 0, res
+
+
+def test_sampling_api_on_the_card(dev):
+    """Every explicit method through sample_from_logits on CUDA tensors,
+    and the decode path's launch counts."""
+    from repro_torch.core import api
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    logits = 3.0 * torch.randn((16, 5000), generator=g, device=dev)
+    for m in api.METHODS[1:]:
+        idx = api.sample_from_logits(logits, g, method=m)
+        assert idx.device.type == "cuda" and 0 <= int(idx.min()) and int(idx.max()) < 5000
+    p = sampling.plan((16, 5000), method="kernel", transforms="kp")
+    KB.reset_launches()
+    tok = p.sample_logits(logits, g, transforms=(sampling.TopK(20), sampling.TopP(0.9)))
+    p.sample_logits(logits, g, num_samples=4, transforms=(sampling.TopK(20),))
+    assert KB.LAUNCHES == {**_NO_LAUNCHES, "fused_trunc_draw": 1, "masked_blocksums": 1,
+                           "walk_trunc": 1}
+    kth = torch.sort(logits, dim=1, descending=True).values[:, 19]
+    assert (logits.gather(1, tok[:, None].long())[:, 0] >= kth).all()

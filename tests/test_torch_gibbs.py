@@ -171,15 +171,46 @@ def test_table_sweeps_lower_perplexity(method):
 
 def test_unported_options_raise(small_corpus):
     state = tg.init_state(0, small_corpus, 8, device=CPU)
-    for m in ("auto", "gumbel", "alias"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            tg.gibbs_step(state, small_corpus, method=m)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        tg.draw_z(state, small_corpus.docs, dists={})
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        tg.gibbs_step(state, small_corpus, method="auto")
     with pytest.raises(NotImplementedError, match="slice 10"):
         tg.gibbs_step(state, small_corpus, sparse=True)
     with pytest.raises(ValueError):
         tg.gibbs_step(state, small_corpus, method="nope")
+
+
+@pytest.mark.parametrize("method", ["gumbel", "alias", "alias_device", "radix_forest"])
+def test_new_strategy_sweeps_lower_perplexity(method):
+    """Sweeps with the strategies this slice brings lower perplexity and
+    keep theta on the simplex (plain versions on the CPU)."""
+    corpus = tcorpus.synthesize_corpus(seed=5, M=48, V=80, K=6, avg_len=30, max_len=60)
+    state = tg.init_state(0, corpus, 6, device=CPU)
+    p0 = tg.perplexity(state, corpus)
+    for _ in range(6):
+        state = tg.gibbs_step(state, corpus, method=method, W=8, chunk=16)
+    p1 = tg.perplexity(state, corpus)
+    assert np.isfinite(p1) and p1 < p0, (p0, p1)
+    th = state.theta
+    assert torch.allclose(th.sum(dim=1), torch.ones(th.shape[0]), atol=1e-5)
+    assert 0 <= int(state.z.min()) and int(state.z.max()) < 6
+
+
+@pytest.mark.parametrize("method", ["lda_kernel", "kernel", "fenwick", "alias"])
+def test_dists_reproduces_fresh_build(small_corpus, method):
+    """draw_z with held per-chunk distributions (dists=) draws what the
+    fresh build draws from the same random stream, on the first sweep
+    (built) and the second (refreshed from the new theta and phi)."""
+    dists = {}
+    for sweep in range(2):
+        st = tg.init_state(sweep, small_corpus, 8, device=CPU)
+        st = st._replace(key=torch.Generator().manual_seed(sweep))
+        fresh = tg.draw_z(st, small_corpus.docs, method=method, W=8, chunk=40)
+        st = st._replace(key=torch.Generator().manual_seed(sweep))
+        held = tg.draw_z(st, small_corpus.docs, method=method, W=8, chunk=40,
+                         dists=dists)
+        assert torch.equal(held, fresh), (method, sweep)
+        assert sorted(dists) == [0, 40, 80]
+        assert all(d.method == method for d in dists.values())
 
 
 def test_cuda_default_without_card_raises(small_corpus, monkeypatch):
