@@ -33,7 +33,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    events (and, where one PyTorch computation does the same work, its
    library yardstick); the truncated routes end to end at (64, 256000),
    and K9 with its rows staged in shared memory against rows read from
-   L2 at (64, 32000) and (64, 56000).
+   L2 at (64, 32000) and (64, 56000).  The seeded draws (phase 2f): K5
+   at K4's cases (the chunk at W=32 and 16, integer, Dirichlet, bf16,
+   zero rows; (64, 256000) at W=128) and K10 at K9's, each against its
+   plain version and against K4 / K9 fed ``rng.row_uniforms`` (equal),
+   with row offsets that wrap at 2**32, both routes forced, ``hw=True``
+   (Philox) twice and against its plain version; the device Threefry
+   against ``rng.row_uniforms`` over 2**21 counters; K5 and K10 timed at
+   (64, 256000) beside K4 / K9 on the PyTorch uniforms they replace.
 3. The main paths at the paper's Wikipedia scale (M=43,556 docs,
    V=37,286 words, K=240, ~3.07M tokens, Zipf word ids, made from --seed),
    each run with the launch counts set to 0 just before it and read just
@@ -62,8 +69,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``Categorical.from_weights(phi, method="alias_device")`` with 16 draws
    per row and its induced mass; one paper-scale sweep each with
    ``gumbel`` and ``alias``.
+6. The sharded paths on a one-rank NCCL group (in-memory store) and its
+   ``("data",)`` mesh, each with the launch counts read per path: 20
+   decode steps of ``plan((64, 256000), method="kernel", mesh=mesh,
+   transforms="kp").sample_logits(..., key=...)`` with top-k 64 / top-p
+   0.95 (K10 once per step) and 20 without the chain (K5 once per step),
+   the first step equal to the unsharded counter draw; ``sample`` at
+   (64, 256000) once per explicit method (``alias`` at (64, 4096)), each
+   equal to the unsharded counter draw; the per-shard bodies for R = 2
+   and 8 shards, concatenated, equal to the one-rank draws (two NCCL
+   ranks cannot share one card); 3 paper-scale sweeps of
+   ``make_sharded_gibbs(mesh, 240, V, method="lda_kernel", W=32)`` with
+   exactly one ``all_reduce`` per sweep and the first sweep's z equal to
+   ``lda_draw_factored_rng`` on the whole batch; 30 sweeps of the planted
+   corpus below 0.6x its start.
 
-The last two lines are the ``{"kernels": [...]}`` record and
+The last two lines are the ``{"kernels": [...]}`` record (13 kernels) and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script exits 1 before printing a result.
 """
@@ -89,6 +110,7 @@ from repro_torch.configs.lda import CONFIG  # noqa: E402
 from repro_torch.core import api  # noqa: E402
 from repro_torch.core import butterfly as bfly  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import rng  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.alias_build import kernel as KA  # noqa: E402
 from repro_torch.kernels.alias_build import ops as aops  # noqa: E402
@@ -121,6 +143,8 @@ KERNELS = {  # wrapper name -> (kernel-table id, source, TPU kernel it replaces,
              _TPU.format("butterfly_sample", 744), KB.LAUNCHES),
     "fused_draw": ("K4", _CSRC.format("butterfly_sample"),
                    _TPU.format("butterfly_sample", 183), KB.LAUNCHES),
+    "fused_draw_rng": ("K5", _CSRC.format("butterfly_sample"),
+                       _TPU.format("butterfly_sample", 219), KB.LAUNCHES),
     "lda_blocksums": ("K6", _CSRC.format("lda_draw"), _TPU.format("lda_draw", 125),
                       KL.LAUNCHES),
     "lda_walk": ("K7", _CSRC.format("lda_draw"), _TPU.format("lda_draw", 178),
@@ -129,6 +153,8 @@ KERNELS = {  # wrapper name -> (kernel-table id, source, TPU kernel it replaces,
                        KL.LAUNCHES),
     "fused_trunc_draw": ("K9", _TRUNC_SRC, _TPU.format("butterfly_sample", 389),
                          KB.LAUNCHES),
+    "fused_trunc_draw_rng": ("K10", _TRUNC_SRC, _TPU.format("butterfly_sample", 428),
+                             KB.LAUNCHES),
     "masked_blocksums": ("K11", _TRUNC_SRC, _TPU.format("butterfly_sample", 484),
                          KB.LAUNCHES),
     "walk_trunc": ("K12", _TRUNC_SRC, _TPU.format("butterfly_sample", 522), KB.LAUNCHES),
@@ -1095,6 +1121,346 @@ def phase_gibbs_new(state, corpus):
     return state, res
 
 
+# ---------------------------------------------------------------------------
+# The seeded draws (K5, K10) and the sharded paths
+# ---------------------------------------------------------------------------
+
+SEED_PAIR = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+
+
+def _seed2(dev):
+    """The seeded draws' folded seed (fold(seed, TAG_U, 0)), on the host and
+    on the card."""
+    s = rng.fold(rng.seed_from_key(SEED_PAIR), rng.TAG_U, 0)
+    return s, s.to(dev)
+
+
+def phase_seeded_kernels(corpus, dev, seed: int, tally, inputs):
+    """K5 and K10 against their plain versions at the cases of K4 and K9,
+    and against K4 / K9 fed ``rng.row_uniforms`` (equal bit for bit: one
+    body, the same uniforms); row offsets that wrap at 2**32; both routes
+    forced; ``hw=True`` (Philox) twice and against its plain version; the
+    device cipher against ``rng.row_uniforms`` over 2**21 counters, half
+    past the wrap."""
+    d, w, _u, _u4 = inputs
+    K, V, C = CONFIG.K, corpus.vocab_size, 256
+    g = torch.Generator(device=dev).manual_seed(seed + 11)
+    s2, s2d = _seed2(dev)
+    log("phase 2f: seeded draws (K5, K10) vs plain and vs K4 / K9 on row_uniforms")
+    n = 1 << 21
+    r0 = 2**32 - n // 2
+    got = KB.threefry_uniforms(s2, r0, n, dev)
+    bad = int((got != rng.row_uniforms(s2d, r0, n)).sum())
+    log(f"  threefry_uniforms: {n} counters from {r0} (wrapping at 2**32): {bad} differ")
+    if bad:
+        raise AssertionError("the device Threefry disagrees with rng.row_uniforms")
+
+    def k5_case(case, wts, W, r0, exact):
+        B = wts.shape[0]
+        uu = rng.row_uniforms(s2d, r0, B)
+        a = KB.fused_draw_rng(wts, s2, r0, W)
+        if not torch.equal(a, KB.fused_draw(wts, uu, W)):
+            raise AssertionError(f"K5 differs from K4 on the same uniforms: {case}")
+        tally.weights("fused_draw_rng", case, a, KB.fused_draw_rng_torch(wts, s2, r0, W),
+                      wts.float(), uu, exact)
+        two = bops.butterfly_sample_rng(wts, SEED_PAIR, row_offset=r0, W=W, route="two_pass")
+        if not torch.equal(a.clamp(max=wts.shape[1] - 1), two):
+            raise AssertionError(f"K5: the fused and two-pass routes disagree: {case}")
+
+    for W in (32, 16):
+        for kind in ("int", "dirichlet"):
+            wts = chunk_weights(*factors(kind, C, V, K, g, dev), d, w)
+            k5_case(f"chunk W={W} {kind}", wts, W, 0, kind == "int")
+            k5_case(f"chunk W={W} {kind} wrap", wts, W, 2**32 - wts.shape[0] // 2,
+                    kind == "int")
+    wb = chunk_weights(*factors("int", C, V, K, g, dev), d, w).to(torch.bfloat16)
+    k5_case("chunk W=16 bf16", wb, 16, 12345, True)
+    th, ph = factors("dirichlet", corpus.docs.shape[0], V, K, g, dev)
+    *_, (start, end, th_c, docs_p) = gibbs._chunks(th, torch.as_tensor(corpus.docs,
+                                                                       device=dev), C)
+    wz = chunk_weights(th_c, ph, d, docs_p.reshape(-1))
+    k5_case("chunk W=16 zero rows", wz, 16, 7, False)
+    wv = trunc_weights("softmax", DECODE_B, gemma2_9b.VOCAB_SIZE, g, dev)
+    k5_case(f"({DECODE_B},{gemma2_9b.VOCAB_SIZE}) W=128 softmax", wv, 128, 2**32 - 3, False)
+    wi = trunc_weights("int", DECODE_B, gemma2_9b.VOCAB_SIZE, g, dev)
+    k5_case(f"({DECODE_B},{gemma2_9b.VOCAB_SIZE}) W=128 int", wi, 128, 99, True)
+    # hw=True: Philox in the kernel
+    a = KB.fused_draw_rng(wv, s2, 5, 128, hw=True)
+    if not torch.equal(a, KB.fused_draw_rng(wv, s2, 5, 128, hw=True)):
+        raise AssertionError("K5 hw=True: one seed, two different draws")
+    tally.weights("fused_draw_rng", "hw=True (Philox) softmax", a,
+                  KB.fused_draw_rng_torch(wv, s2, 5, 128, hw=True), wv,
+                  rng.philox_row_uniforms(s2d, 5, DECODE_B), False)
+    # K10 at K9's cases
+    cases = [(8, 256000, "int", "uniform", torch.float32, (0, 5)),
+             (64, 256000, "softmax", "uniform", torch.float32, ()),
+             (64, 256000, "softmax", "hetero", torch.float32, (7,)),
+             (64, 128256, "int", "hetero", torch.float32, ()),
+             (64, 128256, "softmax", "uniform", torch.bfloat16, ()),
+             (24, 300, "int", "hetero", torch.float32, (3,)),
+             (24, 300, "softmax", "hetero", torch.float32, ())]
+    for i, (B, Kc, kind, pk, dtype, zero) in enumerate(cases):
+        W = runtime.default_w(Kc)
+        wt = trunc_weights(kind, B, Kc, g, dev, zero).to(dtype)
+        prm = trunc_params(pk, B, g, dev)
+        r0 = 2**32 - B // 2 if i % 2 else 1000 * i
+        uu = rng.row_uniforms(s2d, r0, B)
+        exact = kind == "int"
+        case = f"({B},{Kc}) W={W} {kind} {pk} {str(dtype)[6:]} r0={r0}"
+        a = KB.fused_trunc_draw_rng(wt, s2, r0, prm, W)
+        if not torch.equal(a, KB.fused_trunc_draw(wt, uu, prm, W)):
+            raise AssertionError(f"K10 differs from K9 on the same uniforms: {case}")
+        tally.trunc("fused_trunc_draw_rng", case, a,
+                    KB.fused_trunc_draw_rng_torch(wt, s2, r0, prm, W), wt, uu, prm, exact)
+        two = bops.butterfly_sample_truncated_rng(wt, SEED_PAIR, prm, row_offset=r0, W=W,
+                                                  route="two_pass")
+        tally.trunc("fused_trunc_draw_rng", case + " fused vs two-pass",
+                    a.clamp(max=Kc - 1), two, wt, uu, prm, exact)
+        if zero and not bool((a[list(zero)].clamp(max=Kc - 1) == Kc - 1).all()):
+            raise AssertionError(f"{case}: an all-zero row did not draw K-1")
+    return tally
+
+
+def phase_seeded_timing(dev, seed):
+    """K5 and K10 at the sharded decode's (64, 256000), W=128, peaked
+    softmax weights, gemma2-9b's params: beside each its plain version,
+    its bound (the weights read once, B int32 written), its yardstick
+    (K10: the sorted draw; K5: none) and K4 / K9 on the PyTorch
+    ``rng.row_uniforms`` they replace."""
+    g = torch.Generator(device=dev).manual_seed(seed + 12)
+    B, Kv, W = DECODE_B, gemma2_9b.VOCAB_SIZE, 128
+    s2, s2d = _seed2(dev)
+    w = trunc_weights("softmax", B, Kv, g, dev)
+    prm = trunc_params("uniform", B, g, dev)
+    chain = (sampling.TopK(prm[:, 0]), sampling.TopP(prm[:, 1]))
+    bound = (B * Kv * 4 + B * 4) / HBM_BYTES_PER_S * 1e3
+    u = rng.row_uniforms(s2d, 0, B)
+    log(f"phase 2f: seeded-draw times at ({B},{Kv}) W={W}")
+    out = time_kernels({
+        "fused_draw_rng": (lambda: KB.fused_draw_rng(w, s2, 0, W),
+                           lambda: KB.fused_draw_rng_torch(w, s2, 0, W), None,
+                           lambda _: (bound, "bytes")),
+        "fused_trunc_draw_rng": (lambda: KB.fused_trunc_draw_rng(w, s2, 0, prm, W),
+                                 lambda: KB.fused_trunc_draw_rng_torch(w, s2, 0, prm, W),
+                                 lambda: sref.draw_truncated_sorted(w, u, chain),
+                                 lambda _: (bound + B * 12 / HBM_BYTES_PER_S * 1e3, "bytes")),
+    })
+    # what the in-kernel uniforms save: K4 / K9 on PyTorch's row_uniforms
+    for name, fn in (("K4 + row_uniforms", lambda: KB.fused_draw(w, rng.row_uniforms(s2d, 0, B),
+                                                                 W)),
+                     ("K9 + row_uniforms", lambda: KB.fused_trunc_draw(
+                         w, rng.row_uniforms(s2d, 0, B), prm, W)),
+                     ("row_uniforms alone", lambda: rng.row_uniforms(s2d, 0, B))):
+        ms = cuda_ms(fn)
+        out.setdefault("replaced", {})[name] = ms
+        log(f"  {name:22s} {ms:.4f} ms")
+    return out
+
+
+def _shard_emulation(dev, g, B, V, W, prm, key):
+    """The per-shard bodies on rows [s*B/R, (s+1)*B/R) with row0 = s*B/R,
+    R = 2 and 8, concatenated, against the one-rank draws.  Two NCCL ranks
+    cannot share a card; this shows the device-count invariance on one.
+    K5, K10 and the ``kernel`` tables (K2; K3 draws) sum each row in a
+    fixed order, whatever the batch, so they must be equal bit for bit.
+    The other tables are built by PyTorch's CUDA reductions and scans
+    (``torch.cumsum`` among them), whose order may change with the number
+    of rows: there a mismatch must be a float64-checked boundary tie."""
+    from repro_torch.sampling import sharded as sh
+
+    z = 4.0 * torch.randn((B, V), generator=g, device=dev)
+    w = sampling.logits_to_weights(z)
+    temp = torch.ones(B, device=dev)
+    u = rng.row_uniforms(rng.fold(rng.seed_from_key(key), rng.TAG_U).to(dev), 0, B)
+    bodies = {
+        "K5 (kernel logits)": lambda lo, hi: sh._shard_sample_logits(
+            "kernel", W, z[lo:hi], 1.0, key, lo),
+        "K10 (kernel, top-k/top-p)": lambda lo, hi: sh._shard_sample_truncated(
+            "kernel", W, z[lo:hi], temp[lo:hi], prm[lo:hi], key, lo),
+    }
+    for m in ("kernel", "prefix", "fenwick", "butterfly", "two_level", "radix_forest"):
+        bodies[f"{m} (build + counter draw)"] = (
+            lambda lo, hi, m=m: sh._local_draw(sampling.Categorical._build(w[lo:hi], m, W),
+                                               key, lo, 1))
+    res = {}
+    for name, body in bodies.items():
+        exact = name.startswith(("K5", "K10", "kernel"))
+        whole = body(0, B)
+        for R in (2, 8):
+            n = B // R
+            parts = torch.cat([body(s * n, (s + 1) * n) for s in range(R)])
+            r = ({"mismatches": int((parts != whole).sum()), "ties": 0, "faults": 0}
+                 if exact else weight_ties(parts, whole, w, u))
+            if exact:
+                r["faults"] = r["mismatches"]
+            log(f"  shard emulation R={R} {name}: {r}")
+            if r["faults"]:
+                raise AssertionError(f"shard emulation R={R} {name}: the shards differ "
+                                     f"from the one-rank draw: {r}")
+            res[f"R={R} {name}"] = r
+    return res
+
+
+class _AllReduceCount:
+    """Counts torch.distributed.all_reduce calls while active."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self.n, self._orig = 0, dist.all_reduce
+
+        def counted(*a, **k):
+            self.n += 1
+            return self._orig(*a, **k)
+
+        dist.all_reduce = counted
+        return self
+
+    def __exit__(self, *exc):
+        import torch.distributed as dist
+
+        dist.all_reduce = self._orig
+
+
+def phase_sharded(corpus, dev, seed, steps: int = 20, B: int = DECODE_B,
+                  V: int = gemma2_9b.VOCAB_SIZE, M_planted: int = 96):
+    """Phase 6, the sharded paths, on a one-rank NCCL group (an in-memory
+    store, no TCP port) and its ``("data",)`` mesh: the decode at
+    gemma2-9b's width (K10 once per step under top-k/top-p, K5 once per
+    step without), ``sample`` once per explicit method against the
+    unsharded counter draw, the shard emulation, and the distributed sweep
+    at paper scale (one all_reduce per sweep) and on the planted corpus."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.lda.distributed import make_sharded_gibbs
+    from repro_torch.sampling import sharded as sh
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        g = torch.Generator(device=dev).manual_seed(seed + 13)
+        spec = gemma2_9b.SAMPLER
+        chain = (sampling.TopK(spec.top_k), sampling.TopP(spec.top_p))
+        res, launches = {}, {}
+        logits = 4.0 * torch.randn((B, V), generator=g, device=dev)
+        kth = torch.sort(logits, dim=1, descending=True).values[:, spec.top_k - 1:spec.top_k]
+        for name, kw, expect in (
+                ("top-k/top-p (K10)", {"transforms": chain}, "fused_trunc_draw_rng"),
+                ("no transforms (K5)", {}, "fused_draw_rng")):
+            p = sampling.plan((B, V), method="kernel", mesh=mesh,
+                              transforms="kp" if kw else "")
+            toks = []
+            torch.cuda.synchronize()
+            reset_counts()
+            times = step_seconds(lambda: toks.append(p.sample_logits(
+                logits, key=[seed, len(toks)], **kw)), steps)
+            counts = read_counts()
+            check_path(f"sharded decode ({B},{V}) {name}", counts, {expect: steps})
+            tok = torch.stack([t.to_local() for t in toks]).long()
+            if kw and not bool((torch.gather(logits, 1, tok.T) >= kth).all()):
+                raise AssertionError(f"sharded decode {name}: a token outside its top-k")
+            want = (bops.butterfly_sample_truncated_rng(
+                sampling.logits_to_weights(logits), [seed, 0],
+                tr.canonical_params(chain, B, device=dev)) if kw else
+                bops.butterfly_sample_rng(sampling.logits_to_weights(logits), [seed, 0],
+                                          W=p.W))
+            if not torch.equal(toks[0].to_local(), want):
+                raise AssertionError(f"sharded decode {name}: differs from the unsharded "
+                                     "counter draw")
+            log(f"  sharded decode ({B},{V}) {name}: seconds per step {times}")
+            res[f"decode {name}"] = {"step_s": times, "launches": counts}
+            add_counts(launches, counts)
+        # sample once per explicit method, against the unsharded counter draw
+        key = [seed, 77]
+        s0 = rng.seed_from_key(key)
+        expects = {"kernel": {"fused_draw_rng": 1}, "butterfly": {"butterfly_table": 1},
+                   "alias_device": {"alias_assemble": 1}}
+        w = sampling.logits_to_weights(logits)
+        for m in api.METHODS[1:]:
+            x = w[:, :4096].contiguous() if m == "alias" else w
+            p = sampling.plan(tuple(x.shape), method=m, mesh=mesh)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            got = p.sample(x, key=key).to_local()
+            torch.cuda.synchronize()
+            t = time.perf_counter() - t0
+            counts = read_counts()
+            check_path(f"sharded sample {m} {tuple(x.shape)}", counts, expects.get(m, {}))
+            add_counts(launches, counts)
+            flat = sampling.Categorical.from_weights(x, method=m, W=p.W)
+            if m in sampling.U_VARIANTS:
+                want = flat.draw(u=rng.row_uniforms(rng.fold(s0, rng.TAG_U).to(dev), 0, B))
+            else:
+                want = sh._local_draw(flat, s0, 0, 1)
+            if not torch.equal(got, want):
+                raise AssertionError(f"sharded sample {m}: differs from the unsharded "
+                                     "counter draw")
+            log(f"  sharded sample {m:13s} {tuple(x.shape)}: {t:.4f} s, equals the "
+                "unsharded counter draw")
+            res[f"sample {m}"] = {"shape": list(x.shape), "seconds": t, "launches": counts}
+        prm = tr.canonical_params(chain, B, device=dev).contiguous()
+        res["shard_emulation"] = _shard_emulation(dev, g, B, V, 128, prm, [seed, 5])
+        # the distributed sweep at paper scale
+        K = CONFIG.K
+        place, step = make_sharded_gibbs(mesh, K, corpus.vocab_size, method="lda_kernel", W=32)
+        state0 = gibbs.init_state(seed, corpus, K, device=dev)
+        st, docs, mask = place(state0, corpus.docs, corpus.mask)
+        torch.cuda.synchronize()
+        reset_counts()
+        times, reduces = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _AllReduceCount() as c:
+                st = step(st, docs, mask)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            reduces.append(c.n)
+        counts = read_counts()
+        check_path("distributed sweep (lda_kernel)", counts, {"lda_fused_draw": 3})
+        add_counts(launches, counts)
+        if reduces != [1, 1, 1]:
+            raise AssertionError(f"distributed sweep: all_reduce calls per sweep {reduces}")
+        full = gibbs.LDAState(theta=st.theta.to_local(), phi=st.phi.to_local(),
+                              z=st.z.to_local(), key=st.key, step=st.step)
+        check_state(full, K)
+        ppl = gibbs.perplexity(full, corpus)
+        log(f"  distributed sweep (lda_kernel, W=32, 1 rank): seconds per sweep {times}, "
+            f"all_reduce calls {reduces}, perplexity {ppl:.2f}")
+        # the first sweep's z: the whole batch's counter draw with its seed
+        st1 = step(place(state0, corpus.docs, corpus.mask)[0], docs, mask)
+        M, N = corpus.docs.shape
+        seed_z = rng.fold(rng.seed_from_key([0, seed]), rng.TAG_LDA_Z, 0)
+        want = ops.lda_draw_factored_rng(
+            state0.theta, state0.phi, torch.arange(M * N, dtype=torch.int32, device=dev) // N,
+            docs.to_local().reshape(-1), seed_z, row_offset=0, W=32)
+        if not torch.equal(st1.z.to_local().reshape(-1), want):
+            raise AssertionError("distributed sweep: the first sweep's z differs from "
+                                 "lda_draw_factored_rng on the whole batch")
+        res["distributed_sweep"] = {"sweep_s": times, "all_reduce": reduces,
+                                    "perplexity": ppl, "launches": counts}
+        # the planted corpus: 30 sweeps bring perplexity below 0.6x its start
+        pc = corpus_mod.synthesize_corpus(seed=0, M=M_planted, V=120, K=8, avg_len=40,
+                                          max_len=80)
+        place, step = make_sharded_gibbs(mesh, 8, pc.vocab_size, method="lda_kernel", W=8)
+        s = gibbs.init_state(seed, pc, 8, device=dev)
+        p0 = gibbs.perplexity(s, pc)
+        s, pd, pm = place(s, pc.docs, pc.mask)
+        for _ in range(30):
+            s = step(s, pd, pm)
+        p1 = gibbs.perplexity(gibbs.LDAState(theta=s.theta.to_local(), phi=s.phi.to_local(),
+                                             z=s.z.to_local(), key=s.key, step=s.step), pc)
+        log(f"  distributed planted corpus: perplexity {p0:.3f} -> {p1:.3f} after 30 sweeps")
+        if not (np.isfinite(p1) and p1 < 0.6 * p0):
+            raise AssertionError(f"distributed planted corpus: perplexity {p0} -> {p1}")
+        res["distributed_planted"] = {"p0": p0, "p1": p1}
+    finally:
+        dist.destroy_process_group()
+    return launches, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1125,10 +1491,12 @@ def main(argv=None) -> int:
                   torch.Generator(device=dev).manual_seed(args.seed + 4), dev)[1]
     phase_trunc_kernels(dev, args.seed, tally)
     phase_alias_kernels(dev, args.seed, tally, phi)
+    phase_seeded_kernels(corpus, dev, args.seed, tally, inputs)
     log("phase 2c: kernel times (CUDA events)")
     timing = phase_timing(corpus, dev, args.seed, inputs)
     timing.update(phase_given_timing(corpus, dev, args.seed, inputs))
     timing.update(phase_new_timing(dev, args.seed, phi))
+    timing.update(phase_seeded_timing(dev, args.seed))
     dev_corpus = corpus_mod.Corpus(
         docs=torch.as_tensor(corpus.docs, device=dev),
         lengths=corpus.lengths,
@@ -1153,6 +1521,9 @@ def main(argv=None) -> int:
     del state
     fig3 = phase_fig3(dev_corpus, dev, args.seed)
     planted = phase_planted(dev, args.seed)
+    log("phase 6: the sharded paths (one-rank NCCL group, mesh ('data',))")
+    counts, main_res["sharded"] = phase_sharded(dev_corpus, dev, args.seed)
+    add_counts(launches, counts)
 
     kernels = []
     for name, (kid, src, replaces, _) in KERNELS.items():

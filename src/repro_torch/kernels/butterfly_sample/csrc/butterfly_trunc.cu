@@ -4,6 +4,8 @@
 //
 // Replaces the TPU kernels of src/repro/kernels/butterfly_sample/kernel.py:
 //   fused_trunc_draw   <- _fused_trunc_draw_kernel (fused_trunc_draw_pallas)  K9
+//   fused_trunc_draw_rng <- _fused_trunc_draw_rng_kernel
+//                           (fused_trunc_draw_rng_pallas)                   K10
 //   masked_blocksums   <- _masked_blocksum_kernel  (masked_blocksums_pallas)  K11
 //   walk_trunc         <- _walk_trunc_kernel       (walk_trunc_pallas)        K12
 //
@@ -29,6 +31,12 @@
 // from XLA's or PyTorch's only where the masked mass lies within fp32
 // rounding of p * total; counts are integers and exact.
 //
+// K10 is K9 with its u operand replaced by Threefry uniforms made in the
+// kernel: one body (fused_trunc_draw_kernel), instantiated on its uniform
+// source (threefry.cuh: ArrayU for K9, ThreefryU for K10).  Only warp 0
+// reads the uniform, once, after the threshold phase; K10 keeps K9's
+// staged-row / L2 switch, so a change to the threshold phase carries over.
+//
 // K11 and K12 are K2 and K3 of butterfly_sample.cu with a masking row
 // loader (w[k] >= tau ? w[k] : 0).  K11 runs one thread block per row (a
 // vocabulary row is too long for K2's one warp): the warps split the
@@ -42,6 +50,7 @@
 #include <cuda_runtime.h>
 
 #include "draw_tile.cuh"
+#include "threefry.cuh"
 
 namespace {
 
@@ -55,6 +64,8 @@ using draw_tile::to_f32;
 using draw_tile::warp_block_sums_strided;
 using draw_tile::warp_running;
 using draw_tile::warp_walk;
+using threefry::ArrayU;
+using threefry::ThreefryU;
 
 template <typename T>
 struct MaskedRow {  // w[k] * [w[k] >= tau]: one row of given weights, masked
@@ -131,10 +142,10 @@ __device__ __forceinline__ float bisect(unsigned lo, unsigned hi, int iters,
   return __uint_as_float(lo);
 }
 
-template <typename T>
+// K9 (USrc = ArrayU) and K10 (ThreefryU): usrc(row) is the row's uniform.
+template <typename T, typename USrc>
 __global__ void __launch_bounds__(kTruncThreads)
-    fused_trunc_draw_kernel(const T* __restrict__ w,
-                            const float* __restrict__ u,
+    fused_trunc_draw_kernel(const T* __restrict__ w, const USrc usrc,
                             const float* __restrict__ params,
                             int* __restrict__ out, int ncols, int nb, int W,
                             int iters, int staged) {
@@ -192,7 +203,7 @@ __global__ void __launch_bounds__(kTruncThreads)
   __syncthreads();
   if (warp == 0) {
     warp_running(run, nb, lane);
-    const int idx = warp_walk(r, run, ncols, nb, W, u[row], t, lane);
+    const int idx = warp_walk(r, run, ncols, nb, W, usrc(row), t, lane);
     if (lane == 0) out[row] = idx;
   }
 }
@@ -244,20 +255,30 @@ size_t trunc_smem_bytes(int ncols, int nb, int W, int staged) {
          (static_cast<size_t>(kRedFloats) + nb + W + (staged ? ncols : 0));
 }
 
-template <typename T>
-int launch_fused_trunc(const void* w, const void* u, const void* params,
-                       void* out, int B, int ncols, int nb, int W, int iters,
-                       int staged, cudaStream_t st) {
+template <typename T, typename USrc>
+int launch_fused_trunc_t(const void* w, USrc usrc, const void* params,
+                         void* out, int B, int ncols, int nb, int W, int iters,
+                         int staged, cudaStream_t st) {
   const size_t smem = trunc_smem_bytes(ncols, nb, W, staged);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_trunc_draw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      fused_trunc_draw_kernel<T, USrc>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  fused_trunc_draw_kernel<T><<<B, kTruncThreads, smem, st>>>(
-      static_cast<const T*>(w), static_cast<const float*>(u),
-      static_cast<const float*>(params), static_cast<int*>(out), ncols, nb, W,
-      iters, staged);
+  fused_trunc_draw_kernel<T, USrc><<<B, kTruncThreads, smem, st>>>(
+      static_cast<const T*>(w), usrc, static_cast<const float*>(params),
+      static_cast<int*>(out), ncols, nb, W, iters, staged);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename USrc>
+int launch_fused_trunc(const void* w, USrc usrc, const void* params, void* out,
+                       int B, int ncols, int nb, int W, int iters, int staged,
+                       int dtype, cudaStream_t st) {
+  if (dtype == 1)
+    return launch_fused_trunc_t<__nv_bfloat16>(w, usrc, params, out, B, ncols,
+                                               nb, W, iters, staged, st);
+  return launch_fused_trunc_t<float>(w, usrc, params, out, B, ncols, nb, W,
+                                     iters, staged, st);
 }
 
 }  // namespace
@@ -274,12 +295,21 @@ int fused_trunc_draw(const void* w, const void* u, const void* params,
                      void* out, int B, int ncols, int nb, int W, int iters,
                      int staged, int dtype, void* stream) {
   if (B <= 0) return 0;
-  auto st = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_fused_trunc<__nv_bfloat16>(w, u, params, out, B, ncols, nb,
-                                             W, iters, staged, st);
-  return launch_fused_trunc<float>(w, u, params, out, B, ncols, nb, W, iters,
-                                   staged, st);
+  return launch_fused_trunc(w, ArrayU{static_cast<const float*>(u)}, params, out,
+                            B, ncols, nb, W, iters, staged, dtype,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// K10: (s0, s1) the seed already folded with TAG_U; row r draws with the
+// uniform of global row row_offset + r (mod 2^32).
+int fused_trunc_draw_rng(const void* w, const void* params, void* out, int B,
+                         int ncols, int nb, int W, int iters, int staged,
+                         unsigned s0, unsigned s1, unsigned row_offset,
+                         int dtype, void* stream) {
+  if (B <= 0) return 0;
+  return launch_fused_trunc(w, ThreefryU{s0, s1, row_offset}, params, out, B,
+                            ncols, nb, W, iters, staged, dtype,
+                            static_cast<cudaStream_t>(stream));
 }
 
 int masked_blocksums(const void* w, const void* tau, void* running, int B,

@@ -18,21 +18,31 @@ kernels below use.  The reference's one-hot lane reductions become direct
 gathers here; the arithmetic (which values are added, in which order) is
 the same, so on equal tiles the results are equal bit for bit.
 
-Six kernels replace the reference's Pallas kernels in
-``repro/kernels/butterfly_sample/kernel.py``; the first three are in
+Eight kernels replace the reference's Pallas kernels in
+``repro/kernels/butterfly_sample/kernel.py``; the first four are in
 ``csrc/butterfly_sample.cu``, the truncated draws in
 ``csrc/butterfly_trunc.cu``:
 
-====================  ===================================  ===========================
-wrapper               replaces                             plain version
-====================  ===================================  ===========================
-``blocksums``         ``_blocksum_kernel`` (K2)            ``blocksums_torch``
-``walk``              ``_walk_kernel`` (K3)                ``walk_torch``
-``fused_draw``        ``_fused_draw_kernel`` (K4)          ``fused_draw_torch``
-``fused_trunc_draw``  ``_fused_trunc_draw_kernel`` (K9)    ``fused_trunc_draw_torch``
-``masked_blocksums``  ``_masked_blocksum_kernel`` (K11)    ``masked_blocksums_torch``
-``walk_trunc``        ``_walk_trunc_kernel`` (K12)         ``walk_trunc_torch``
-====================  ===================================  ===========================
+========================  =======================================  ===============================
+wrapper                   replaces                                 plain version
+========================  =======================================  ===============================
+``blocksums``             ``_blocksum_kernel`` (K2)                ``blocksums_torch``
+``walk``                  ``_walk_kernel`` (K3)                    ``walk_torch``
+``fused_draw``            ``_fused_draw_kernel`` (K4)              ``fused_draw_torch``
+``fused_draw_rng``        ``_fused_draw_rng_kernel`` (K5)          ``fused_draw_rng_torch``
+``fused_trunc_draw``      ``_fused_trunc_draw_kernel`` (K9)        ``fused_trunc_draw_torch``
+``fused_trunc_draw_rng``  ``_fused_trunc_draw_rng_kernel`` (K10)   ``fused_trunc_draw_rng_torch``
+``masked_blocksums``      ``_masked_blocksum_kernel`` (K11)        ``masked_blocksums_torch``
+``walk_trunc``            ``_walk_trunc_kernel`` (K12)             ``walk_trunc_torch``
+========================  =======================================  ===============================
+
+K5 and K10 are K4 and K9 with their uniforms made in the kernel from a
+(2,) seed already folded with ``rng.TAG_U`` and the first row's global
+id: row r draws with ``rng.row_uniforms(seed2, row_offset, B)[r]``
+(Threefry, ``kernels/csrc/threefry.cuh``), or, for K5 with ``hw=True``,
+with ``rng.philox_row_uniforms``.  ``threefry_uniforms`` writes the
+Threefry stream alone (plain version ``rng.row_uniforms``) so that the
+device cipher can be held against the plain one; no draw path calls it.
 
 A wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates its output with ``torch.empty``, launches on the
@@ -50,12 +60,14 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import rng as _rng
 from repro_torch.kernels import runtime
 
 # launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"blocksums": 0, "walk": 0, "fused_draw": 0,
-                            "fused_trunc_draw": 0, "masked_blocksums": 0,
-                            "walk_trunc": 0}
+                            "fused_draw_rng": 0, "threefry_uniforms": 0,
+                            "fused_trunc_draw": 0, "fused_trunc_draw_rng": 0,
+                            "masked_blocksums": 0, "walk_trunc": 0}
 
 # Fused / two-pass switch.  The fused kernel (K4) keeps one sample's nb
 # running sums and one W-block in shared memory, _WARPS_PER_BLOCK samples
@@ -170,15 +182,19 @@ def reset_launches() -> None:
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
 _SIGS = {
     "blocksums": [_P] * 2 + [_I] * 5 + [_P],
     "walk": [_P] * 5 + [_I] * 5 + [_P],
     "fused_draw": [_P] * 3 + [_I] * 5 + [_P],
+    "fused_draw_rng": [_P] * 2 + [_I] * 4 + [_U] * 3 + [_I] * 2 + [_P],
+    "threefry_uniforms": [_P, _I] + [_U] * 3 + [_P],
 }
 
 
 _TRUNC_SIGS = {
     "fused_trunc_draw": [_P] * 4 + [_I] * 7 + [_P],
+    "fused_trunc_draw_rng": [_P] * 3 + [_I] * 6 + [_U] * 3 + [_I, _P],
     "masked_blocksums": [_P] * 3 + [_I] * 5 + [_P],
     "walk_trunc": [_P] * 6 + [_I] * 5 + [_P],
 }
@@ -225,6 +241,14 @@ def _check_running(running: torch.Tensor, like: torch.Tensor) -> None:
 
 def _float_rows(w: torch.Tensor) -> torch.Tensor:
     return w if w.dtype in (torch.float32, torch.float64) else w.float()
+
+
+def _seed_args(seed2, row_offset):
+    """(s0, s1, row_offset) as the kernels' uint32 arguments: a folded
+    (2,) seed and the first row's global id (an int or a 0-dim tensor),
+    reduced modulo 2**32 as the reference's uint32 counters are."""
+    s0, s1 = _rng.seed_words(seed2)
+    return s0, s1, int(row_offset) & 0xFFFFFFFF
 
 
 # ---------------------------------------------------------------------------
@@ -320,6 +344,54 @@ def fused_draw_torch(w, u, W: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# K5: the fused draw with its uniforms made in the kernel
+# ---------------------------------------------------------------------------
+
+
+def fused_draw_rng(w, seed2, row_offset, W: int, hw: bool = False) -> torch.Tensor:
+    """(B,) int32 draws in [0, Kp) from (B, K) weights in one launch (K5):
+    K4 with row r's uniform made in the kernel from the folded seed
+    ``seed2`` and global row ``row_offset + r`` (Threefry; Philox with
+    ``hw``).  No uniform tensor exists."""
+    nb = num_blocks(w.shape[1], W)
+    ncols = _check_weights(w, nb, W)
+    if not fused_fits(nb, W):
+        raise ValueError(f"fused draw needs too much shared memory at nb={nb}, W={W}")
+    B = w.shape[0]
+    out = torch.empty((B,), dtype=torch.int32, device=w.device)
+    _launch("fused_draw_rng", w.data_ptr(), out.data_ptr(), B, ncols, nb, W,
+            *_seed_args(seed2, row_offset), int(bool(hw)), _DTYPES[w.dtype])
+    return out
+
+
+def _row_uniforms(seed2, row_offset, n: int, device, hw: bool = False) -> torch.Tensor:
+    seed2 = _rng._u32(seed2, device)
+    if hw:
+        return _rng.philox_row_uniforms(seed2, row_offset, n)
+    return _rng.row_uniforms(seed2, row_offset, n)
+
+
+def fused_draw_rng_torch(w, seed2, row_offset, W: int, hw: bool = False) -> torch.Tensor:
+    """Plain version of :func:`fused_draw_rng`: the counter uniforms
+    (``rng.row_uniforms``, or ``rng.philox_row_uniforms`` with ``hw``),
+    then :func:`fused_draw_torch`."""
+    return fused_draw_torch(w, _row_uniforms(seed2, row_offset, w.shape[0], w.device, hw),
+                            W)
+
+
+def threefry_uniforms(seed2, row_offset, n: int, device) -> torch.Tensor:
+    """(n,) float32 uniforms of global rows [row_offset, row_offset + n)
+    made by the device cipher of K5 and K10; plain version
+    ``rng.row_uniforms``.  For holding the two ciphers against each
+    other: no draw path calls it."""
+    out = torch.empty((n,), dtype=torch.float32, device=device)
+    if out.device.type != "cuda":
+        raise ValueError(f"threefry_uniforms runs on a CUDA device, got {out.device}")
+    _launch("threefry_uniforms", out.data_ptr(), n, *_seed_args(seed2, row_offset))
+    return out
+
+
+# ---------------------------------------------------------------------------
 # K9: fused truncated draw (threshold, mask, draw), one launch per batch
 # ---------------------------------------------------------------------------
 
@@ -357,6 +429,31 @@ def _fused_trunc_draw(w, u, params, W: int, iters: int, staged) -> torch.Tensor:
             out.data_ptr(), B, ncols, nb, W, int(iters),
             int(fits if staged is None else staged), _DTYPES[w.dtype])
     return out
+
+
+def fused_trunc_draw_rng(w, seed2, row_offset, params, W: int, iters: int = 32
+                         ) -> torch.Tensor:
+    """(B,) int32 truncated draws in [0, Kp) (K10): K9 with row r's
+    uniform made in the kernel from the folded seed ``seed2`` and global
+    row ``row_offset + r``.  Rows are staged in shared memory where they
+    fit, as K9's."""
+    nb = num_blocks(w.shape[1], W)
+    ncols = _check_weights(w, nb, W)
+    B = w.shape[0]
+    _check_params(params, B, w)
+    out = torch.empty((B,), dtype=torch.int32, device=w.device)
+    _launch("fused_trunc_draw_rng", w.data_ptr(), params.data_ptr(), out.data_ptr(), B,
+            ncols, nb, W, int(iters), int(trunc_row_staged(ncols, nb, W)),
+            *_seed_args(seed2, row_offset), _DTYPES[w.dtype])
+    return out
+
+
+def fused_trunc_draw_rng_torch(w, seed2, row_offset, params, W: int, iters: int = 32
+                               ) -> torch.Tensor:
+    """Plain version of :func:`fused_trunc_draw_rng`: ``rng.row_uniforms``,
+    then :func:`fused_trunc_draw_torch`."""
+    u = _row_uniforms(seed2, row_offset, w.shape[0], w.device)
+    return fused_trunc_draw_torch(w, u, params, W, iters)
 
 
 def _mask(wf: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:

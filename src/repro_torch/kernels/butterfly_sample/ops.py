@@ -15,7 +15,12 @@ Counterparts of ``repro.kernels.butterfly_sample.ops``:
 * :func:`butterfly_sample_truncated` — the truncated (top-k, top-p,
   min-p) draw: the fused kernel (K9) for one draw per row, or tau in
   plain PyTorch (``sampling.transforms.thresholds_from_params``) then
-  masked pass A (K11) and masked pass B (K12) for S draws per row.
+  masked pass A (K11) and masked pass B (K12) for S draws per row;
+* :func:`butterfly_sample_rng` and :func:`butterfly_sample_truncated_rng`
+  — the seeded draws of the mesh-sharded sampler: row r draws with the
+  counter uniform of global row ``row_offset + r``, made inside the fused
+  kernels (K5, K10) or, on the two-pass route, by ``rng.row_uniforms``
+  on the device (the same counters, so the same draws).
 
 Every entry point resolves ``impl`` through
 :func:`repro_torch.kernels.runtime.resolve_impl`: the Hopper kernels for
@@ -25,10 +30,7 @@ for the plain versions anywhere.  Results are int32 in [0, K).
 The reference returns its weights padded to a multiple of its column
 tile; the port's kernels pad K virtually, so :func:`build_block_sums`
 returns the weights as given (contiguous) and ``running`` has
-ceil(K / W) columns.  Either form is accepted by the draws.  The seeded
-fused draws (``butterfly_sample_rng``, K5, and
-``butterfly_sample_truncated_rng``, K10) come with the mesh-sharded draw
-(ROADMAP slice 11); calling them raises.
+ceil(K / W) columns.  Either form is accepted by the draws.
 """
 
 from __future__ import annotations
@@ -43,9 +45,13 @@ from repro_torch.kernels.butterfly_sample.kernel import (
     blocksums,
     blocksums_torch,
     fused_draw,
+    fused_draw_rng,
+    fused_draw_rng_torch,
     fused_draw_torch,
     fused_fits,
     fused_trunc_draw,
+    fused_trunc_draw_rng,
+    fused_trunc_draw_rng_torch,
     fused_trunc_draw_torch,
     masked_blocksums,
     masked_blocksums_torch,
@@ -70,6 +76,13 @@ def _floats(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, device=like.device).to(torch.float32).contiguous()
 
 
+def _route(route: Optional[str], default: str) -> str:
+    route = default if route is None else route
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    return route
+
+
 def _running(w, W: int, nb: int, impl: str) -> torch.Tensor:
     return blocksums(w, W, nb) if impl == "cuda" else blocksums_torch(w, W, nb)
 
@@ -92,10 +105,7 @@ def butterfly_sample(weights, u, W: int = 32, impl: Optional[str] = None,
     u = _floats(u, w)
     K = w.shape[1]
     nb = num_blocks(K, W)
-    if route is None:
-        route = "fused" if fused_fits(nb, W) else "two_pass"
-    if route not in ROUTES:
-        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    route = _route(route, "fused" if fused_fits(nb, W) else "two_pass")
     impl = runtime.resolve_impl(impl, w)
     if route == "fused":
         idx = fused_draw(w, u, W) if impl == "cuda" else fused_draw_torch(w, u, W)
@@ -175,10 +185,7 @@ def butterfly_sample_truncated(weights, u, params, W: int = 32, iters: int = 32,
     if tuple(prm.shape) != (B, 3):
         raise ValueError(f"params must be (B, 3) [top_k, top_p, min_p], got {tuple(prm.shape)}")
     multi = u.dim() == 2
-    if route is None:
-        route = "two_pass" if multi else "fused"
-    if route not in ROUTES:
-        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    route = _route(route, "two_pass" if multi else "fused")
     impl = runtime.resolve_impl(impl, w)
     if route == "fused":
         if multi:
@@ -200,17 +207,72 @@ def butterfly_sample_truncated(weights, u, params, W: int = 32, iters: int = 32,
     return idx.view(S, B) if multi else idx
 
 
-def butterfly_sample_rng(*args, **kwargs):
-    """The seeded fused draw (K5) comes with the mesh-sharded draw."""
-    raise NotImplementedError(
-        "butterfly_sample_rng (K5, Threefry uniforms made in the kernel) is not "
-        "ported yet: ROADMAP queue 1, slice 11 (multi-device draws)"
-    )
+def _seed2(seed) -> torch.Tensor:
+    """The draw's folded (2,) seed, on the host: fold(seed, TAG_U, 0)."""
+    return _rng.fold(_rng.seed_from_key(seed), _rng.TAG_U, 0)
 
 
-def butterfly_sample_truncated_rng(*args, **kwargs):
-    """The seeded truncated draw (K10) comes with the mesh-sharded draw."""
-    raise NotImplementedError(
-        "butterfly_sample_truncated_rng (K10) is not ported yet: ROADMAP "
-        "queue 1, slice 11 (multi-device draws)"
-    )
+def butterfly_sample_rng(weights, seed, row_offset=0, W: int = 32, hw: bool = False,
+                         route: Optional[str] = None, impl: Optional[str] = None
+                         ) -> torch.Tensor:
+    """One index per row of (B, K) ``weights``; row r draws with u =
+    uniform(fold(seed, TAG_U), row_offset + r).  ``seed`` is the raw (2,)
+    uint32 pair (or one word) that ``rng.seed_from_key`` takes;
+    ``row_offset`` (an int or a 0-dim tensor) is the first row's global
+    id, so a shard of a larger batch draws what the whole batch would.
+
+    ``route=None`` takes the fused kernel with in-kernel uniforms (K5)
+    while its shared memory fits and pass A then pass B (K2, K3) with
+    ``rng.row_uniforms`` beyond; both give the same indices.  ``hw=True``
+    makes the fused kernel's uniforms with Philox in place of Threefry
+    (the reference's TPU hardware generator has no counterpart here): a
+    fixed seed gives fixed draws, but another stream, which the two-pass
+    route cannot reproduce, so there it raises."""
+    runtime.check_w(W)
+    w = _weights(weights)
+    B, K = w.shape
+    nb = num_blocks(K, W)
+    route = _route(route, "fused" if fused_fits(nb, W) else "two_pass")
+    seed2 = _seed2(seed)
+    impl = runtime.resolve_impl(impl, w)
+    if route == "two_pass":
+        if hw:
+            raise ValueError(
+                f"hw_rng needs the fused route (nb={nb}, W={W} takes the two-pass "
+                "route, whose uniforms come from the Threefry stream): use the "
+                "default hw=False"
+            )
+        u = _rng.row_uniforms(seed2.to(w.device), row_offset, B)
+        rows = torch.arange(B, dtype=torch.int32, device=w.device)
+        idx = _walk(w, _running(w, W, nb, impl), u, rows, W, impl)
+    else:
+        fn = fused_draw_rng if impl == "cuda" else fused_draw_rng_torch
+        idx = fn(w, seed2, row_offset, W, hw=hw)
+    return idx.clamp_(max=K - 1)
+
+
+def butterfly_sample_truncated_rng(weights, seed, params, row_offset=0, W: int = 32,
+                                   iters: int = 32, route: Optional[str] = None,
+                                   impl: Optional[str] = None) -> torch.Tensor:
+    """The truncated draw with counter uniforms: row r of (B, K)
+    ``weights``, truncated by row r of the (B, 3) ``[top_k, top_p,
+    min_p]`` block, draws with u = uniform(fold(seed, TAG_U), row_offset
+    + r).  ``route=None`` or ``"fused"`` takes K10 (uniforms made in the
+    kernel) at every K, as :func:`butterfly_sample_truncated` takes K9;
+    ``"two_pass"`` takes tau, K11 and K12 on ``rng.row_uniforms``: the
+    same indices."""
+    runtime.check_w(W)
+    w = _weights(weights)
+    prm = _floats(params, w)
+    B, K = w.shape
+    if tuple(prm.shape) != (B, 3):
+        raise ValueError(f"params must be (B, 3) [top_k, top_p, min_p], got {tuple(prm.shape)}")
+    route = _route(route, "fused")
+    seed2 = _seed2(seed)
+    impl = runtime.resolve_impl(impl, w)
+    if route == "two_pass":
+        u = _rng.row_uniforms(seed2.to(w.device), row_offset, B)
+        return butterfly_sample_truncated(w, u, prm, W=W, iters=iters, route=route,
+                                          impl=impl)
+    fn = fused_trunc_draw_rng if impl == "cuda" else fused_trunc_draw_rng_torch
+    return fn(w, seed2, row_offset, prm, W, iters).clamp_(max=K - 1)

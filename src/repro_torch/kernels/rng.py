@@ -12,7 +12,13 @@ behind JAX's default PRNG; this module reproduces its bits exactly.
 PyTorch on the CPU has no uint32 ``+``, ``<<`` or ``>>``, so every word
 is held in an int64 tensor and masked back to 32 bits after each add and
 shift.  Seeds and outputs are int64 tensors whose values lie in
-[0, 2**32).
+[0, 2**32).  :func:`fold` of a host seed by integer tags runs the same
+rounds on Python integers, so the seeded draws fold their seed on the
+host once per call without ~150 small tensor operations.
+
+:func:`philox4x32` is the plain version of the Philox-4x32-10 cipher that
+the seeded fused draw (K5) runs with ``hw=True`` in place of the TPU's
+hardware generator (``kernels/csrc/threefry.cuh``).
 """
 
 from __future__ import annotations
@@ -31,6 +37,15 @@ TAG_GUMBEL = 2     # per-(row, category) Gumbel noise
 TAG_ALIAS_J = 3    # alias draw: column pick
 TAG_ALIAS_A = 4    # alias draw: accept coordinate
 TAG_SPARSE_MH = 5  # sparse LDA MH-alias sweep: per-(token, use) uniforms
+# the distributed sweep's streams (repro_torch.lda.distributed; the port's
+# own: the reference splits a JAX key there)
+TAG_LDA_Z = 6      # the z-draw's seed of a sweep
+TAG_LDA_THETA = 7  # the theta resample of a sweep, folded again by rank
+TAG_LDA_PHI = 8    # the phi resample of a sweep, the same on every rank
+
+# Philox-4x32-10 constants (Salmon et al. 2011; Random123's philox4x32)
+_PHILOX_M = (0xD2511F53, 0xCD9E8D57)
+_PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 
 
 def _u32(x, device=None) -> torch.Tensor:
@@ -48,11 +63,15 @@ def threefry2x32(k0, k1, x0, x1):
     """The Threefry-2x32 block cipher (20 rounds).
 
     Inputs are integers or integer tensors (broadcast together); returns
-    the two output words as int64 tensors with values in [0, 2**32)."""
-    dev = next(
-        (a.device for a in (k0, k1, x0, x1) if isinstance(a, torch.Tensor)), None
-    )
-    k0, k1, x0, x1 = (_u32(a, dev) for a in (k0, k1, x0, x1))
+    the two output words as int64 tensors with values in [0, 2**32), or
+    as Python integers when all four inputs are Python integers."""
+    if all(type(a) is int for a in (k0, k1, x0, x1)):
+        k0, k1, x0, x1 = (a & _MASK for a in (k0, k1, x0, x1))
+    else:
+        dev = next(
+            (a.device for a in (k0, k1, x0, x1) if isinstance(a, torch.Tensor)), None
+        )
+        k0, k1, x0, x1 = (_u32(a, dev) for a in (k0, k1, x0, x1))
     ks = (k0, k1, k0 ^ k1 ^ _KS_PARITY)
     x0 = (x0 + ks[0]) & _MASK
     x1 = (x1 + ks[1]) & _MASK
@@ -76,10 +95,19 @@ def seed_from_key(key) -> torch.Tensor:
 
 
 def fold(seed: torch.Tensor, a, b=0) -> torch.Tensor:
-    """An independent (2,) seed derived from (seed, a, b)."""
+    """An independent (2,) seed derived from (seed, a, b); on the seed's
+    device (a host seed folded by integers stays on the host)."""
     seed = _u32(seed)
+    if not seed.is_cuda and type(a) is int and type(b) is int:
+        return torch.tensor(threefry2x32(*seed.tolist(), a, b), dtype=torch.int64)
     s0, s1 = threefry2x32(seed[0], seed[1], a, b)
     return torch.stack([s0.reshape(()), s1.reshape(())])
+
+
+def seed_words(seed) -> tuple:
+    """A (2,) seed as two host integers (the seeded kernels' arguments)."""
+    s0, s1 = _u32(seed).reshape(-1).tolist()
+    return s0, s1
 
 
 def bits_to_uniform(bits) -> torch.Tensor:
@@ -110,3 +138,40 @@ def multi_row_uniforms(seed: torch.Tensor, row0, n: int, S: int) -> torch.Tensor
     rows = int(row0) + torch.arange(n, dtype=torch.int64, device=seed.device)
     draws = torch.arange(S, dtype=torch.int64, device=seed.device)
     return uniform(seed, rows[None, :], draws[:, None])
+
+
+def _mulhilo(m: int, x: torch.Tensor):
+    """(hi, lo) words of the 64-bit product m * x (m a 32-bit constant, x
+    int64 words in [0, 2**32)), from 16-bit halves of x: int64 cannot
+    hold the product itself."""
+    p_lo = m * (x & 0xFFFF)                      # < 2**48
+    p_hi = m * (x >> 16)                         # < 2**48
+    mid = p_lo + ((p_hi & 0xFFFF) << 16)         # < 2**49
+    return (p_hi >> 16) + (mid >> 32), mid & _MASK
+
+
+def philox4x32(k0, k1, c0, c1=0, c2=0, c3=0):
+    """The Philox-4x32-10 block cipher: key (k0, k1), counter (c0, c1, c2,
+    c3), integers or integer tensors broadcast together; the four output
+    words as int64 tensors with values in [0, 2**32)."""
+    dev = next((a.device for a in (k0, k1, c0, c1, c2, c3)
+                if isinstance(a, torch.Tensor)), None)
+    k0, k1 = (int(_u32(k)) for k in (k0, k1))
+    c = torch.broadcast_tensors(*(_u32(a, dev) for a in (c0, c1, c2, c3)))
+    for i in range(10):
+        if i:
+            k0 = (k0 + _PHILOX_W[0]) & _MASK
+            k1 = (k1 + _PHILOX_W[1]) & _MASK
+        hi0, lo0 = _mulhilo(_PHILOX_M[0], c[0])
+        hi1, lo1 = _mulhilo(_PHILOX_M[1], c[2])
+        c = (hi1 ^ c[1] ^ k0, lo1, hi0 ^ c[3] ^ k1, lo0)
+    return c
+
+
+def philox_row_uniforms(seed: torch.Tensor, row0, n: int) -> torch.Tensor:
+    """(n,) uniforms for global rows [row0, row0 + n) from word 0 of
+    Philox(seed, (row, 0, 0, 0)): the stream of the seeded fused draw
+    with ``hw=True``."""
+    seed = _u32(seed)
+    rows = int(row0) + torch.arange(n, dtype=torch.int64, device=seed.device)
+    return bits_to_uniform(philox4x32(seed[0], seed[1], rows)[0])

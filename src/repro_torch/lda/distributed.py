@@ -1,0 +1,161 @@
+"""Distributed LDA on ``torch.distributed``: documents shard over the
+mesh's data axes and phi is replicated (AD-LDA, Newman et al.), the
+counterpart of ``repro.lda.distributed``.
+
+A sweep on each rank:
+
+* **z-draw.**  The rank draws its own word positions from its theta rows
+  and the replicated phi: ``lda_draw_factored_rng`` (K8 on the card) with
+  global row counters, ``row_offset = linear index * C_loc * N``, so the
+  draws are the same at any rank count and the draw issues no
+  collective.  Another u-driven method builds the factored plan's
+  distribution per rank and draws from the same counters.
+* **Counts.**  Doc-topic counts stay local.  The word-topic counts are
+  the one quantity AD-LDA synchronises: exactly one
+  ``torch.distributed.all_reduce`` per sweep, over the data axes.
+* **Resample.**  theta rows per rank; phi identically on every rank from
+  a stream every rank derives alike and the all-reduced counts, so it
+  stays replicated without a broadcast.
+
+Randomness.  The port's state carries a ``torch.Generator``; the sweep
+reads one replicated seed from it, the generator's ``initial_seed()`` as
+two 32-bit words (so every rank builds its state from the same seed, e.g.
+``gibbs.init_state(seed, ...)``), and derives with
+:func:`repro_torch.kernels.rng.fold`, for the state's ``step``:
+
+* the z-draw's (2,) seed: ``fold(seed, TAG_LDA_Z, step)`` (the draw folds
+  ``TAG_U`` into it, as every seeded draw does);
+* theta's stream: ``fold(fold(seed, TAG_LDA_THETA, step), shard)``, the
+  shard being the rank's linear index along the data axes (ranks that
+  hold the same documents draw the same theta);
+* phi's stream: ``fold(seed, TAG_LDA_PHI, step)``.
+
+A derived pair (s0, s1) seeds a ``torch.Generator`` with ``s0 << 32 |
+s1``.  The reference splits the sweep's JAX key four ways instead.
+
+Not ported yet: ``method="auto"`` (ROADMAP queue 1, slice 9) and
+``sparse=True`` (the MH-alias sweep, slice 10); both raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
+
+from repro_torch.kernels import rng as _rng
+from repro_torch.kernels import runtime
+from repro_torch.kernels.lda_draw import lda_draw_factored_rng
+from repro_torch.lda.gibbs import LDAState, _counts, _update_phi, _update_theta
+from repro_torch import sampling
+from repro_torch.sampling import distribution as _dist
+from repro_torch.sampling import sharded as _sharded
+
+
+def _seed(key: torch.Generator) -> torch.Tensor:
+    """The replicated (2,) seed: the generator's initial seed as two words."""
+    s = int(key.initial_seed()) & 0xFFFFFFFFFFFFFFFF
+    return _rng.seed_from_key([s >> 32, s & 0xFFFFFFFF])
+
+
+def _generator(seed2: torch.Tensor, device) -> torch.Generator:
+    s0, s1 = _rng.seed_words(seed2)
+    return torch.Generator(device=device).manual_seed((s0 << 32) | s1)
+
+
+def _data_group(mesh):
+    """The process group of the mesh's data axes (the word-topic sum)."""
+    axes = _sharded.data_axes(mesh)
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def make_sharded_gibbs(mesh, K: int, V: int, alpha: float = 0.1, beta: float = 0.05,
+                       method: str = "auto", W: Optional[int] = None,
+                       sparse: bool = False):
+    """``(place, step)`` over a ``DeviceMesh``: ``place(state, docs, mask)``
+    shards an ``LDAState`` and the corpus arrays onto the mesh (theta, z,
+    docs and mask by documents as DTensors, phi replicated); ``step(state,
+    docs, mask)`` runs one sweep (module docstring) and returns the next
+    state, sharded alike.  ``step`` also takes plain tensors holding the
+    whole arrays on every rank, of which each rank takes its documents.
+
+    ``method`` is explicit (a u-driven variant; ``lda_kernel`` draws
+    straight from the factors); ``"auto"`` waits for slice 9."""
+    if method == "auto":
+        raise NotImplementedError(
+            "make_sharded_gibbs(method='auto') is not ported yet: ROADMAP queue 1, "
+            "slice 9 (candidates and autotune); pass an explicit method"
+        )
+    if sparse:
+        raise NotImplementedError(
+            "make_sharded_gibbs(sparse=True) (the MH-alias sweep) is not ported yet: "
+            "ROADMAP queue 1, slice 10 (sparse LDA)"
+        )
+    if method not in _dist.U_VARIANTS:
+        raise ValueError(
+            f"the distributed z-draw takes counter uniforms: method must be one of "
+            f"{_dist.U_VARIANTS}, got {method!r}"
+        )
+    Wr = int(W or runtime.default_w(K))
+    rows = _sharded.row_spec(mesh)
+    rep = tuple(Replicate() for _ in rows)
+    lay = _sharded._layout(mesh)
+    group = _data_group(mesh)
+
+    def place(state: LDAState, docs, mask):
+        def put(x, placements):
+            return distribute_tensor(torch.as_tensor(x), mesh, placements)
+
+        return (
+            LDAState(theta=put(state.theta, rows), phi=put(state.phi, rep),
+                     z=put(state.z, rows), key=state.key, step=state.step),
+            put(docs, rows),
+            put(mask, rows),
+        )
+
+    def local(x, what: str) -> torch.Tensor:
+        if isinstance(x, DTensor):
+            return x.to_local()
+        return _sharded._local_rows(lay, x, x.shape[0], what)
+
+    def step(state: LDAState, docs, mask) -> LDAState:
+        theta = local(state.theta, "theta")
+        phi = state.phi.to_local() if isinstance(state.phi, DTensor) else state.phi
+        docs_l, mask_l = local(docs, "docs"), local(mask, "mask")
+        C, N = docs_l.shape
+        B = C * N
+        dev = theta.device
+        seed = _seed(state.key)
+        seed_z = _rng.fold(seed, _rng.TAG_LDA_Z, state.step)
+        row0 = lay.index * B                  # first global word position
+        words = docs_l.reshape(-1)
+        doc_ids = torch.arange(B, dtype=torch.int32, device=dev) // N
+        if method in _dist.FACTORED_VARIANTS:
+            idx = lda_draw_factored_rng(theta, phi, doc_ids, words, seed_z,
+                                        row_offset=row0, W=Wr)
+        else:
+            p = sampling.plan((B, K), method=method, W=Wr, dtype=theta.dtype,
+                              has_key=False, factored=True, devices=lay.shards)
+            d = p.build_from_factors(theta, phi, words, doc_ids)
+            sd = _rng.fold(seed_z, _rng.TAG_U, 0).to(dev)
+            idx = p.draw(d, u=_rng.row_uniforms(sd, row0, B))
+        z = idx.view(C, N)
+        doc_topic, word_topic = _counts(z, docs_l, mask_l, K, V)
+        dist.all_reduce(word_topic, group=group)   # AD-LDA's one synchronisation
+        g_theta = _generator(_rng.fold(_rng.fold(seed, _rng.TAG_LDA_THETA, state.step),
+                                       lay.index), dev)
+        theta = _update_theta(g_theta, doc_topic, alpha)
+        phi = _update_phi(_generator(_rng.fold(seed, _rng.TAG_LDA_PHI, state.step), dev),
+                          word_topic, beta)
+        phi = DTensor.from_local(phi, mesh, rep, run_check=False, shape=phi.shape,
+                                 stride=phi.stride())
+        return LDAState(theta=_sharded._from_local(lay, theta), phi=phi,
+                        z=_sharded._from_local(lay, z), key=state.key,
+                        step=state.step + 1)
+
+    return place, step

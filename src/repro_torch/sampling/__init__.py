@@ -15,8 +15,13 @@ On the card::
     tok = p.sample_logits(logits, generator,
                           transforms=(sampling.TopK(64), sampling.TopP(0.95)))
 
-The mesh-sharded draw (:mod:`.sharded`) comes with ROADMAP slice 11; its
-names raise until then.
+Over a ``torch.distributed`` ``DeviceMesh``, ``plan(..., mesh=mesh)``
+routes every draw through :mod:`.sharded`: per-shard kernels and counter
+uniforms seeded by ``key=``, no collective on the draw path::
+
+    p = sampling.plan((64, 256000), method="kernel", mesh=mesh, transforms="kp")
+    tok = p.sample_logits(logits, key=seed_pair,
+                          transforms=(sampling.TopK(64), sampling.TopP(0.95)))
 """
 
 from repro_torch.sampling.distribution import (
@@ -30,6 +35,7 @@ from repro_torch.sampling.distribution import (
     logits_to_weights,
 )
 from repro_torch.sampling.plan import SamplerPlan, plan, plan_stats, reset_plans
+from repro_torch.sampling import sharded
 from repro_torch.sampling import transforms
 from repro_torch.sampling.transforms import MinP, Temperature, TopK, TopP
 
@@ -50,5 +56,6 @@ __all__ = [
     "plan",
     "plan_stats",
     "reset_plans",
+    "sharded",
     "transforms",
 ]

@@ -5,14 +5,20 @@ the counterpart of ``repro.sampling.plan``.
 a frozen, hashable :class:`SamplerPlan` whose ``build`` / ``draw`` /
 ``sample`` / ``sample_logits`` route through :mod:`.distribution`.  Plans
 are memoized per (shape, dtype, method, W, draws, has_key, backend,
-factored, devices, transforms signature): re-planning a workload is a
-dictionary hit (:func:`plan_stats`).  ``W=None`` resolves to
-``runtime.default_w(K)`` and the tiles to ``runtime.default_tb`` /
-``default_tk``.
+factored, devices, mesh signature, transforms signature): re-planning a
+workload is a dictionary hit (:func:`plan_stats`), and two topologies
+never share a plan.  ``W=None`` resolves to ``runtime.default_w(K)`` and
+the tiles to ``runtime.default_tb`` / ``default_tk``.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP
-queue-1 slice): ``method="auto"`` (slice 9, autotune) and ``mesh=`` /
-``spec=`` (slice 11, multi-device draws).
+``mesh=`` (a ``DeviceMesh`` with ``mesh_dim_names``) makes the plan
+sharded: (B, K) is the global workload, rows shard over the mesh's data
+axes (``spec=`` overrides them), and ``build`` / ``draw`` / ``sample`` /
+``sample_logits`` route to :mod:`.sharded`, which draws every random
+number from the counter RNG: pass ``key=`` (a raw (2,) uint32 pair or an
+int); ``u=`` and ``generator=`` raise there.
+
+Not ported yet: ``method="auto"`` (raises ``NotImplementedError`` naming
+ROADMAP queue 1, slice 9, autotune).
 
 The decode hot path::
 
@@ -33,6 +39,7 @@ import torch
 
 from repro_torch.kernels import runtime
 from repro_torch.sampling import distribution as _dist
+from repro_torch.sampling import sharded as _sharded
 from repro_torch.sampling.distribution import Categorical
 
 _PLAN_CACHE: Dict[Tuple, "SamplerPlan"] = {}
@@ -41,7 +48,6 @@ _STATS = {"autotune_resolves": 0, "plan_hits": 0, "plan_misses": 0}
 
 METHODS = _dist.VARIANTS + ("kernel_trunc",)
 AUTO_SLICE = "ROADMAP queue 1, slice 9 (candidates and autotune)"
-MESH_SLICE = "ROADMAP queue 1, slice 11 (multi-device draws)"
 
 
 def plan_stats() -> dict:
@@ -55,11 +61,22 @@ def reset_plans() -> None:
         _PLAN_CACHE.clear()
         for k in _STATS:
             _STATS[k] = 0
+    _sharded.reset_sharded_cache()
+
+
+def _sharded_randomness(u, generator) -> None:
+    if u is not None:
+        raise ValueError("sharded plans derive uniforms from the counter RNG; "
+                         "pass key= instead of u=")
+    if generator is not None:
+        raise ValueError("sharded plans derive all randomness from the counter RNG; "
+                         "pass key= instead of generator=")
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplerPlan:
-    """A resolved (method, W) strategy for one (B, K) workload."""
+    """A resolved (method, W) strategy for one (B, K) workload.  A sharded
+    plan (``mesh`` set) routes its draws through :mod:`.sharded`."""
 
     method: str
     W: int
@@ -71,7 +88,9 @@ class SamplerPlan:
     tb: int = 0
     tk: int = 0
     factored: bool = False
-    devices: int = 1
+    mesh: Optional[object] = None     # DeviceMesh of a sharded plan
+    spec: Optional[tuple] = None      # row-axes override (PartitionSpec layout)
+    devices: int = 1                  # shards the batch rows split into
     transforms: str = ""
 
     @property
@@ -89,6 +108,8 @@ class SamplerPlan:
                 f"plan resolved to factored variant {self.method!r}; build "
                 "it with build_from_factors(theta, phi, words)"
             )
+        if self.mesh is not None:
+            return _sharded.build_sharded(self, weights)
         weights = torch.as_tensor(weights)
         if tuple(weights.shape) != self.shape:
             raise ValueError(f"plan was made for shape {self.shape}, got "
@@ -107,6 +128,13 @@ class SamplerPlan:
     def build_from_factors(self, theta, phi, words, doc_ids=None) -> Categorical:
         """Build from a (theta, phi, words) factorization: straight from
         the factors for ``lda_kernel``, else through the (B, K) product."""
+        if self.mesh is not None:
+            raise ValueError(
+                "sharded plans don't build factored state globally: doc_ids/words "
+                "index *local* factor rows.  Build per shard instead (plan the "
+                "per-shard shape with devices=N; see "
+                "repro_torch.lda.distributed.make_sharded_gibbs)"
+            )
         theta = torch.as_tensor(theta)
         words = torch.as_tensor(words, device=theta.device).to(torch.int32)
         if doc_ids is None:
@@ -120,37 +148,55 @@ class SamplerPlan:
     # -- drawing -----------------------------------------------------------
 
     def draw(self, dist: Categorical, generator: Optional[torch.Generator] = None,
-             u=None, num_samples: int = 1) -> torch.Tensor:
-        """Draw from a built distribution (see :func:`distribution.draw`)."""
+             u=None, num_samples: int = 1, *, key=None) -> torch.Tensor:
+        """Draw from a built distribution (see :func:`distribution.draw`).
+        A sharded plan draws per shard from the counter RNG seeded by
+        ``key``."""
+        if self.mesh is not None:
+            _sharded_randomness(u, generator)
+            return _sharded.draw_sharded(self, dist, key, num_samples)
+        _unsharded_key(key)
         return _dist.draw(dist, generator=generator, u=u, num_samples=num_samples)
 
     def sample(self, weights, generator: Optional[torch.Generator] = None, u=None,
-               num_samples: int = 1) -> torch.Tensor:
-        """Build a throwaway distribution and draw from it."""
+               num_samples: int = 1, *, key=None) -> torch.Tensor:
+        """Build a throwaway distribution and draw from it (a sharded plan:
+        build and draw per shard, one K5 launch for a ``kernel`` plan)."""
         if self.table_method in _dist.FACTORED_VARIANTS:
             raise ValueError(
                 f"plan resolved to factored variant {self.method!r}; build "
                 "it with build_from_factors(theta, phi, words) and draw from that"
             )
+        if self.mesh is not None:
+            _sharded_randomness(u, generator)
+            return _sharded.sample_sharded(self, weights, key, num_samples)
         return self.draw(self.build(weights), generator=generator, u=u,
-                         num_samples=num_samples)
+                         num_samples=num_samples, key=key)
 
     def sample_logits(self, logits, generator: Optional[torch.Generator] = None,
-                      temperature=1.0, num_samples: int = 1, transforms=None
-                      ) -> torch.Tensor:
+                      temperature=1.0, num_samples: int = 1, transforms=None, *,
+                      key=None) -> torch.Tensor:
         """Temperature sampling from (B, V) logits (the serving hot path).
 
         ``temperature == 0`` is argmax.  A ``gumbel`` plan samples in logit
         space.  ``transforms`` is a truncation chain (per-row parameters
         allowed): a ``kernel`` / ``kernel_trunc`` plan runs the truncated
         draw (threshold by bisection, no sort); other variants mask by the
-        threshold twin and build from the masked weights."""
-        logits = torch.as_tensor(logits)
+        threshold twin and build from the masked weights.  A sharded plan
+        draws per shard from the counter RNG seeded by ``key`` (K5, or K10
+        under a chain, for a ``kernel`` plan's one token per row)."""
         if isinstance(temperature, (int, float)) and temperature == 0.0:
-            greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+            greedy = torch.argmax(torch.as_tensor(logits), dim=-1).to(torch.int32)
             if num_samples == 1:
                 return greedy
             return greedy.expand(num_samples, *greedy.shape)
+        if self.mesh is not None:
+            _sharded_randomness(None, generator)
+            return _sharded.sample_logits_sharded(self, logits, key, temperature=temperature,
+                                                  num_samples=num_samples,
+                                                  transforms=transforms)
+        _unsharded_key(key)
+        logits = torch.as_tensor(logits)
         if transforms:
             return self._sample_logits_truncated(logits, generator, temperature,
                                                  num_samples, transforms)
@@ -205,6 +251,12 @@ class SamplerPlan:
                            num_samples=num_samples)
 
 
+def _unsharded_key(key) -> None:
+    if key is not None:
+        raise ValueError("key= seeds the counter RNG of sharded plans (mesh=); an "
+                         "unsharded plan draws from generator= or u=")
+
+
 def _scale(logits: torch.Tensor, temperature) -> torch.Tensor:
     t = torch.as_tensor(temperature, device=logits.device)
     return logits / (t[:, None] if t.dim() == 1 else t)
@@ -240,9 +292,13 @@ def plan(spec_or_shape, method: Optional[str] = None, *, shape=None,
     from it), or a ``configs.base.SamplerSpec`` (method, W and draws taken
     from it; the workload via ``shape=``).  ``W`` falsy picks
     ``runtime.default_w(K)``.  ``transforms`` (a chain or its signature,
-    e.g. ``"kp"``) joins the memo key; parameter values stay out of it."""
-    if mesh is not None or spec is not None:
-        raise NotImplementedError(f"plan(mesh=/spec=) is not ported yet: {MESH_SLICE}")
+    e.g. ``"kp"``) joins the memo key; parameter values stay out of it.
+
+    ``mesh=`` makes the plan sharded: (B, K) is the global workload, rows
+    shard over the mesh's data axes (``spec=`` overrides them), the tiles
+    are resolved for the per-shard (B / shards, K) workload, and the mesh
+    signature joins the memo key.  ``devices=`` without a mesh tags a
+    caller that is already per shard (the shape is not divided)."""
     if hasattr(spec_or_shape, "method") and hasattr(spec_or_shape, "W"):
         sspec = spec_or_shape
         method = method if method not in (None, "auto") else sspec.method
@@ -265,9 +321,24 @@ def plan(spec_or_shape, method: Optional[str] = None, *, shape=None,
     transforms = transforms or ""
     if backend is None:
         backend = "cuda" if torch.cuda.is_available() else "cpu"
-    devices = int(devices or 1)
+    mesh_sig: Tuple = ()
+    if mesh is not None:
+        nd = _sharded.data_size(mesh, spec)   # validates spec's axes too
+        if B % nd:
+            raise ValueError(f"cannot shard B={B} rows over {nd} devices along "
+                             f"{_sharded.data_axes(mesh, spec)}: not divisible")
+        if devices not in (None, nd):
+            raise ValueError(f"devices={devices} contradicts the mesh's {nd} data shards")
+        devices, B_res = nd, B // nd
+        mesh_sig = _sharded.mesh_signature(mesh, spec)
+    else:
+        if spec is not None:
+            raise ValueError("spec= only has meaning with mesh=: an unsharded plan "
+                             "would silently ignore it")
+        devices = int(devices or 1)
+        B_res = B
     key = (B, K, dtype_name, method, W or 0, int(draws), bool(has_key), backend,
-           bool(factored), devices, transforms)
+           bool(factored), devices, mesh_sig, transforms)
     with _PLAN_LOCK:
         hit = _PLAN_CACHE.get(key)
         if hit is not None:
@@ -277,8 +348,9 @@ def plan(spec_or_shape, method: Optional[str] = None, *, shape=None,
     Wr = int(W or runtime.default_w(K))
     p = SamplerPlan(method=method, W=Wr, shape=(B, K), dtype=dtype_name,
                     draws=int(draws), has_key=bool(has_key), backend=backend,
-                    tb=runtime.default_tb(B), tk=runtime.default_tk(K, Wr),
-                    factored=bool(factored), devices=devices, transforms=transforms)
+                    tb=runtime.default_tb(B_res), tk=runtime.default_tk(K, Wr),
+                    factored=bool(factored), mesh=mesh, spec=spec, devices=devices,
+                    transforms=transforms)
     with _PLAN_LOCK:
         _PLAN_CACHE.setdefault(key, p)
         return _PLAN_CACHE[key]

@@ -298,9 +298,16 @@ def test_truncated_checks_and_later_slices():
         KB.fused_trunc_draw(w, u, prm, 8)
     with pytest.raises(ValueError, match="CUDA"):
         ops.butterfly_sample_truncated(w, u, prm, W=8, impl="cuda")
-    for fn in (ops.butterfly_sample_rng, ops.butterfly_sample_truncated_rng):
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            fn(w, np.array([1, 2], np.uint32))
+    # the seeded draws (K5, K10; ported with the sharded sampler) take the
+    # same checks
+    seed = np.array([1, 2], np.uint32)
+    with pytest.raises(ValueError, match="params"):
+        ops.butterfly_sample_truncated_rng(w, seed, prm[:, :2], W=8)
+    with pytest.raises(ValueError, match="route"):
+        ops.butterfly_sample_rng(w, seed, W=8, route="sorted")
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.butterfly_sample_truncated_rng(w, seed, prm, W=8, impl="cuda")
+    assert ops.butterfly_sample_rng(w, seed, W=8).shape == (4,)
     # K9 stages a row in shared memory while it fits its 227 KB
     assert KB.trunc_row_staged(32000, 250, 128)
     assert not KB.trunc_row_staged(256000, 2000, 128)

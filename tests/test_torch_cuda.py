@@ -412,3 +412,114 @@ def test_sampling_api_on_the_card(dev):
                            "walk_trunc": 1}
     kth = torch.sort(logits, dim=1, descending=True).values[:, 19]
     assert (logits.gather(1, tok[:, None].long())[:, 0] >= kth).all()
+
+
+# ---------------------------------------------------------------------------
+# The seeded draws (K5, K10), the device cipher and the sharded decode
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import rng  # noqa: E402
+
+SEED2 = rng.fold(rng.seed_from_key(np.array([0x12345678, 0x9ABCDEF0], np.uint32)), rng.TAG_U)
+
+
+def test_threefry_uniforms_bit_exact(dev):
+    """The device cipher of K5 and K10 against rng.row_uniforms over 2**20
+    counters, half of them past the 2**32 wrap."""
+    n = 1 << 20
+    r0 = 2**32 - n // 2
+    got = KB.threefry_uniforms(SEED2, r0, n, dev)
+    want = rng.row_uniforms(SEED2.to(dev), r0, n)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["int", "dirichlet"])
+@pytest.mark.parametrize("B,K", GRID_BK + [(64, 256000)])
+def test_seeded_draw_equals_plain(dev, B, K, kind):
+    """K5 against its plain version and against K4 fed rng.row_uniforms,
+    at offsets that wrap; both routes of butterfly_sample_rng equal."""
+    w, _ = _weights(dev, B + K, B, K, kind)
+    W = runtime.default_w(K)
+    exact = kind == "int"
+    for r0 in (0, 2**32 - B // 2):
+        u = rng.row_uniforms(SEED2.to(dev), r0, B)
+        if KB.fused_fits(KB.num_blocks(K, W), W):
+            got = KB.fused_draw_rng(w, SEED2, r0, W)
+            torch.cuda.synchronize()
+            assert torch.equal(got, KB.fused_draw(w, u, W))
+            res = weight_ties(got, KB.fused_draw_rng_torch(w, SEED2, r0, W), w, u)
+            assert res["faults"] == 0 and (not exact or res["mismatches"] == 0), res
+        seed = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+        a = bops.butterfly_sample_rng(w, seed, row_offset=r0, W=W)
+        b = bops.butterfly_sample_rng(w, seed, row_offset=r0, W=W, route="two_pass")
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["int", "softmax"])
+@pytest.mark.parametrize("B,K", TRUNC_BK)
+def test_seeded_truncated_draw_equals_plain(dev, B, K, kind):
+    """K10 against its plain version and against K9 fed rng.row_uniforms;
+    the forced two-pass route (tau, K11, K12) draws the same."""
+    w, prm, _ = _trunc_inputs(dev, B * 3 + K, B, K, kind)
+    W = runtime.default_w(K)
+    exact = kind == "int"
+    r0 = 2**32 - B // 2
+    u = rng.row_uniforms(SEED2.to(dev), r0, B)
+    got = KB.fused_trunc_draw_rng(w, SEED2, r0, prm, W)
+    torch.cuda.synchronize()
+    assert torch.equal(got, KB.fused_trunc_draw(w, u, prm, W))
+    res = trunc_boundary_ties(got, KB.fused_trunc_draw_rng_torch(w, SEED2, r0, prm, W), w, u,
+                              prm, depth=cuda_sum_depth(K))
+    assert res["faults"] == 0 and (not exact or res["mismatches"] == 0), res
+    seed = np.array([0x12345678, 0x9ABCDEF0], np.uint32)
+    two = bops.butterfly_sample_truncated_rng(w, seed, prm, row_offset=r0, W=W,
+                                              route="two_pass")
+    res = trunc_boundary_ties(got.clamp(max=K - 1), two, w, u, prm, depth=cuda_sum_depth(K))
+    assert res["faults"] == 0 and (not exact or res["mismatches"] == 0), res
+
+
+def test_seeded_hw_stream_and_launches(dev):
+    """hw=True (Philox in the kernel) equals its plain Philox version and
+    is fixed for a fixed seed; each seeded wrapper counts its launches."""
+    w, _ = _weights(dev, 3, 256, 3000)
+    KB.reset_launches()
+    a = KB.fused_draw_rng(w, SEED2, 7, 32, hw=True)
+    assert torch.equal(a, KB.fused_draw_rng(w, SEED2, 7, 32, hw=True))
+    assert torch.equal(a, KB.fused_draw_rng_torch(w, SEED2, 7, 32, hw=True))
+    assert not torch.equal(a, KB.fused_draw_rng(w, SEED2, 7, 32))
+    prm = torch.tensor([[20.0, 0.9, 0.0]], device=dev).repeat(256, 1)
+    KB.fused_trunc_draw_rng(w, SEED2, 7, prm, 32)
+    assert KB.LAUNCHES == {**_NO_LAUNCHES, "fused_draw_rng": 3, "fused_trunc_draw_rng": 1}
+    with pytest.raises(ValueError, match="hw_rng"):
+        bops.butterfly_sample_rng(w, np.array([1, 2], np.uint32), W=32, hw=True,
+                                  route="two_pass")
+
+
+def test_one_rank_nccl_mesh_decode(dev, tmp_path):
+    """plan(mesh=...) on a one-rank NCCL group: the sharded decode at
+    (64, 256000) with top-k 64 / top-p 0.95 launches K10 once and equals
+    the unsharded counter draw; without the chain K5 once."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        g = torch.Generator(device=dev).manual_seed(2)
+        logits = 4.0 * torch.randn((64, 256000), generator=g, device=dev)
+        key = np.array([5, 6], np.uint32)
+        chain = (sampling.TopK(64), sampling.TopP(0.95))
+        p = sampling.plan((64, 256000), method="kernel", mesh=mesh, transforms="kp")
+        KB.reset_launches()
+        tok = p.sample_logits(logits, key=key, transforms=chain)
+        assert KB.LAUNCHES == {**_NO_LAUNCHES, "fused_trunc_draw_rng": 1}
+        w = sampling.logits_to_weights(logits)
+        prm = tr.canonical_params(chain, 64, device=dev)
+        assert torch.equal(tok.to_local(), bops.butterfly_sample_truncated_rng(w, key, prm))
+        KB.reset_launches()
+        tok = p.sample_logits(logits, key=key)
+        assert KB.LAUNCHES == {**_NO_LAUNCHES, "fused_draw_rng": 1}
+        assert torch.equal(tok.to_local(), bops.butterfly_sample_rng(w, key, W=p.W))
+    finally:
+        dist.destroy_process_group()

@@ -259,12 +259,12 @@ def test_unported_options_name_their_slices(monkeypatch):
         tapi.sample_categorical(w, u=torch.rand(4), method="fenwick", dist_key="phi")
     with pytest.raises(NotImplementedError, match="slice 9"):
         tapi.sample_from_logits(w, torch.Generator())
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    # mesh= is ported (tests/test_torch_sharded.py): it takes a DeviceMesh,
+    # and spec= only with it
+    with pytest.raises(TypeError, match="DeviceMesh"):
         sampling.plan((4, 10), method="kernel", mesh=object())
-    from repro_torch.sampling import sharded
-
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        sharded.build_sharded
+    with pytest.raises(ValueError, match="only has meaning with mesh"):
+        sampling.plan((4, 10), method="kernel", spec=("data",))
     with pytest.raises(ValueError, match="unknown method"):
         tapi.sample_categorical(w, u=torch.rand(4), method="sorted")
     # input that is not a tensor goes to the card unless device= says otherwise
