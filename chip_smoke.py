@@ -25,15 +25,22 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    integer and peaked-softmax weights, bf16, zero rows, gemma2-9b's and
    per-row params with disabled stages; real-weight mismatches are ties
    only where float64 shows them within the rounding of sums as deep as
-   the card's (``butterfly_sample.ref.cuda_sum_depth``).  The alias
+   the card's (``butterfly_sample.ref.cuda_sum_depth``).  K9's radix
+   select equals its bisection body (``threshold="bisect"``) bit for bit
+   on every case and on edge rows (all equal, one live token, -inf-logit
+   zeros, -0.0, top-k > K, non-integer top-k, more top-p survivors than
+   K9's list holds) at K = 300, 32,000, 56,000 (staged and from L2) and
+   100,000; K11 equals ``masked_blocksums_warp_order_torch`` bit for bit
+   there and at B = 1, 8, 64, W = 32, 64, 128.  The alias
    assembly (phase 2e):
    K13 at phi (37,286 x 240) and (64, 4096), alias positions equal, prob
    within ``alias_build.ref.prob_tolerance``, and the induced mass of the
    device build.  Each kernel and its plain version are timed with CUDA
    events (and, where one PyTorch computation does the same work, its
-   library yardstick); the truncated routes end to end at (64, 256000),
-   and K9 with its rows staged in shared memory against rows read from
-   L2 at (64, 32000) and (64, 56000).  The seeded draws (phase 2f): K5
+   library yardstick); the truncated routes end to end at (64, 256000);
+   K9's radix select against its bisection body there and, with its rows
+   staged in shared memory and read from L2, at (64, 32000) and (64,
+   56000); K11 also at B = 8.  The seeded draws (phase 2f): K5
    at K4's cases (the chunk at W=32 and 16, integer, Dirichlet, bf16,
    zero rows; (64, 256000) at W=128) and K10 at K9's, each against its
    plain version and against K4 / K9 fed ``rng.row_uniforms`` (equal),
@@ -119,7 +126,7 @@ from repro_torch.kernels.butterfly_sample import kernel as KB  # noqa: E402
 from repro_torch.kernels.butterfly_sample import ops as bops  # noqa: E402
 from repro_torch.kernels.butterfly_sample.ref import boundary_ties as weight_ties  # noqa: E402
 from repro_torch.kernels.butterfly_sample.ref import (  # noqa: E402
-    cuda_sum_depth, trunc_boundary_ties)
+    cuda_sum_depth, masked_blocksums_warp_order_torch, trunc_boundary_ties)
 from repro_torch.kernels.butterfly_table import kernel as KT  # noqa: E402
 from repro_torch.kernels.lda_draw import kernel as KL  # noqa: E402
 from repro_torch.kernels.lda_draw import ops  # noqa: E402
@@ -270,6 +277,16 @@ class Tally:
             raise AssertionError(f"{name} running sums off by {rel:.3g} relative")
         if exact:
             t["max_abs_err"] = max(t["max_abs_err"], err)
+
+    def same(self, name, case, a, b):
+        """Two outputs that must be equal bit for bit (two bodies or two
+        orders of one computation)."""
+        t = self.t[name]
+        t["cases"] += 1
+        mis = int((a != b).sum())
+        log(f"  {name:15s} {case:34s} bit-equal: {mis} differ")
+        if mis:
+            raise AssertionError(f"{name}: {case}: {mis} of {a.numel()} differ")
 
     def trunc(self, name, case, a, b, wts, u, params, exact: bool):
         """Truncated draws from given weights (float64 tau and stop ties,
@@ -799,22 +816,57 @@ def trunc_params(kind: str, B: int, g: torch.Generator, dev) -> torch.Tensor:
     return torch.stack([k, p, m], dim=1).contiguous()
 
 
+# (B, K, weights, params, dtype, all-zero rows) of the truncated-draw checks:
+# (8, 256000) (the serve batch of the reference's ServeSpec.max_slots),
+# (64, 256000), (64, 128256) (llama3-8b's vocabulary) and (24, 300)
+TRUNC_CASES = [(8, 256000, "int", "uniform", torch.float32, (0, 5)),
+               (64, 256000, "softmax", "uniform", torch.float32, ()),
+               (64, 256000, "softmax", "hetero", torch.float32, (7,)),
+               (64, 128256, "int", "hetero", torch.float32, ()),
+               (64, 128256, "softmax", "uniform", torch.bfloat16, ()),
+               (24, 300, "int", "hetero", torch.float32, (3,)),
+               (24, 300, "softmax", "hetero", torch.float32, ())]
+# widths of the edge rows: a row of K9's survivor list at most, rows staged
+# in shared memory (32,000 and 56,000) and rows read from L2
+EDGE_KS = (300, 32000, 56000, 100000)
+# K11 against its exact-order plain model at B = 1, 8, 64, W = 32, 64, 128:
+# widths whose nb is not a multiple of a block's run of W-blocks
+K11_KS = (100003, 256000)
+
+
+def trunc_edge_rows(K: int, g: torch.Generator, dev):
+    """(10, K) weights and params of the threshold's edge rows: all equal;
+    one live token; zeros from -inf logits; -0.0 entries; top-k > K;
+    non-integer top-k with min-p; top-k off with top-p on (more survivors
+    than K9's list holds once K > 2048); ties at tau_k beyond the list
+    (2,548 columns at the row max); top-k 1; a plain softmax row."""
+    z = 4.0 * torch.randn((10, K), generator=g, device=dev)
+    w = torch.exp(z - z.max(dim=1, keepdim=True).values)
+    w[0] = 0.25
+    w[1] = 0.0
+    w[1, K // 3] = 1.0
+    zi = torch.where(torch.rand((K,), generator=g, device=dev) < 0.7, float("-inf"), z[2])
+    zi[0] = 0.0
+    w[2] = torch.exp(zi - zi.max())
+    w[3] = torch.where(torch.rand((K,), generator=g, device=dev) < 0.5, -0.0, w[3])
+    w[7, : min(K, KB._TRUNC_LIST_CAP + 500)] = 1.0
+    prm = torch.tensor([[64, 0.95, 0], [64, 0.95, 0], [64, 0.9, 0], [64, 0.95, 0],
+                        [K + 1, 0.95, 0], [2.5, 0.9, 0.01], [0, 0.9, 0], [64, 0.95, 0],
+                        [1, 0.5, 0], [64, 0.95, 0]], dtype=torch.float32, device=dev)
+    return w.contiguous(), prm
+
+
 def phase_trunc_kernels(dev, seed: int, tally):
-    """K9, K11 and K12 against their plain versions: (8, 256000) (the serve
-    batch of the reference's ServeSpec.max_slots), (64, 256000), (64,
-    128256) (llama3-8b's vocabulary) and (24, 300); integer and
-    peaked-softmax weights, bf16, zero rows, gemma2-9b's and per-row
-    params, both routes forced, K12 with S=1 and S=4."""
+    """K9, K11 and K12 against their plain versions at TRUNC_CASES:
+    integer and peaked-softmax weights, bf16, zero rows, gemma2-9b's and
+    per-row params, both routes forced, K12 with S=1 and S=4.  K9's radix
+    select against its bisection body (``threshold="bisect"``), equal bit
+    for bit, there and on the edge rows at EDGE_KS, with the row staged and
+    read from L2; K11 against ``masked_blocksums_warp_order_torch``, equal
+    bit for bit, there and at B = 1, 8, 64, W = 32, 64, 128."""
     g = torch.Generator(device=dev).manual_seed(seed + 5)
     log("phase 2d: truncated-draw kernels vs plain (K9, K11, K12)")
-    cases = [(8, 256000, "int", "uniform", torch.float32, (0, 5)),
-             (64, 256000, "softmax", "uniform", torch.float32, ()),
-             (64, 256000, "softmax", "hetero", torch.float32, (7,)),
-             (64, 128256, "int", "hetero", torch.float32, ()),
-             (64, 128256, "softmax", "uniform", torch.bfloat16, ()),
-             (24, 300, "int", "hetero", torch.float32, (3,)),
-             (24, 300, "softmax", "hetero", torch.float32, ())]
-    for B, K, kind, pk, dtype, zero in cases:
+    for B, K, kind, pk, dtype, zero in TRUNC_CASES:
         W = runtime.default_w(K)
         nb = KB.num_blocks(K, W)
         w = trunc_weights(kind, B, K, g, dev, zero).to(dtype)
@@ -825,12 +877,16 @@ def phase_trunc_kernels(dev, seed: int, tally):
         a = KB.fused_trunc_draw(w, u, prm, W)
         b = KB.fused_trunc_draw_torch(w, u, prm, W)
         tally.trunc("fused_trunc_draw", case, a, b, w, u, prm, exact)
+        tally.same("fused_trunc_draw", case + " radix vs bisect", a,
+                   KB._fused_trunc_draw(w, u, prm, W, 32, None, threshold="bisect"))
         if zero and not bool((a[list(zero)].clamp(max=K - 1) == K - 1).all()):
             raise AssertionError(f"{case}: an all-zero row did not draw K-1")
         tau = tr.thresholds_from_params(w, prm).contiguous()
         run = KB.masked_blocksums(w, tau, W, nb)
         tally.running("masked_blocksums", case, run, KB.masked_blocksums_torch(w, tau, W, nb),
                       exact, rel_tol=(W + nb) * 2.0 ** -23)
+        tally.same("masked_blocksums", case + " vs warp order", run,
+                   masked_blocksums_warp_order_torch(w, tau, W, nb))
         wm = KB._mask(w.float(), tau)
         for S in (1, 4):
             us = torch.rand((S, B), generator=g, device=dev)
@@ -845,6 +901,29 @@ def phase_trunc_kernels(dev, seed: int, tally):
                     exact)
         if int(fused.min()) < 0 or int(fused.max()) >= K:
             raise AssertionError(f"{case}: an index outside [0, K)")
+    for K in EDGE_KS:
+        W = runtime.default_w(K)
+        w, prm = trunc_edge_rows(K, g, dev)
+        u = torch.rand(w.shape[0], generator=g, device=dev)
+        case = f"edge rows (10,{K}) W={W}"
+        a = KB.fused_trunc_draw(w, u, prm, W)
+        tally.trunc("fused_trunc_draw", case, a, KB.fused_trunc_draw_torch(w, u, prm, W), w,
+                    u, prm, False)
+        sources = (True, False) if KB.trunc_row_staged(K, KB.num_blocks(K, W), W) else (False,)
+        for staged in sources:
+            for thr in ("radix", "bisect"):
+                tally.same("fused_trunc_draw", f"{case} staged={staged} {thr}", a,
+                           KB._fused_trunc_draw(w, u, prm, W, 32, staged, threshold=thr))
+    for B in (1, 8, 64):
+        for W in (32, 64, 128):
+            for K in K11_KS:
+                w = trunc_weights("softmax", B, K, g, dev)
+                tau = tr.thresholds_from_params(
+                    w, trunc_params("uniform", B, g, dev)).contiguous()
+                nb = KB.num_blocks(K, W)
+                tally.same("masked_blocksums", f"({B},{K}) W={W} vs warp order",
+                           KB.masked_blocksums(w, tau, W, nb),
+                           masked_blocksums_warp_order_torch(w, tau, W, nb))
     return tally
 
 
@@ -889,9 +968,10 @@ def trunc_bounds(name, w, W, nb, S=1):
     run's data -> (bound_ms, bound_by).  K9: the weights, u and params read
     once and the draws written once; the function's operations (the max, a
     threshold select, the mask, the draw: a few per weight) take far less
-    time than the bytes.  The 66 passes over a row of its bisection are
-    this kernel's algorithm, not work the function needs: a radix select
-    finds the same tau in 4 passes."""
+    time than the bytes.  The kernel's own passes over a row (four digit
+    histograms, the survivor list, the draw's block sums) are its
+    algorithm's re-reads of data on the chip, not bytes the function must
+    move."""
     B, K = w.shape
     el = w.element_size()
     if name == "fused_trunc_draw":
@@ -910,10 +990,12 @@ def trunc_bounds(name, w, W, nb, S=1):
 
 def phase_new_timing(dev, seed, phi):
     """K9 (forced fused), K11 and K12 (S=1) at (64, 256000), W = default_w;
-    K13 at phi (37,286 x 256); K1 at (128, 256000), W=128 (the butterfly
-    state of 64 rows, padded to a group of 128).  Library yardsticks: the
-    sort-based truncated draw (several calls) for K9, where + view-sum +
-    cumsum for K11."""
+    K9's radix select against its bisection body there, K9 with its
+    stages switched off one by one, and K9 with the row staged and read
+    from L2 at (64, 32000) and (64, 56000); K11 also at B = 8; K13 at phi (37,286 x 256); K1 at (128, 256000), W=128 (the
+    butterfly state of 64 rows, padded to a group of 128).  Library
+    yardsticks: the sort-based truncated draw (several calls) for K9,
+    where + view-sum + cumsum for K11."""
     g = torch.Generator(device=dev).manual_seed(seed + 7)
     B, K = DECODE_B, gemma2_9b.VOCAB_SIZE
     W = runtime.default_w(K)
@@ -951,15 +1033,40 @@ def phase_new_timing(dev, seed, phi):
         ms = cuda_ms(fn, reps=5, warmup=1)
         out["routes"][name] = ms
         log(f"  ({B},{K}) {name:28s} {ms:.4f} ms")
-    # K9's two row sources where a row fits shared memory
+    # K9's two threshold bodies, in turns
+    for thr in ("radix", "bisect", "bisect", "radix"):
+        ms = cuda_ms(lambda: KB._fused_trunc_draw(w, u, prm, W, 32, None, threshold=thr))
+        key = f"fused (K9) at ({B},{K}) {thr}"
+        out["routes"].setdefault(key, []).append(ms)
+        log(f"  {key} {ms:.4f} ms")
+    # where K9's time goes: its stages switched off one by one
+    for name, stages in (("no truncation", (0.0, 1.0, 0.0)), ("top-k only", (64.0, 1.0, 0.0)),
+                         ("top-p only (full-row sums)", (0.0, 0.95, 0.0))):
+        ps = torch.tensor([stages], device=dev).repeat(B, 1)
+        ms = cuda_ms(lambda: KB.fused_trunc_draw(w, u, ps, W))
+        out["routes"][f"fused (K9) at ({B},{K}) {name}"] = ms
+        log(f"  fused (K9) at ({B},{K}) {name} {ms:.4f} ms")
+    # and its two row sources where a row fits shared memory
     for Ks in (32000, 56000):
         ws = trunc_weights("softmax", B, Ks, g, dev)
         Ws = runtime.default_w(Ks)
-        for staged in (True, False, False, True):
-            ms = cuda_ms(lambda: KB._fused_trunc_draw(ws, u, prm, Ws, 32, staged))
-            key = f"fused (K9) at ({B},{Ks}) row {'staged' if staged else 'from L2'}"
+        for staged, thr in ((True, "radix"), (False, "radix"), (True, "bisect"),
+                            (False, "bisect"), (False, "bisect"), (True, "bisect"),
+                            (False, "radix"), (True, "radix")):
+            ms = cuda_ms(lambda: KB._fused_trunc_draw(ws, u, prm, Ws, 32, staged,
+                                                      threshold=thr))
+            key = f"fused (K9) at ({B},{Ks}) row {'staged' if staged else 'from L2'} {thr}"
             out["routes"].setdefault(key, []).append(ms)
             log(f"  {key} {ms:.4f} ms")
+    # K11 at the serve batch of 8 rows, beside its plain version and yardstick
+    w8, tau8 = w[:8].contiguous(), tau[:8].contiguous()
+    out["masked_blocksums B=8"] = time_kernels({
+        "masked_blocksums": (lambda: KB.masked_blocksums(w8, tau8, W, nb),
+                             lambda: KB.masked_blocksums_torch(w8, tau8, W, nb),
+                             lambda: torch.cumsum(torch.where(w8 >= tau8[:, None], w8, 0.0)
+                                                  .view(8, nb, W).sum(-1), dim=1),
+                             lambda idx: trunc_bounds("masked_blocksums", w8, W, nb)),
+    })["masked_blocksums"]
     # K13 at phi
     s_sorted, _o, _i, nL = aops._partition(phi)
     Kp = aops._next_pow2(phi.shape[1])
@@ -1192,14 +1299,7 @@ def phase_seeded_kernels(corpus, dev, seed: int, tally, inputs):
                   KB.fused_draw_rng_torch(wv, s2, 5, 128, hw=True), wv,
                   rng.philox_row_uniforms(s2d, 5, DECODE_B), False)
     # K10 at K9's cases
-    cases = [(8, 256000, "int", "uniform", torch.float32, (0, 5)),
-             (64, 256000, "softmax", "uniform", torch.float32, ()),
-             (64, 256000, "softmax", "hetero", torch.float32, (7,)),
-             (64, 128256, "int", "hetero", torch.float32, ()),
-             (64, 128256, "softmax", "uniform", torch.bfloat16, ()),
-             (24, 300, "int", "hetero", torch.float32, (3,)),
-             (24, 300, "softmax", "hetero", torch.float32, ())]
-    for i, (B, Kc, kind, pk, dtype, zero) in enumerate(cases):
+    for i, (B, Kc, kind, pk, dtype, zero) in enumerate(TRUNC_CASES):
         W = runtime.default_w(Kc)
         wt = trunc_weights(kind, B, Kc, g, dev, zero).to(dtype)
         prm = trunc_params(pk, B, g, dev)
@@ -1218,6 +1318,15 @@ def phase_seeded_kernels(corpus, dev, seed: int, tally, inputs):
                     a.clamp(max=Kc - 1), two, wt, uu, prm, exact)
         if zero and not bool((a[list(zero)].clamp(max=Kc - 1) == Kc - 1).all()):
             raise AssertionError(f"{case}: an all-zero row did not draw K-1")
+    for K in EDGE_KS:  # K9's edge rows, the survivor list's overflow among them
+        W = runtime.default_w(K)
+        wt, prm = trunc_edge_rows(K, g, dev)
+        uu = rng.row_uniforms(s2d, 77, wt.shape[0])
+        a = KB.fused_trunc_draw_rng(wt, s2, 77, prm, W)
+        tally.same("fused_trunc_draw_rng", f"edge rows (10,{K}) vs K9",
+                   a, KB.fused_trunc_draw(wt, uu, prm, W))
+        tally.trunc("fused_trunc_draw_rng", f"edge rows (10,{K})", a,
+                    KB.fused_trunc_draw_rng_torch(wt, s2, 77, prm, W), wt, uu, prm, False)
     return tally
 
 

@@ -9,27 +9,51 @@
 //   masked_blocksums   <- _masked_blocksum_kernel  (masked_blocksums_pallas)  K11
 //   walk_trunc         <- _walk_trunc_kernel       (walk_trunc_pallas)        K12
 //
-// K9 design.  One thread block per row.  The TPU kernel bisects on a row
-// tile resident in VMEM; a vocabulary row (256,000 fp32 = 1 MB) is far
-// over a block's 227 KB of shared memory, so the row is staged in dynamic
-// shared memory while it fits and otherwise re-read from global memory
-// (L2) on every pass.  tau follows transforms.thresholds_from_params step
-// for step: the row max; for top-k (k > 0) 32 bisection steps over the
-// uint32 bit patterns, mid = lo + (hi - lo) / 2, each a block-wide integer
-// count of w >= mid compared as a float with k; for top-p (p < 1) the
-// masked total, target = p * total, and 32 steps of block-wide masked
-// sums; min-p as max(tau, p * rowmax).  The masked draw then runs the
-// draw_tile.cuh steps: every warp sums a strided share of the W-blocks
-// (the arithmetic one warp would use), warp 0 takes the running sums,
-// selects the block, builds its Fenwick table and descends.  What bounds
-// this design: about 66 passes over the row (2 x 32 bisection steps), so
-// on-chip bandwidth per SM, not device memory; the staged row keeps those
-// passes in shared memory (faster than L2 where both run, PERF.md).  The
-// function itself needs only its bytes (the row read once): a radix
-// select would find the same tau in 4 passes.  Sums are in a fixed order (per-thread in index order,
-// an xor tree in the warp, warps in order), so a top-p tau can differ
-// from XLA's or PyTorch's only where the masked mass lies within fp32
-// rounding of p * total; counts are integers and exact.
+// K9 design.  One thread block of 1,024 threads per row.  The TPU kernel
+// bisects on a row tile resident in VMEM; a vocabulary row (256,000 fp32 =
+// 1 MB) is far over a block's 227 KB of shared memory, so the row is
+// staged in dynamic shared memory while it fits and otherwise re-read from
+// global memory (L2) on every pass.  Each thread owns the columns k = tid +
+// j * 1024 and reads them in order, eight loads in flight.  tau is
+// transforms.thresholds_from_params bit for bit, in five passes over the
+// row, the draw's included:
+//   1. the row max (for min-p and top-p's bracket) and, when top-k is on,
+//      a histogram of the top 8 bits of each key, key = bits(v) & 0x7fffffff
+//      for v >= 0 (-0.0 counts as +0.0, as it does in w >= tm; negative
+//      values and NaN are never counted by any tm >= +0, so they have no key);
+//   2-4. histograms of the next 8-bit digits over the keys that match the
+//      digits found so far: tau_k is the key of the ceil(k)-th largest value
+//      (0 when fewer keys exist), which is what the reference's 32 bisection
+//      steps over the bit patterns find, since 32 steps are exact there.
+//      Counts are integers, so the histograms' order does not matter; a
+//      warp adds each distinct digit once (__match_any_sync), as softmax rows
+//      put most keys in a few bins.  Pass 4 also counts each thread's keys at
+//      or above the 24 bits found.  With iters < 32 the bisection runs
+//      instead: a radix select would then be more exact than the reference;
+//   5. top-p (p < 1): each thread lists those values (every survivor w >=
+//      tau_k and the few just below it that share its top 24 bits), in its
+//      index order, at offsets from a block-wide scan of the counts; the
+//      masked total, target = p * total, and the 32 bisection steps of
+//      block-wide masked sums then read that list.  Each thread adds its own
+//      segment in order, then the same xor tree and warp order as a full-row
+//      sum: the zeros of the values left out (and of the listed ones below
+//      every tm) never changed a partial, so tau is bit-equal to the
+//      full-row sums.  Where the list would overflow (top-k off, or ties at
+//      tau_k), the row takes the full-row sums: same kernel, same result;
+//   6. min-p as max(tau, p * rowmax), then the draw on the masked row, w *
+//      [w >= tau]: the warps split the row's 128-column tiles and sum each
+//      W-block with the arithmetic of draw_tile.cuh's warp_block_sums_strided
+//      (an xor tree per 32-column piece, pieces added in order), then warp 0
+//      takes the running sums, selects the block, builds its Fenwick table
+//      and descends.
+// list_cap = 0 runs the bisection body instead (32 count passes for top-k,
+// 33 masked-sum passes for top-p, all over the row), for holding the two
+// against each other.  What bounds the design: a few passes over the row by
+// one SM (its loads in flight), not device memory; the function itself needs
+// its bytes, the row read once.  Sums are in a fixed order (per-thread in
+// index order, an xor tree in the warp, warps in order), so a top-p tau can
+// differ from XLA's or PyTorch's only where the masked mass lies within fp32
+// rounding of p * total; counts are exact.
 //
 // K10 is K9 with its u operand replaced by Threefry uniforms made in the
 // kernel: one body (fused_trunc_draw_kernel), instantiated on its uniform
@@ -38,13 +62,16 @@
 // staged-row / L2 switch, so a change to the threshold phase carries over.
 //
 // K11 and K12 are K2 and K3 of butterfly_sample.cu with a masking row
-// loader (w[k] >= tau ? w[k] : 0).  K11 runs one thread block per row (a
-// vocabulary row is too long for K2's one warp): the warps split the
-// W-blocks as K9's draw does, then warp 0 writes the running sums itself
-// (no cumsum follows), so K9 and K11 give equal sums.  K12 reads
-// tau[rows[s]] and re-masks the one W-block it fetches, finding its block
-// itself, one warp per draw as K3.  Bound: device memory (each weight read
-// once by K11; one running row and one W-block per draw by K12).
+// loader (w[k] >= tau ? w[k] : 0).  K11 splits a row over P blocks of 256
+// threads (grid (B, P), P so that the grid fills the card): each block
+// takes a contiguous run of 128-column tiles, each summed by one warp as K9's
+// draw sums them, into shared memory, written once.  The row's last block to
+// arrive (a per-row counter after __threadfence) runs warp_running's scan
+// over the row's sums through shared memory, in the same order, and writes
+// the running sums, so K9 and K11 give equal sums.  K12 reads tau[rows[s]]
+// and re-masks the one W-block it fetches, finding its block itself, one
+// warp per draw as K3.  Bound: device memory (each weight read once by K11;
+// one running row and one W-block per draw by K12).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -55,13 +82,20 @@
 namespace {
 
 constexpr int kWarps = 4;            // K12: warps (draws) per block
-constexpr int kTruncThreads = 1024;  // K9, K11: threads per block (one row)
+constexpr int kTruncThreads = 1024;  // K9: threads per block (one row)
 constexpr int kTruncWarps = kTruncThreads / 32;
 constexpr int kRedFloats = 2 * kTruncWarps;
+constexpr int kBins = 256;           // K9: 8-bit digits of the radix select
+constexpr int kInFlight = 8;         // K9: loads in flight per thread in a pass
+constexpr int kTile = 128;           // K9, K11: columns a warp sums at once
+constexpr int kSumThreads = 256;     // K11: threads per block (part of a row)
+constexpr int kSumWarps = kSumThreads / 32;
+constexpr int kSumBlocksPerSM = 8;   // K11: blocks per SM the grid aims at
+constexpr int kMinBlocksPerRun = 32; // K11: least W-blocks a block sums
+constexpr int kScanChunk = 4096;     // K11: most sums a block holds at once
 
 using draw_tile::kFullMask;
 using draw_tile::to_f32;
-using draw_tile::warp_block_sums_strided;
 using draw_tile::warp_running;
 using draw_tile::warp_walk;
 using threefry::ArrayU;
@@ -127,6 +161,30 @@ __device__ __forceinline__ float block_max(float v, float* red) {
   return s;
 }
 
+// Exclusive block-wide scan of one count per thread (thread order); every
+// thread also gets the block's total.
+__device__ __forceinline__ unsigned block_offset(unsigned v, float* red,
+                                                 unsigned& total) {
+  unsigned* r = reinterpret_cast<unsigned*>(red);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned inc = v;
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned n = __shfl_up_sync(kFullMask, inc, off);
+    if (lane >= off) inc += n;
+  }
+  if (lane == 31) r[warp] = inc;
+  __syncthreads();
+  unsigned before = 0, all = 0;
+  for (int i = 0; i < kTruncWarps; ++i) {
+    before += i < warp ? r[i] : 0u;
+    all += r[i];
+  }
+  __syncthreads();
+  total = all;
+  return before + inc - v;
+}
+
 // The largest float tau in bit range [lo, hi) with keep(tau) true,
 // keep(lo) assumed true: transforms._bisect.
 template <typename Keep>
@@ -142,18 +200,148 @@ __device__ __forceinline__ float bisect(unsigned lo, unsigned hi, int iters,
   return __uint_as_float(lo);
 }
 
+// The W-block sums of columns [kTile * t, kTile * t + kTile) of a row (W
+// divides kTile; columns at or past kv load as zero; blocks at or past
+// Kp = nb * W are not written), by one warp with the arithmetic of
+// warp_block_sums_strided: each 32-column piece an xor tree over min(W, 32)
+// lanes, a block's pieces added in order.  The four pieces are loaded
+// before any is summed.  Block c goes to bs[c - c0].
+template <typename Load>
+__device__ __forceinline__ void tile_block_sums(const Load& row, int t, int kv,
+                                                int Kp, int W, float* bs,
+                                                int c0, int lane) {
+  const int k0 = kTile * t;
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + 32 * i + lane;
+    v[i] = k < kv ? row(k) : 0.f;
+  }
+  const int g = W < 32 ? W : 32;  // lanes that share one block per piece
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    for (int off = 1; off < g; off <<= 1)
+      v[i] = __fadd_rn(v[i], __shfl_xor_sync(kFullMask, v[i], off));
+  if (W < 32) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + 32 * i + lane;
+      if ((lane & (g - 1)) == 0 && k < Kp) bs[k / W - c0] = v[i];
+    }
+  } else if (lane == 0) {
+    const int c = k0 / W - c0;
+    if (W == 32) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (k0 + 32 * i < Kp) bs[c + i] = v[i];
+    } else if (W == 64) {
+      if (k0 < Kp) bs[c] = __fadd_rn(v[0], v[1]);
+      if (k0 + 64 < Kp) bs[c + 1] = __fadd_rn(v[2], v[3]);
+    } else if (k0 < Kp) {  // W = 128
+      bs[c] = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]), v[2]), v[3]);
+    }
+  }
+}
+
+// f(valid, v) for this thread's columns k = tid + j * kTruncThreads of the
+// row, in order, with kInFlight loads issued before they are used; all
+// lanes of a warp make the same calls (valid is false past the row), so f
+// may use warp-wide intrinsics.
+template <typename Row, typename F>
+__device__ __forceinline__ void for_own_columns(const Row& r, int ncols,
+                                                const F& f) {
+  const int lane = threadIdx.x & 31;
+  for (int b = threadIdx.x - lane; b < ncols; b += kInFlight * kTruncThreads) {
+    float v[kInFlight];
+#pragma unroll
+    for (int i = 0; i < kInFlight; ++i) {
+      const int k = b + i * kTruncThreads + lane;
+      v[i] = k < ncols ? r.raw(k) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kInFlight; ++i)
+      f(b + i * kTruncThreads + lane < ncols, v[i]);
+  }
+}
+
+// One row element's vote in a radix-select histogram: a key (v >= 0:
+// bits(v) & 0x7fffffff, so -0.0 is +0.0; no key for negatives and NaN)
+// whose bits under hmask equal prefix adds one to the bin of its digit at
+// shift.  Called by all 32 lanes of a warp together; the lanes that share
+// a digit add once.
+__device__ __forceinline__ void radix_vote(unsigned* hist, bool valid, float v,
+                                           unsigned hmask, unsigned prefix,
+                                           int shift, int lane) {
+  const unsigned key = __float_as_uint(v) & 0x7fffffffu;
+  const bool on = valid && v >= 0.f && (key & hmask) == prefix;
+  if (!__any_sync(kFullMask, on)) return;
+  const unsigned digit = on ? (key >> shift) & 0xffu : 0x100u;
+  const unsigned peers = __match_any_sync(kFullMask, digit);
+  if (on && lane == __ffs(peers) - 1) atomicAdd(hist + digit, static_cast<unsigned>(__popc(peers)));
+}
+
+// The digit of the rem-th largest key counted in hist (one warp, every
+// lane the same answer): its bin, and rem less the keys in the bins above
+// it.  total gets the histogram's count; found is false when rem > total.
+__device__ __forceinline__ bool radix_pick(const unsigned* hist, unsigned rem,
+                                           int lane, unsigned& digit,
+                                           unsigned& rest, unsigned& total) {
+  unsigned h[8], own = 0;
+  for (int j = 0; j < 8; ++j) {  // lane l holds bins 255 - 8l down to 248 - 8l
+    h[j] = hist[kBins - 1 - 8 * lane - j];
+    own += h[j];
+  }
+  unsigned inc = own;
+  for (int off = 1; off < 32; off <<= 1) {
+    const unsigned n = __shfl_up_sync(kFullMask, inc, off);
+    if (lane >= off) inc += n;
+  }
+  total = __shfl_sync(kFullMask, inc, 31);
+  unsigned acc = inc - own;  // keys in the bins above this lane's
+  const bool here = acc < rem && rem <= inc;
+  unsigned d = 0, above = 0;
+  if (here) {
+    for (int j = 0; j < 8; ++j) {
+      if (acc + h[j] >= rem) {
+        d = kBins - 1 - 8 * lane - j;
+        above = acc;
+        break;
+      }
+      acc += h[j];
+    }
+  }
+  const unsigned who = __ballot_sync(kFullMask, here);
+  if (!who) return false;
+  const int src = __ffs(who) - 1;
+  digit = __shfl_sync(kFullMask, d, src);
+  rest = rem - __shfl_sync(kFullMask, above, src);
+  return true;
+}
+
+// Dynamic shared memory of K9, in floats: kRedFloats for the reductions,
+// then the scratch that holds the radix histogram, then the survivor list,
+// then the draw's nb running sums and W-block (list_cap >= kBins, or 0 for
+// the bisection body), then the staged row.
+__host__ __device__ __forceinline__ int trunc_scratch_floats(int nb, int W,
+                                                             int list_cap) {
+  return list_cap > nb + W ? list_cap : nb + W;
+}
+
 // K9 (USrc = ArrayU) and K10 (ThreefryU): usrc(row) is the row's uniform.
 template <typename T, typename USrc>
 __global__ void __launch_bounds__(kTruncThreads)
     fused_trunc_draw_kernel(const T* __restrict__ w, const USrc usrc,
                             const float* __restrict__ params,
                             int* __restrict__ out, int ncols, int nb, int W,
-                            int iters, int staged) {
+                            int iters, int staged, int list_cap) {
   extern __shared__ float smem[];
   float* red = smem;
-  float* run = red + kRedFloats;
+  float* scratch = red + kRedFloats;
+  float* run = scratch;
   float* t = run + nb;
-  float* rowbuf = t + W;
+  float* rowbuf = scratch + trunc_scratch_floats(nb, W, list_cap);
+  unsigned* hist = reinterpret_cast<unsigned*>(scratch);
+  float* list = scratch;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -164,15 +352,61 @@ __global__ void __launch_bounds__(kTruncThreads)
     __syncthreads();
   }
   TruncRow<T> r{wr, staged ? rowbuf : nullptr, 0.f};
-
-  float m = -__int_as_float(0x7f800000);  // -inf
-  for (int k = tid; k < ncols; k += kTruncThreads) m = fmaxf(m, r.raw(k));
-  const float rowmax = block_max(m, red);
-  const unsigned above = __float_as_uint(rowmax) + 1u;
   const float pk = params[3 * row], pp = params[3 * row + 1],
               pm = params[3 * row + 2];
+  // top-k by radix select (the bisection's answer when iters >= 32)
+  const bool select = list_cap > 0 && pk > 0.f && iters >= 32;
+
+  if (select) {
+    if (tid < kBins) hist[tid] = 0u;
+    __syncthreads();
+  }
+  // pass 1: the row max (each thread's columns in the bisection body's
+  // order) and the histogram of the top digit
+  float m = -__int_as_float(0x7f800000);  // -inf
+  for_own_columns(r, ncols, [&](bool valid, float v) {
+    if (valid) m = fmaxf(m, v);
+    if (select) radix_vote(hist, valid, v, 0u, 0u, 24, lane);
+  });
+  const float rowmax = block_max(m, red);
+  const unsigned above = __float_as_uint(rowmax) + 1u;
   float tau = 0.f;
-  if (pk > 0.f) {  // top-k: #{w >= tau} >= k
+  // top-p's list (step 5) holds every key >= hi24: this thread's count,
+  // taken in the last digit pass, or counted afresh when hi24 is unknown
+  unsigned hi24 = 0u, cnt = 0u;
+  bool counted = false;
+  if (select) {
+    unsigned digit, rest, total;
+    radix_pick(hist, 1u, lane, digit, rest, total);
+    // #{w >= +0} >= k compared as a float, as the bisection's first test
+    if (static_cast<float>(total) >= pk) {
+      unsigned rem = static_cast<unsigned>(ceilf(pk));
+      unsigned prefix = 0u, hmask = 0u;
+      for (int shift = 24; shift >= 0; shift -= 8) {
+        if (shift < 24) {  // passes 2-4: the keys under the digits found
+          __syncthreads();
+          if (tid < kBins) hist[tid] = 0u;
+          __syncthreads();
+          for_own_columns(r, ncols, [&](bool valid, float v) {
+            radix_vote(hist, valid, v, hmask, prefix, shift, lane);
+            // keys >= the 24 bits found: a superset of the survivors
+            if (shift == 0)
+              cnt += valid && v >= 0.f && (__float_as_uint(v) & 0x7fffffffu) >= prefix
+                         ? 1u : 0u;
+          });
+          __syncthreads();
+        }
+        radix_pick(hist, rem, lane, digit, rest, total);
+        prefix |= digit << shift;
+        hmask |= 0xffu << shift;
+        rem = rest;
+      }
+      tau = __uint_as_float(prefix);
+      hi24 = prefix & 0xffffff00u;
+      counted = true;
+    }
+    __syncthreads();  // the histogram is read; the scratch is free
+  } else if (pk > 0.f) {  // top-k by bisection: #{w >= tau} >= k
     const float got = bisect(__float_as_uint(tau), above, iters, [&](float tm) {
       unsigned c = 0;
       for (int k = tid; k < ncols; k += kTruncThreads) c += r.raw(k) >= tm ? 1u : 0u;
@@ -181,11 +415,40 @@ __global__ void __launch_bounds__(kTruncThreads)
     tau = fmaxf(got, tau);
   }
   if (pp < 1.f) {  // top-p on the survivors: sum(w[w >= tau]) >= p * total
+    // this thread's survivors, in its index order, at list[off, off + cnt):
+    // every v >= tau, and with them any v with a key >= hi24 (zeros in
+    // every masked sum below, as in the full-row sums)
+    bool listed = false;
+    unsigned off = 0;
+    if (list_cap > 0) {
+      const float lo = counted ? __uint_as_float(hi24) : tau;
+      if (!counted)
+        for_own_columns(r, ncols, [&](bool valid, float v) {
+          cnt += valid && v >= lo ? 1u : 0u;
+        });
+      unsigned total;
+      off = block_offset(cnt, red, total);
+      listed = total <= static_cast<unsigned>(list_cap);
+      if (listed) {
+        unsigned j = off;
+        for_own_columns(r, ncols, [&](bool valid, float v) {
+          if (valid && v >= lo) list[j++] = v;
+        });
+        __syncthreads();
+      }
+    }
     auto masked_sum = [&](float tm) {
       float s = 0.f;
-      for (int k = tid; k < ncols; k += kTruncThreads) {
-        const float v = r.raw(k);
-        s = __fadd_rn(s, v >= tm ? v : 0.f);
+      if (listed) {
+        for (unsigned i = off; i < off + cnt; ++i) {
+          const float v = list[i];
+          s = __fadd_rn(s, v >= tm ? v : 0.f);
+        }
+      } else {
+        for (int k = tid; k < ncols; k += kTruncThreads) {
+          const float v = r.raw(k);
+          s = __fadd_rn(s, v >= tm ? v : 0.f);
+        }
       }
       return block_sum(s, red);
     };
@@ -198,8 +461,10 @@ __global__ void __launch_bounds__(kTruncThreads)
 
   // the draw on the masked row
   r.tau = tau;
-  warp_block_sums_strided<false>(r, ncols, nb, W, nullptr, run, lane, warp,
-                                 kTruncWarps);
+  const int Kp = nb * W;
+  const int kv = ncols < Kp ? ncols : Kp;
+  for (int ti = warp; ti * kTile < Kp; ti += kTruncWarps)
+    tile_block_sums(r, ti, kv, Kp, W, run, 0, lane);
   __syncthreads();
   if (warp == 0) {
     warp_running(run, nb, lane);
@@ -208,22 +473,74 @@ __global__ void __launch_bounds__(kTruncThreads)
   }
 }
 
+// warp_running over bs[0..n) with the carry of the sums before it; returns
+// the carry after.  Chunks of n that are multiples of 32 chain into
+// warp_running's order over the whole row.
+__device__ __forceinline__ float warp_running_from(float* bs, int n, int lane,
+                                                   float carry) {
+  for (int base = 0; base < n; base += 32) {
+    const int c = base + lane;
+    float v = c < n ? bs[c] : 0.f;
+    for (int off = 1; off < 32; off <<= 1) {
+      const float x = __shfl_up_sync(kFullMask, v, off);
+      if (lane >= off) v = __fadd_rn(v, x);
+    }
+    v = __fadd_rn(v, carry);
+    if (c < n) bs[c] = v;
+    carry = __shfl_sync(kFullMask, v, 31);
+  }
+  __syncwarp();
+  return carry;
+}
+
+// K11: block (s, p) sums the W-blocks of tiles [p * tpb, (p + 1) * tpb) of
+// row s (a tile is kTile columns), one warp per tile; the row's last block
+// to arrive scans the row.
 template <typename T>
-__global__ void __launch_bounds__(kTruncThreads)
+__global__ void __launch_bounds__(kSumThreads)
     masked_blocksums_kernel(const T* __restrict__ w,
                             const float* __restrict__ tau,
-                            float* __restrict__ running, int ncols, int nb,
-                            int W) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+                            float* __restrict__ running,
+                            unsigned* __restrict__ arrived, int ncols, int nb,
+                            int W, int tpb) {
+  extern __shared__ float sbs[];
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int s = blockIdx.x;
   const MaskedRow<T> row{w + static_cast<size_t>(s) * ncols, tau[s]};
-  // the output row doubles as the scan buffer
   float* out = running + static_cast<size_t>(s) * nb;
-  warp_block_sums_strided<false>(row, ncols, nb, W, nullptr, out, lane, warp,
-                                 kTruncWarps);
+  const int Kp = nb * W;
+  const int kv = ncols < Kp ? ncols : Kp;
+  const int nt = (Kp + kTile - 1) / kTile;
+  const int t0 = blockIdx.y * tpb;
+  const int t1 = t0 + tpb < nt ? t0 + tpb : nt;
+  const int c0 = t0 * (kTile / W);  // first W-block of this run
+  const int c1 = t1 * (kTile / W) < nb ? t1 * (kTile / W) : nb;
+  for (int ti = t0 + warp; ti < t1; ti += kSumWarps)
+    tile_block_sums(row, ti, kv, Kp, W, sbs, c0, lane);
   __syncthreads();
-  if (warp == 0) warp_running(out, nb, lane);
+  for (int i = tid; i < c1 - c0; i += kSumThreads) out[c0 + i] = sbs[i];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(arrived + s, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  // the last block of the row: warp_running's scan over the row's sums,
+  // kScanChunk at a time through shared memory
+  __threadfence();
+  if (tid == 0) arrived[s] = 0u;  // ready for the next launch
+  float carry = 0.f;
+  for (int c = 0; c < nb; c += kScanChunk) {
+    const int n = nb - c < kScanChunk ? nb - c : kScanChunk;
+    for (int i = tid; i < n; i += kSumThreads) sbs[i] = __ldcg(out + c + i);
+    __syncthreads();
+    if (warp == 0) carry = warp_running_from(sbs, n, lane, carry);
+    __syncthreads();
+    for (int i = tid; i < n; i += kSumThreads) out[c + i] = sbs[i];
+    __syncthreads();
+  }
 }
 
 template <typename T>
@@ -250,35 +567,54 @@ inline unsigned grid_for(int n) {
   return static_cast<unsigned>((n + kWarps - 1) / kWarps);
 }
 
-size_t trunc_smem_bytes(int ncols, int nb, int W, int staged) {
+size_t trunc_smem_bytes(int ncols, int nb, int W, int staged, int list_cap) {
   return sizeof(float) *
-         (static_cast<size_t>(kRedFloats) + nb + W + (staged ? ncols : 0));
+         (static_cast<size_t>(kRedFloats) + trunc_scratch_floats(nb, W, list_cap) +
+          (staged ? ncols : 0));
 }
 
 template <typename T, typename USrc>
 int launch_fused_trunc_t(const void* w, USrc usrc, const void* params,
                          void* out, int B, int ncols, int nb, int W, int iters,
-                         int staged, cudaStream_t st) {
-  const size_t smem = trunc_smem_bytes(ncols, nb, W, staged);
+                         int staged, int list_cap, cudaStream_t st) {
+  const size_t smem = trunc_smem_bytes(ncols, nb, W, staged, list_cap);
   cudaError_t e = cudaFuncSetAttribute(
       fused_trunc_draw_kernel<T, USrc>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
   fused_trunc_draw_kernel<T, USrc><<<B, kTruncThreads, smem, st>>>(
       static_cast<const T*>(w), usrc, static_cast<const float*>(params),
-      static_cast<int*>(out), ncols, nb, W, iters, staged);
+      static_cast<int*>(out), ncols, nb, W, iters, staged, list_cap);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename USrc>
 int launch_fused_trunc(const void* w, USrc usrc, const void* params, void* out,
                        int B, int ncols, int nb, int W, int iters, int staged,
-                       int dtype, cudaStream_t st) {
+                       int list_cap, int dtype, cudaStream_t st) {
+  if (list_cap != 0 && list_cap < kBins)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1)
     return launch_fused_trunc_t<__nv_bfloat16>(w, usrc, params, out, B, ncols,
-                                               nb, W, iters, staged, st);
+                                               nb, W, iters, staged, list_cap, st);
   return launch_fused_trunc_t<float>(w, usrc, params, out, B, ncols, nb, W,
-                                     iters, staged, st);
+                                     iters, staged, list_cap, st);
+}
+
+// K11's split of a row: tiles per block, so that the (B, P) grid fills
+// the card (kSumBlocksPerSM blocks on every SM) while each block keeps at
+// least kMinBlocksPerRun W-blocks and at most about kScanChunk.
+int masked_tiles_per_block(int B, int nb, int W) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int nt = (nb * W + kTile - 1) / kTile;
+  int P = (kSumBlocksPerSM * sms + B - 1) / B;
+  if (P > nb / kMinBlocksPerRun) P = nb / kMinBlocksPerRun;
+  const int least = (nb + kScanChunk - 1) / kScanChunk;
+  if (P < least) P = least;
+  if (P < 1) P = 1;
+  return (nt + P - 1) / P;
 }
 
 }  // namespace
@@ -290,13 +626,14 @@ extern "C" {
 
 // params: (B, 3) float32 [top_k, top_p, min_p]; staged: 1 to stage each row
 // in shared memory (the wrapper checks that it fits), 0 to read it from
-// global memory on every pass.
+// global memory on every pass; list_cap: the top-p survivor list's floats
+// (>= 256) for the radix-select body, 0 for the bisection body.
 int fused_trunc_draw(const void* w, const void* u, const void* params,
                      void* out, int B, int ncols, int nb, int W, int iters,
-                     int staged, int dtype, void* stream) {
+                     int staged, int list_cap, int dtype, void* stream) {
   if (B <= 0) return 0;
   return launch_fused_trunc(w, ArrayU{static_cast<const float*>(u)}, params, out,
-                            B, ncols, nb, W, iters, staged, dtype,
+                            B, ncols, nb, W, iters, staged, list_cap, dtype,
                             static_cast<cudaStream_t>(stream));
 }
 
@@ -304,26 +641,36 @@ int fused_trunc_draw(const void* w, const void* u, const void* params,
 // uniform of global row row_offset + r (mod 2^32).
 int fused_trunc_draw_rng(const void* w, const void* params, void* out, int B,
                          int ncols, int nb, int W, int iters, int staged,
-                         unsigned s0, unsigned s1, unsigned row_offset,
-                         int dtype, void* stream) {
+                         int list_cap, unsigned s0, unsigned s1,
+                         unsigned row_offset, int dtype, void* stream) {
   if (B <= 0) return 0;
   return launch_fused_trunc(w, ThreefryU{s0, s1, row_offset}, params, out, B,
-                            ncols, nb, W, iters, staged, dtype,
+                            ncols, nb, W, iters, staged, list_cap, dtype,
                             static_cast<cudaStream_t>(stream));
 }
 
-int masked_blocksums(const void* w, const void* tau, void* running, int B,
-                     int ncols, int nb, int W, int dtype, void* stream) {
+// arrived: B uint32 zeros (each row's block count; the kernel leaves them
+// zero again).
+int masked_blocksums(const void* w, const void* tau, void* running,
+                     void* arrived, int B, int ncols, int nb, int W, int dtype,
+                     void* stream) {
   if (B <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   const float* tt = static_cast<const float*>(tau);
   float* r = static_cast<float*>(running);
+  unsigned* a = static_cast<unsigned*>(arrived);
+  const int tpb = masked_tiles_per_block(B, nb, W);
+  const int nt = (nb * W + kTile - 1) / kTile;
+  const int run_blocks = tpb * (kTile / W);
+  const int scan = nb < kScanChunk ? nb : kScanChunk;
+  const size_t smem = sizeof(float) * (run_blocks > scan ? run_blocks : scan);
+  const dim3 grid(B, (nt + tpb - 1) / tpb);
   if (dtype == 1)
-    masked_blocksums_kernel<__nv_bfloat16><<<B, kTruncThreads, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(w), tt, r, ncols, nb, W);
+    masked_blocksums_kernel<__nv_bfloat16><<<grid, kSumThreads, smem, st>>>(
+        static_cast<const __nv_bfloat16*>(w), tt, r, a, ncols, nb, W, tpb);
   else
-    masked_blocksums_kernel<float><<<B, kTruncThreads, 0, st>>>(
-        static_cast<const float*>(w), tt, r, ncols, nb, W);
+    masked_blocksums_kernel<float><<<grid, kSumThreads, smem, st>>>(
+        static_cast<const float*>(w), tt, r, a, ncols, nb, W, tpb);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -348,8 +695,8 @@ int walk_trunc(const void* w, const void* running, const void* u,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Threads per block of K9 and K11; the wrapper decides from it whether a
-// row can be staged in shared memory.
+// Threads per block of K9; the wrapper decides from it whether a row can be
+// staged in shared memory.
 int butterfly_trunc_threads(void) { return kTruncThreads; }
 
 }  // extern "C"

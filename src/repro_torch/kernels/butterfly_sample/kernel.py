@@ -81,12 +81,17 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The fused truncated draw (K9) runs one block of _TRUNC_THREADS threads per
 # row and stages the row (as fp32) in dynamic shared memory while
-# (2 * _TRUNC_THREADS / 32 + nb + W + K) floats fit the 227 KB a block may
-# opt into; a longer row is read from global memory (L2) on every pass.
-# Staging is the faster of the two where both run (chip_smoke.py times both
-# at K = 32,000 and 56,000; PERF.md).
+# (2 * _TRUNC_THREADS / 32 + max(_TRUNC_LIST_CAP, nb + W) + K) floats fit
+# the 227 KB a block may opt into (K up to 56,000 at W = 128); a longer row
+# is read from global memory (L2) on every pass.  chip_smoke.py times both
+# at K = 32,000 and 56,000 (PERF.md).  The scratch of max(_TRUNC_LIST_CAP,
+# nb + W) floats holds the radix select's histogram, then top-p's list of
+# the top-k survivors (a row with more survivors sums the whole row
+# instead, to the same result), then the draw's running sums and W-block.
 _TRUNC_THREADS = 1024
+_TRUNC_LIST_CAP = 2048
 _MAX_SMEM_BYTES = 232448
+_THRESHOLDS = ("radix", "bisect")
 
 
 def _log2(W: int) -> int:
@@ -168,7 +173,8 @@ def fused_fits(nb: int, W: int) -> bool:
 
 def trunc_row_staged(ncols: int, nb: int, W: int) -> bool:
     """True when K9 can stage a row of ``ncols`` weights in shared memory."""
-    return 4 * (2 * _TRUNC_THREADS // 32 + nb + W + ncols) <= _MAX_SMEM_BYTES
+    scratch = max(_TRUNC_LIST_CAP, nb + W)
+    return 4 * (2 * _TRUNC_THREADS // 32 + scratch + ncols) <= _MAX_SMEM_BYTES
 
 
 def reset_launches() -> None:
@@ -193,9 +199,9 @@ _SIGS = {
 
 
 _TRUNC_SIGS = {
-    "fused_trunc_draw": [_P] * 4 + [_I] * 7 + [_P],
-    "fused_trunc_draw_rng": [_P] * 3 + [_I] * 6 + [_U] * 3 + [_I, _P],
-    "masked_blocksums": [_P] * 3 + [_I] * 5 + [_P],
+    "fused_trunc_draw": [_P] * 4 + [_I] * 8 + [_P],
+    "fused_trunc_draw_rng": [_P] * 3 + [_I] * 7 + [_U] * 3 + [_I, _P],
+    "masked_blocksums": [_P] * 4 + [_I] * 5 + [_P],
     "walk_trunc": [_P] * 6 + [_I] * 5 + [_P],
 }
 
@@ -407,15 +413,29 @@ def _check_params(params: torch.Tensor, B: int, like: torch.Tensor) -> None:
 
 def fused_trunc_draw(w, u, params, W: int, iters: int = 32) -> torch.Tensor:
     """(B,) int32 draws in [0, Kp) from (B, K) weights truncated per row by
-    ``params`` (B, 3) ``[top_k, top_p, min_p]`` (K9): the threshold tau by
-    bisection, the mask ``w >= tau`` and the draw, in one launch."""
+    ``params`` (B, 3) ``[top_k, top_p, min_p]`` (K9): the threshold tau of
+    ``transforms.thresholds_from_params`` (top-k by radix select, top-p by
+    bisection over the top-k survivors), the mask ``w >= tau`` and the
+    draw, in one launch."""
     return _fused_trunc_draw(w, u, params, W, iters, None)
 
 
-def _fused_trunc_draw(w, u, params, W: int, iters: int, staged) -> torch.Tensor:
+def _list_cap(threshold) -> int:
+    if threshold not in (None, *_THRESHOLDS):
+        raise ValueError(f"threshold must be one of {_THRESHOLDS}, got {threshold!r}")
+    return 0 if threshold == "bisect" else _TRUNC_LIST_CAP
+
+
+def _fused_trunc_draw(w, u, params, W: int, iters: int, staged, threshold=None
+                      ) -> torch.Tensor:
     """:func:`fused_trunc_draw` with each row staged in shared memory
     (``staged`` True) or read from L2 (False); None stages where it fits.
-    Forcing is for measuring the two row sources against each other."""
+    ``threshold="bisect"`` runs the reference's bisection over the whole
+    row for top-k and top-p (66 passes) in place of the radix select and
+    the survivor list ("radix", the default; top-k bisects there too when
+    ``iters < 32``).  The two give equal draws.  Forcing is for measuring
+    the row sources and the threshold bodies against each other."""
+    list_cap = _list_cap(threshold)
     nb = num_blocks(w.shape[1], W)
     ncols = _check_weights(w, nb, W)
     B = w.shape[0]
@@ -427,7 +447,7 @@ def _fused_trunc_draw(w, u, params, W: int, iters: int, staged) -> torch.Tensor:
     out = torch.empty((B,), dtype=torch.int32, device=w.device)
     _launch("fused_trunc_draw", w.data_ptr(), u.data_ptr(), params.data_ptr(),
             out.data_ptr(), B, ncols, nb, W, int(iters),
-            int(fits if staged is None else staged), _DTYPES[w.dtype])
+            int(fits if staged is None else staged), list_cap, _DTYPES[w.dtype])
     return out
 
 
@@ -444,7 +464,7 @@ def fused_trunc_draw_rng(w, seed2, row_offset, params, W: int, iters: int = 32
     out = torch.empty((B,), dtype=torch.int32, device=w.device)
     _launch("fused_trunc_draw_rng", w.data_ptr(), params.data_ptr(), out.data_ptr(), B,
             ncols, nb, W, int(iters), int(trunc_row_staged(ncols, nb, W)),
-            *_seed_args(seed2, row_offset), _DTYPES[w.dtype])
+            _TRUNC_LIST_CAP, *_seed_args(seed2, row_offset), _DTYPES[w.dtype])
     return out
 
 
@@ -478,15 +498,33 @@ def fused_trunc_draw_torch(w, u, params, W: int, iters: int = 32) -> torch.Tenso
 # ---------------------------------------------------------------------------
 
 
+# K11's per-row arrival counters, one zeroed buffer per (device, stream):
+# the kernel leaves them zero again, and launches on one stream never
+# overlap, so no call pays for a memset.
+_ARRIVED: Dict[tuple, torch.Tensor] = {}
+
+
+def _arrival_counters(B: int, device) -> torch.Tensor:
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    t = _ARRIVED.get(key)
+    if t is None or t.numel() < B:
+        t = torch.zeros((max(B, 64),), dtype=torch.int32, device=device)
+        _ARRIVED[key] = t
+    return t
+
+
 def masked_blocksums(w, tau, W: int, nb: int) -> torch.Tensor:
     """(B, nb) float32 running W-block sums of ``w * [w >= tau[row]]``
-    (K11); the masked weights are never written."""
+    (K11); the masked weights are never written.  Several blocks share a
+    row; a per-row counter counts them in, and the last one scans the
+    row."""
     ncols = _check_weights(w, nb, W)
     B = w.shape[0]
     _check_vec("tau", tau, torch.float32, B, w)
     out = torch.empty((B, nb), dtype=torch.float32, device=w.device)
-    _launch("masked_blocksums", w.data_ptr(), tau.data_ptr(), out.data_ptr(), B,
-            ncols, nb, W, _DTYPES[w.dtype])
+    _launch("masked_blocksums", w.data_ptr(), tau.data_ptr(), out.data_ptr(),
+            _arrival_counters(B, w.device).data_ptr(), B, ncols, nb, W,
+            _DTYPES[w.dtype])
     return out
 
 

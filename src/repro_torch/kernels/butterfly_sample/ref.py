@@ -9,6 +9,12 @@
 * :func:`trunc_boundary_ties` — the same for truncated draws, with
   :func:`trunc_tau64`, the float64 threshold oracle, and
   :func:`cuda_sum_depth`, how deep the sums on the card are.
+* :func:`radix_topk_tau_torch` — the CPU model of K9's radix select: the
+  top-k threshold from four 8-bit digit histograms of the weights' bit
+  patterns, as the kernel takes it.
+* :func:`masked_blocksums_warp_order_torch` — K11's sums in the card's
+  order: an xor tree per 32-column piece, pieces added in order, then
+  ``warp_running``'s 32-wide scan chunks with a carry.
 """
 
 from __future__ import annotations
@@ -21,7 +27,8 @@ import torch
 from repro_torch.core.reference import draw_prefix as butterfly_sample_ref
 from repro_torch.kernels.lda_draw import ref as _lref
 
-__all__ = ["boundary_ties", "butterfly_sample_ref", "cuda_sum_depth", "trunc_boundary_ties",
+__all__ = ["boundary_ties", "butterfly_sample_ref", "cuda_sum_depth",
+           "masked_blocksums_warp_order_torch", "radix_topk_tau_torch", "trunc_boundary_ties",
            "trunc_tau64"]
 
 
@@ -162,3 +169,76 @@ def _tie_mask(a, b, w64, u, depth: int) -> torch.Tensor:
     between = (j >= lo[:, None]) & (j < hi[:, None])
     gap = torch.where(between, (P - stop[:, None]).abs(), torch.zeros_like(P))
     return gap.max(dim=1).values <= _lref.tie_tolerance(depth) * total
+
+
+def radix_topk_tau_torch(w, k) -> torch.Tensor:
+    """(B,) float32 top-k threshold of (B, K) weights as K9's radix select
+    takes it: a key ``bits(v) & 0x7fffffff`` for each v >= 0 (so -0.0 is
+    +0.0; negatives and NaN have none), four passes of 8-bit digit
+    histograms from the top over the keys that match the digits found, and
+    tau the key of the ceil(k)-th largest.  tau is 0 where ``k <= 0`` or
+    fewer than k keys exist (``#{w >= 0} >= k`` fails as a float32
+    compare), as the 32-step bisection of ``transforms._topk_tau`` gives.
+    Keys are int64, as ``kernels/rng.py`` holds uint32."""
+    wf = torch.as_tensor(w).to(torch.float32)
+    kf = torch.as_tensor(k, dtype=torch.float32, device=wf.device).expand(wf.shape[0])
+    bits = wf.contiguous().view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+    cand = wf >= 0
+    total = cand.sum(dim=1)
+    valid = (kf > 0) & (total.to(torch.float32) >= kf)
+    rem = torch.where(valid, torch.ceil(kf), torch.ones_like(kf)).to(torch.int64)
+    prefix = torch.zeros_like(total)
+    for shift in (24, 16, 8, 0):
+        digit = (bits >> shift) & 0xFF
+        hist = torch.zeros((wf.shape[0], 256), dtype=torch.int64,
+                           device=wf.device).scatter_add_(
+            1, digit, cand.to(torch.int64))
+        ge = hist.flip(1).cumsum(1).flip(1)  # keys in bins >= d
+        d = ((ge >= rem[:, None]).sum(dim=1) - 1).clamp(min=0)
+        rem = rem - (ge - hist).gather(1, d[:, None])[:, 0]
+        prefix = prefix | (d << shift)
+        cand = cand & (digit == d[:, None])
+    tau = prefix.to(torch.int32).view(torch.float32)
+    return torch.where(valid, tau, torch.zeros_like(tau))
+
+
+def _xor_tree(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a power of two) as a warp's xor shuffles
+    leave it in lane 0: neighbours added pairwise, level by level."""
+    while x.shape[-1] > 1:
+        x = x[..., 0::2] + x[..., 1::2]
+    return x[..., 0]
+
+
+def masked_blocksums_warp_order_torch(w, tau, W: int, nb: int) -> torch.Tensor:
+    """(B, nb) float32 running W-block sums of ``w * [w >= tau[row]]`` in
+    K11's order (``draw_tile.cuh``'s ``warp_block_sums_strided`` and
+    ``warp_running``): each W-block is an xor tree over min(W, 32) columns
+    per 32-column piece, the pieces added in order; the running sums are a
+    Hillis-Steele scan of each chunk of 32 blocks plus the carry of the
+    chunks before it.  Equal to the kernel bit for bit."""
+    wf = torch.as_tensor(w).to(torch.float32)
+    B, K = wf.shape
+    tau = torch.as_tensor(tau, dtype=torch.float32, device=wf.device)
+    wm = torch.where(wf >= tau[:, None], wf, torch.zeros((), dtype=wf.dtype,
+                                                         device=wf.device))
+    wm = torch.nn.functional.pad(wm, (0, nb * W - K))
+    if W <= 32:
+        bs = _xor_tree(wm.view(B, nb, W))
+    else:
+        pieces = _xor_tree(wm.view(B, nb, W // 32, 32))
+        bs = pieces[..., 0]
+        for i in range(1, W // 32):
+            bs = bs + pieces[..., i]
+    n32 = -(-nb // 32) * 32
+    v = torch.nn.functional.pad(bs, (0, n32 - nb)).view(B, n32 // 32, 32)
+    off = 1
+    while off < 32:  # the in-chunk scan: lane i adds lane i - off
+        v = torch.cat([v[..., :off], v[..., off:] + v[..., :-off]], dim=-1)
+        off *= 2
+    out = torch.empty_like(v)
+    carry = torch.zeros((B,), dtype=torch.float32, device=wf.device)
+    for c in range(v.shape[1]):
+        out[:, c] = v[:, c] + carry[:, None]
+        carry = out[:, c, 31]
+    return out.view(B, n32)[:, :nb].contiguous()

@@ -181,10 +181,11 @@ class SamplerPlan:
         ``temperature == 0`` is argmax.  A ``gumbel`` plan samples in logit
         space.  ``transforms`` is a truncation chain (per-row parameters
         allowed): a ``kernel`` / ``kernel_trunc`` plan runs the truncated
-        draw (threshold by bisection, no sort); other variants mask by the
-        threshold twin and build from the masked weights.  A sharded plan
-        draws per shard from the counter RNG seeded by ``key`` (K5, or K10
-        under a chain, for a ``kernel`` plan's one token per row)."""
+        draw (threshold by radix select and bisection, no sort); other
+        variants mask by the threshold twin and build from the masked
+        weights.  A sharded plan draws per shard from the counter RNG
+        seeded by ``key`` (K5, or K10 under a chain, for a ``kernel``
+        plan's one token per row)."""
         if isinstance(temperature, (int, float)) and temperature == 0.0:
             greedy = torch.argmax(torch.as_tensor(logits), dim=-1).to(torch.int32)
             if num_samples == 1:

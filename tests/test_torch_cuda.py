@@ -251,7 +251,7 @@ from repro_torch.kernels.alias_build import kernel as KA  # noqa: E402
 from repro_torch.kernels.alias_build import ops as aops  # noqa: E402
 from repro_torch.kernels.alias_build.ref import prob_tolerance, table_mass  # noqa: E402
 from repro_torch.kernels.butterfly_sample.ref import (  # noqa: E402
-    cuda_sum_depth, trunc_boundary_ties)
+    cuda_sum_depth, masked_blocksums_warp_order_torch, trunc_boundary_ties)
 from repro_torch.sampling import transforms as tr  # noqa: E402
 
 TRUNC_BK = [(24, 300), (8, 20000), (8, 100000), (64, 256000)]
@@ -346,6 +346,87 @@ def test_truncated_launch_counts_and_checks(dev):
     wl, pl, ul = _trunc_inputs(dev, 6, 4, 100000, "softmax")
     with pytest.raises(ValueError, match="shared memory"):
         KB._fused_trunc_draw(wl, ul, pl, 128, 32, True)
+
+
+def _edge_rows(dev, K):
+    """(10, K) edge rows of K9's threshold and their params: all equal; one
+    live token; zeros from -inf logits; -0.0 entries; top-k > K;
+    non-integer top-k with min-p; top-k off with top-p on; ties at tau_k
+    beyond the survivor list; top-k 1; a plain softmax row."""
+    g = np.random.default_rng(K)
+    z = g.normal(0, 4.0, (10, K)).astype(np.float32)
+    w = np.exp(z - z.max(axis=1, keepdims=True))
+    w[0] = 0.25
+    w[1] = 0.0
+    w[1, K // 3] = 1.0
+    zi = np.where(g.random(K) < 0.7, -np.inf, z[2]).astype(np.float32)
+    zi[0] = 0.0
+    w[2] = np.exp(zi - zi.max())
+    w[3] = np.where(g.random(K) < 0.5, np.float32(-0.0), w[3])
+    w[7, : min(K, KB._TRUNC_LIST_CAP + 500)] = 1.0
+    prm = np.array([[64, 0.95, 0], [64, 0.95, 0], [64, 0.9, 0], [64, 0.95, 0],
+                    [K + 1, 0.95, 0], [2.5, 0.9, 0.01], [0, 0.9, 0], [64, 0.95, 0],
+                    [1, 0.5, 0], [64, 0.95, 0]], np.float32)
+    u = g.uniform(0, 1, 10).astype(np.float32)
+    t = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    return t(w.astype(np.float32)), t(prm), t(u)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["int", "softmax"])
+@pytest.mark.parametrize("B,K", [(8, 256000), (64, 256000), (64, 128256), (24, 300)])
+def test_radix_threshold_equals_bisection(dev, B, K, kind, dtype):
+    """K9's radix select and survivor list against its bisection body
+    (``threshold="bisect"``): equal draws, bit for bit, at the cases of
+    chip_smoke's phase 2d, and with iters < 32 (where both bisect top-k)."""
+    w, prm, u = _trunc_inputs(dev, B * 7 + K, B, K, kind, dtype)
+    W = runtime.default_w(K)
+    for iters in (32, 20):
+        got = KB._fused_trunc_draw(w, u, prm, W, iters, None, threshold="radix")
+        want = KB._fused_trunc_draw(w, u, prm, W, iters, None, threshold="bisect")
+        assert torch.equal(got, want), (iters, int((got != want).sum()))
+    assert torch.equal(got, KB.fused_trunc_draw(w, u, prm, W, iters=20))
+
+
+@pytest.mark.parametrize("K", [300, 32000, 56000, 100000])
+def test_radix_threshold_edge_rows(dev, K):
+    """The edge rows, the survivor list's overflow among them, staged and
+    read from L2: both threshold bodies equal, ties only against the plain
+    version, K10 equal to K9 on ``rng.row_uniforms``."""
+    w, prm, u = _edge_rows(dev, K)
+    W = runtime.default_w(K)
+    want = KB._fused_trunc_draw(w, u, prm, W, 32, False, threshold="bisect")
+    sources = (True, False) if KB.trunc_row_staged(K, KB.num_blocks(K, W), W) else (False,)
+    for staged in sources:
+        for thr in ("radix", "bisect"):
+            got = KB._fused_trunc_draw(w, u, prm, W, 32, staged, threshold=thr)
+            assert torch.equal(got, want), (staged, thr)
+    res = trunc_boundary_ties(want, KB.fused_trunc_draw_torch(w, u, prm, W), w, u, prm,
+                              depth=cuda_sum_depth(K))
+    assert res["faults"] == 0, res
+    assert want[1] == K // 3 and want[0] < K
+    uu = rng.row_uniforms(SEED2.to(dev), 77, 10)
+    assert torch.equal(KB.fused_trunc_draw_rng(w, SEED2, 77, prm, W),
+                       KB.fused_trunc_draw(w, uu, prm, W))
+
+
+@pytest.mark.parametrize("W", [32, 64, 128])
+@pytest.mark.parametrize("B", [1, 8, 64])
+def test_masked_blocksums_equals_warp_order(dev, B, W):
+    """K11 (several blocks per row, the last one scanning) against its
+    exact-order plain model, bit for bit, on softmax weights; nb is not a
+    multiple of a block's run of W-blocks."""
+    for K in (100003, 256000):
+        w, prm, _ = _trunc_inputs(dev, B + K + W, B, K, "softmax")
+        prm[:, 0], prm[:, 1] = 64.0, 0.95
+        tau = tr.thresholds_from_params(w, prm).contiguous()
+        nb = KB.num_blocks(K, W)
+        for t in (tau, torch.zeros_like(tau)):
+            got = KB.masked_blocksums(w, t, W, nb)
+            assert torch.equal(got, masked_blocksums_warp_order_torch(w, t, W, nb)), (K, W)
+        assert torch.equal(KB.masked_blocksums(w.to(torch.bfloat16), tau, W, nb),
+                           masked_blocksums_warp_order_torch(w.to(torch.bfloat16), tau, W,
+                                                             nb))
 
 
 @pytest.mark.parametrize("B,K", [(37286, 240), (64, 4096), (4, 70000)])
