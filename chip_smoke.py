@@ -2,6 +2,12 @@
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0] [--out results.json]
+    python3 chip_smoke.py --timing-only [--src OTHER_CHECKOUT/src]
+
+The second form builds and runs phase 2g's timings alone (no checks, no
+result line), for this checkout or, with ``--src``, another commit's
+kernels with the same inputs, so that one call can time two commits in
+turns.
 
 Phases, each of which raises on failure (exit code != 0, no result line):
 
@@ -19,8 +25,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    and W=16; integer weights (0 mismatches allowed), Dirichlet weights
    (float64-checked boundary ties only), bf16, and the padded last chunk
    with all-zero rows; K1 also at W=4 and W=8, K4 also at K=32,000 x
-   B=64.  K1 also at W=64 and W=128 (integer, Dirichlet, bf16).  The
-   truncated draws (phase 2d): K9, K11 and K12 (S=1 and S=4) and both
+   B=64.  K1 also at W=64 and W=128 (integer, Dirichlet, bf16).  K3 (a
+   group of W/4 lanes per draw) also at W=8, 64 and 128 and at K=239
+   (ncols % 4 != 0: four loads a lane), each case against its plain
+   version on the plain running sums (ties only on real weights), against
+   the plain walk on the card's running sums and against K4's draw on the
+   same uniforms (both bit for bit).  The truncated draws (phase 2d): K9, K11 and K12 (S=1 and S=4) and both
    routes forced, at (8, 256000), (64, 256000), (64, 128256) and (24, 300);
    integer and peaked-softmax weights, bf16, zero rows, gemma2-9b's and
    per-row params with disabled stages; real-weight mismatches are ties
@@ -42,12 +52,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    staged in shared memory and read from L2, at (64, 32000) and (64,
    56000); K11 also at B = 8.  The seeded draws (phase 2f): K5
    at K4's cases (the chunk at W=32 and 16, integer, Dirichlet, bf16,
-   zero rows; (64, 256000) at W=128) and K10 at K9's, each against its
-   plain version and against K4 / K9 fed ``rng.row_uniforms`` (equal),
-   with row offsets that wrap at 2**32, both routes forced, ``hw=True``
-   (Philox) twice and against its plain version; the device Threefry
-   against ``rng.row_uniforms`` over 2**21 counters; K5 and K10 timed at
-   (64, 256000) beside K4 / K9 on the PyTorch uniforms they replace.
+   zero rows; (64, 256000), (8, 256000) and (64, 32000) at W=128) and K10
+   at K9's, each against its plain version and against K4 / K9 fed
+   ``rng.row_uniforms`` (equal), with row offsets that wrap at 2**32, both
+   routes forced, ``hw=True`` (Philox) twice and against its plain
+   version; K4 and K5 in both layouts (one warp per row, a row split over
+   several blocks) equal to the layout the rule picks, bit for bit, in
+   every case, ``hw=True`` included; the device Threefry against
+   ``rng.row_uniforms`` over 2**21 counters; K5 and K10 timed at (64,
+   256000) beside K4 / K9 on the PyTorch uniforms they replace.  Phase 2g
+   times K4 and K5 in both layouts at the chunk, (64, 4096), (64, 32000),
+   (8, 256000), (64, 256000) and a grid of B x K around the layout rule's
+   crossover, K3 at the chunk with S=1 and S=4, and K2 at the chunk and at
+   (64, 256000).
 3. The main paths at the paper's Wikipedia scale (M=43,556 docs,
    V=37,286 words, K=240, ~3.07M tokens, Zipf word ids, made from --seed),
    each run with the launch counts set to 0 just before it and read just
@@ -106,7 +123,11 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-sys.path.insert(0, str(ROOT / "src"))
+# --src DIR (with --timing-only) imports the port from DIR, another
+# checkout's src/, so that one call can time two commits' kernels in turns
+SRC = (Path(sys.argv[sys.argv.index("--src") + 1]).resolve()
+       if "--src" in sys.argv[:-1] else ROOT / "src")
+sys.path.insert(0, str(SRC))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -209,6 +230,43 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     e.record()
     e.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def device_ms(fn, reps: int = 20):
+    """Mean device time per call of fn() from torch.profiler: the kernels'
+    own time on the card, without the host's gaps between launches (which
+    CUDA events around a run of calls include).  None (not measured) when
+    the trace holds no kernel: the profiler missed them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / reps / 1e3 if us > 0 else None
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f} ms"
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Host time per call of fn() in microseconds: the wrapper's checks,
+    allocations and launch, with no synchronisation inside the loop (the
+    card's queue holds every launch), so the card's time is not in it."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / reps * 1e6
 
 
 def paper_corpus(seed: int, M: int, V: int, avg_len=70.5, max_len=307,
@@ -398,6 +456,24 @@ def check_table(tally, case, wts, W, exact):
         tally.table("butterfly_table", f"{case} {layout}", got, want, W, exact)
 
 
+def check_walk(tally, case, wts, run, W, u, u4, exact):
+    """K3 on the card's running sums ``run`` (K2), S = 1 and 4: against
+    its plain version on the plain running sums (ties only on real
+    weights), against the plain walk on ``run`` and against K4's draw on
+    the same uniforms (both bit for bit: the group walk makes the adds of
+    one warp's walk)."""
+    B, Kc = wts.shape
+    _, run_p = bops.build_block_sums(wts, W=W, impl="torch")
+    for S, uu in ((1, u), (4, u4)):
+        a = bops.butterfly_sample_from_sums(wts, run, uu, K=Kc, W=W)
+        b = bops.butterfly_sample_from_sums(wts, run_p, uu, K=Kc, W=W, impl="torch")
+        tally.weights("walk", f"{case} S={S}", a, b, wts.float(), uu, exact)
+        tally.same("walk", f"{case} S={S} vs plain walk",
+                   a, bops.butterfly_sample_from_sums(wts, run, uu, K=Kc, W=W, impl="torch"))
+    rows = torch.arange(B, dtype=torch.int32, device=wts.device)
+    tally.same("walk", f"{case} vs K4", KB.walk(wts, run, u, rows, W), KB.fused_draw(wts, u, W))
+
+
 def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
     """K1-K4 against their plain versions on the chunk's given weights."""
     d, w, u, u4 = inputs
@@ -419,10 +495,19 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
             _, run = bops.build_block_sums(wts, W=W)
             _, run_p = bops.build_block_sums(wts, W=W, impl="torch")
             tally.running("blocksums", case, run, run_p, exact)
-            for S, uu in ((1, u), (4, u4)):
-                a = bops.butterfly_sample_from_sums(wts, run, uu, K=K, W=W)
-                b = bops.butterfly_sample_from_sums(wts, run, uu, K=K, W=W, impl="torch")
-                tally.weights("walk", f"{case} S={S}", a, b, wts, uu, exact)
+            check_walk(tally, case, wts, run, W, u, u4, exact)
+    # K3 (W / 4 lanes per draw) at the other widths, and at K = 239 (ncols
+    # % 4 != 0: the four-loads-a-lane instantiation)
+    for W in (8, 64, 128):
+        for kind in ("int", "dirichlet"):
+            wts = chunk_weights(*factors(kind, C, V, K, g, dev), d, w)
+            check_walk(tally, f"W={W} {kind}", wts, bops.build_block_sums(wts, W=W)[1], W,
+                       u, u4, kind == "int")
+    wt = chunk_weights(*factors("dirichlet", C, V, K, g, dev), d, w)[:, :K - 1].contiguous()
+    if KB.walk_vector_loads(wt):
+        raise AssertionError("K = 239 should take the four-loads-a-lane walk")
+    check_walk(tally, f"K={K - 1} W=16 dirichlet", wt, bops.build_block_sums(wt, W=16)[1],
+               16, u, u4, False)
     for W in (8, 4, 64, 128):
         check_table(tally, f"W={W} int", chunk_weights(*factors("int", C, V, K, g, dev), d, w),
                     W, True)
@@ -436,6 +521,7 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
         tally.weights("fused_draw" if route == "fused" else "walk", f"W=16 bf16 {route}",
                       bops.butterfly_sample(wb, u, W=16, route=route),
                       bops.butterfly_sample(wb, u, W=16, impl="torch"), wb.float(), u, True)
+    check_walk(tally, "W=16 bf16", wb, bops.build_block_sums(wb, W=16)[1], 16, u, u4, True)
     # the sweep's last chunk: padded with all-zero rows
     th, ph = factors("dirichlet", corpus.docs.shape[0], V, K, g, dev)
     docs = torch.as_tensor(corpus.docs, device=dev)
@@ -449,6 +535,8 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
                       a, b, wz, u, False)
         if int(a.min()) < 0 or int(a.max()) >= K or not bool((a[zero] == K - 1).all()):
             raise AssertionError("zero-row chunk drew outside [0, K) or not K-1")
+    check_walk(tally, "W=16 zero rows", wz, bops.build_block_sums(wz, W=16)[1], 16, u, u4,
+               False)
     check_table(tally, "W=16 zero rows", wz, 16, False)
     # a large K: the port's switch picks the route; the forced two-pass
     # route must agree with it
@@ -1268,6 +1356,11 @@ def phase_seeded_kernels(corpus, dev, seed: int, tally, inputs):
         a = KB.fused_draw_rng(wts, s2, r0, W)
         if not torch.equal(a, KB.fused_draw(wts, uu, W)):
             raise AssertionError(f"K5 differs from K4 on the same uniforms: {case}")
+        for layout in KB.LAYOUTS:  # each layout equals the one the rule picks
+            tally.same("fused_draw_rng", f"{case} {layout}",
+                       KB._fused_draw_rng(wts, s2, r0, W, layout=layout), a)
+            tally.same("fused_draw", f"{case} {layout}",
+                       KB._fused_draw(wts, uu, W, layout=layout), a)
         tally.weights("fused_draw_rng", case, a, KB.fused_draw_rng_torch(wts, s2, r0, W),
                       wts.float(), uu, exact)
         two = bops.butterfly_sample_rng(wts, SEED_PAIR, row_offset=r0, W=W, route="two_pass")
@@ -1291,10 +1384,16 @@ def phase_seeded_kernels(corpus, dev, seed: int, tally, inputs):
     k5_case(f"({DECODE_B},{gemma2_9b.VOCAB_SIZE}) W=128 softmax", wv, 128, 2**32 - 3, False)
     wi = trunc_weights("int", DECODE_B, gemma2_9b.VOCAB_SIZE, g, dev)
     k5_case(f"({DECODE_B},{gemma2_9b.VOCAB_SIZE}) W=128 int", wi, 128, 99, True)
+    for B, Kv in ((8, gemma2_9b.VOCAB_SIZE), (DECODE_B, 32000)):
+        k5_case(f"({B},{Kv}) W=128 softmax", trunc_weights("softmax", B, Kv, g, dev), 128,
+                2**32 - B // 2, False)
     # hw=True: Philox in the kernel
     a = KB.fused_draw_rng(wv, s2, 5, 128, hw=True)
     if not torch.equal(a, KB.fused_draw_rng(wv, s2, 5, 128, hw=True)):
         raise AssertionError("K5 hw=True: one seed, two different draws")
+    for layout in KB.LAYOUTS:
+        tally.same("fused_draw_rng", f"hw=True (Philox) {layout}",
+                   KB._fused_draw_rng(wv, s2, 5, 128, hw=True, layout=layout), a)
     tally.weights("fused_draw_rng", "hw=True (Philox) softmax", a,
                   KB.fused_draw_rng_torch(wv, s2, 5, 128, hw=True), wv,
                   rng.philox_row_uniforms(s2d, 5, DECODE_B), False)
@@ -1364,6 +1463,90 @@ def phase_seeded_timing(dev, seed):
         out.setdefault("replaced", {})[name] = ms
         log(f"  {name:22s} {ms:.4f} ms")
     return out
+
+
+# K4/K5 layout shapes: the sweep's chunk (K = 240, W = 16; B is the
+# chunk's), the decode widths at W = default_w(K), and a grid of row widths
+# and batches around the rule's crossover (kernel.fused_layout)
+LAYOUT_SHAPES = [(27392, 240), (64, 4096), (64, 32000), (8, 256000), (64, 256000)] + [
+    (B, K) for B in (64, 1024, 27392) for K in (512, 1024, 2048, 4096)]
+
+
+def phase_layout_timing(corpus, dev, seed):
+    """CUDA-event times of K4 and K5 in each layout at LAYOUT_SHAPES, K3 at
+    the chunk (W = 16) with S = 1 and 4, and K2 at the chunk and at (64,
+    256000) W = 128, each beside its bound (each input read once, each
+    output written once); at the main paths' shapes also the device time
+    from torch.profiler, which leaves out the host's time per call, and
+    that host time (where it exceeds the device time, the CUDA-event
+    time of back-to-back calls measures the host).  Uses
+    only entry points the kernels had before their layouts, so that
+    ``--timing-only --src`` times an older commit's kernels with the same
+    inputs (it reports its one layout as "default")."""
+    g = torch.Generator(device=dev).manual_seed(seed + 20)
+    s2, _ = _seed2(dev)
+    res = {"fused": [], "walk": {}, "blocksums": {}}
+    layouts = getattr(KB, "LAYOUTS", None)
+    C, K = 256, CONFIG.K
+    docs_c = torch.as_tensor(corpus.docs[:C], device=dev)
+    N = docs_c.shape[1]
+    d = (torch.arange(C * N, device=dev, dtype=torch.int32) // N).contiguous()
+    w = docs_c.reshape(-1).contiguous()
+    chunk = chunk_weights(*factors("dirichlet", C, corpus.vocab_size, K, g, dev), d, w)
+    log(f"phase 2g: K4/K5 layouts, K3 by lane groups, K2 at vocabulary width "
+        f"({'layouts ' + str(layouts) if layouts else 'one layout'})")
+    for i, (B, Kc) in enumerate(LAYOUT_SHAPES):
+        main = i < 5  # the shapes of the main paths
+        if Kc == K:  # the chunk of 256 documents: B = 256 x its longest
+            W, wts, B = 16, chunk, chunk.shape[0]
+        else:
+            W = runtime.default_w(Kc)
+            wts = torch._standard_gamma(torch.full((B, Kc), 0.3, device=dev), generator=g)
+        u = torch.rand(B, generator=g, device=dev)
+        nb = KB.num_blocks(Kc, W)
+        row = {"B": B, "K": Kc, "W": W, "nb": nb,
+               "bound_ms": (B * Kc * 4 + B * 8) / HBM_BYTES_PER_S * 1e3}
+        calls = ({lay: (lambda lay=lay: KB._fused_draw(wts, u, W, layout=lay),
+                        lambda lay=lay: KB._fused_draw_rng(wts, s2, 0, W, layout=lay))
+                  for lay in layouts} if layouts else
+                 {"default": (lambda: KB.fused_draw(wts, u, W),
+                              lambda: KB.fused_draw_rng(wts, s2, 0, W))})
+        if layouts:
+            row["rule"] = KB.fused_layout(B, nb, W)
+        for lay, (k4, k5) in calls.items():
+            row[f"K4 {lay}"] = cuda_ms(k4)
+            row[f"K5 {lay}"] = cuda_ms(k5)
+            if main:  # also the card's own time and the host's per call
+                row[f"K4 {lay} device"] = device_ms(k4)
+                row[f"K5 {lay} device"] = device_ms(k5)
+                row[f"K5 {lay} host_us"] = host_us(k5)
+        log("  " + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
+                            for k, v in row.items()))
+        res["fused"].append(row)
+    W, nb, B = 16, KB.num_blocks(K, 16), chunk.shape[0]
+    run = KB.blocksums(chunk, W, nb)
+    for S in (1, 4):
+        rows = torch.arange(B, dtype=torch.int32, device=dev).repeat(S)
+        uf = torch.rand(S * B, generator=g, device=dev)
+        ms = cuda_ms(lambda: KB.walk(chunk, run, uf, rows, W))
+        dms = device_ms(lambda: KB.walk(chunk, run, uf, rows, W))
+        hus = host_us(lambda: KB.walk(chunk, run, uf, rows, W))
+        bms, _ = given_bounds("walk", chunk, W, nb, KB.walk(chunk, run, uf, rows, W), rows)
+        res["walk"][f"S={S}"] = {"ms": ms, "device_ms": dms, "host_us": hus, "bound_ms": bms,
+                                 "draws": S * B}
+        log(f"  K3 chunk ({B},{K}) W={W} S={S}: {ms:.4f} ms (device {_ms(dms)}, host "
+            f"{hus:.1f} us per call), bound {bms:.5f} ms")
+    wv = torch._standard_gamma(torch.full((DECODE_B, gemma2_9b.VOCAB_SIZE), 0.3, device=dev),
+                               generator=g)
+    for name, wts, Wb in (("chunk W=16", chunk, 16), (f"({DECODE_B},{wv.shape[1]}) W=128",
+                                                      wv, 128)):
+        nbb = KB.num_blocks(wts.shape[1], Wb)
+        ms = cuda_ms(lambda: KB.blocksums(wts, Wb, nbb))
+        dms = device_ms(lambda: KB.blocksums(wts, Wb, nbb))
+        bms, _ = given_bounds("blocksums", wts, Wb, nbb, None, None)
+        res["blocksums"][name] = {"ms": ms, "device_ms": dms, "bound_ms": bms}
+        log(f"  K2 {name}: {ms:.4f} ms (device {_ms(dms)}), bound {bms:.5f} ms")
+    return res
 
 
 def _shard_emulation(dev, g, B, V, W, prm, key):
@@ -1574,7 +1757,15 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", type=Path, default=None, help="write every result as JSON")
+    ap.add_argument("--timing-only", action="store_true",
+                    help="build, run phase 2g's timings alone and print them as JSON "
+                         "(no checks, no result line)")
+    ap.add_argument("--src", type=Path, default=None,
+                    help="with --timing-only: import the port from this src/ directory "
+                         "(another commit's checkout) in place of this one's")
     args = ap.parse_args(argv)
+    if args.src and not args.timing_only:
+        ap.error("--src times another checkout's kernels and needs --timing-only")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; the port's "
               "kernels run only on the card", file=sys.stderr)
@@ -1587,13 +1778,17 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"phase 1: kernels built in {build_s:.2f} s")
+    log(f"phase 1: kernels built in {build_s:.2f} s (from {SRC})")
     for name, text in _build.build_log.items():
         log(f"  nvcc {name}:\n" + "\n".join("    " + x for x in text.strip().splitlines()))
 
     t0 = time.perf_counter()
     corpus = paper_corpus(args.seed, CONFIG.M, CONFIG.V)
     log(f"corpus built in {time.perf_counter() - t0:.2f} s")
+    if args.timing_only:
+        log(json.dumps({"card": smi, "src": str(SRC),
+                        "layout_timing": phase_layout_timing(corpus, dev, args.seed)}))
+        return 0
     tally, inputs = phase_kernels(corpus, dev, args.seed)
     phase_given_kernels(corpus, dev, args.seed, tally, inputs)
     phi = factors("dirichlet", 1, CONFIG.V, CONFIG.K,
@@ -1606,6 +1801,7 @@ def main(argv=None) -> int:
     timing.update(phase_given_timing(corpus, dev, args.seed, inputs))
     timing.update(phase_new_timing(dev, args.seed, phi))
     timing.update(phase_seeded_timing(dev, args.seed))
+    layout_timing = phase_layout_timing(corpus, dev, args.seed)
     dev_corpus = corpus_mod.Corpus(
         docs=torch.as_tensor(corpus.docs, device=dev),
         lengths=corpus.lengths,
@@ -1649,7 +1845,7 @@ def main(argv=None) -> int:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({
             "card": smi, "build_s": build_s, "kernels": kernels, "timing": timing,
-            "main": main_res,
+            "layout_timing": layout_timing, "main": main_res,
             "fig3": fig3, "planted": planted, "tally": tally.t,
         }, indent=1))
     log(smi)

@@ -68,10 +68,13 @@
 // draw sums them, into shared memory, written once.  The row's last block to
 // arrive (a per-row counter after __threadfence) runs warp_running's scan
 // over the row's sums through shared memory, in the same order, and writes
-// the running sums, so K9 and K11 give equal sums.  K12 reads tau[rows[s]]
-// and re-masks the one W-block it fetches, finding its block itself, one
-// warp per draw as K3.  Bound: device memory (each weight read once by K11;
-// one running row and one W-block per draw by K12).
+// the running sums, so K9 and K11 give equal sums.  The split
+// (tile_block_sums, split_row_running, split_tiles_per_block) lives in
+// draw_tile.cuh, where K4/K5's split layout (butterfly_sample.cu) shares
+// it.  K12 reads tau[rows[s]] and re-masks the one W-block it fetches,
+// finding its block itself, one warp per draw.  Bound: device memory (each
+// weight read once by K11; one running row and one W-block per draw by
+// K12).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -87,14 +90,14 @@ constexpr int kTruncWarps = kTruncThreads / 32;
 constexpr int kRedFloats = 2 * kTruncWarps;
 constexpr int kBins = 256;           // K9: 8-bit digits of the radix select
 constexpr int kInFlight = 8;         // K9: loads in flight per thread in a pass
-constexpr int kTile = 128;           // K9, K11: columns a warp sums at once
-constexpr int kSumThreads = 256;     // K11: threads per block (part of a row)
-constexpr int kSumWarps = kSumThreads / 32;
-constexpr int kSumBlocksPerSM = 8;   // K11: blocks per SM the grid aims at
-constexpr int kMinBlocksPerRun = 32; // K11: least W-blocks a block sums
-constexpr int kScanChunk = 4096;     // K11: most sums a block holds at once
 
 using draw_tile::kFullMask;
+using draw_tile::kSumThreads;
+using draw_tile::kTile;
+using draw_tile::split_row_running;
+using draw_tile::split_sum_floats;
+using draw_tile::split_tiles_per_block;
+using draw_tile::tile_block_sums;
 using draw_tile::to_f32;
 using draw_tile::warp_running;
 using draw_tile::warp_walk;
@@ -198,49 +201,6 @@ __device__ __forceinline__ float bisect(unsigned lo, unsigned hi, int iters,
       hi = mid;
   }
   return __uint_as_float(lo);
-}
-
-// The W-block sums of columns [kTile * t, kTile * t + kTile) of a row (W
-// divides kTile; columns at or past kv load as zero; blocks at or past
-// Kp = nb * W are not written), by one warp with the arithmetic of
-// warp_block_sums_strided: each 32-column piece an xor tree over min(W, 32)
-// lanes, a block's pieces added in order.  The four pieces are loaded
-// before any is summed.  Block c goes to bs[c - c0].
-template <typename Load>
-__device__ __forceinline__ void tile_block_sums(const Load& row, int t, int kv,
-                                                int Kp, int W, float* bs,
-                                                int c0, int lane) {
-  const int k0 = kTile * t;
-  float v[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + 32 * i + lane;
-    v[i] = k < kv ? row(k) : 0.f;
-  }
-  const int g = W < 32 ? W : 32;  // lanes that share one block per piece
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    for (int off = 1; off < g; off <<= 1)
-      v[i] = __fadd_rn(v[i], __shfl_xor_sync(kFullMask, v[i], off));
-  if (W < 32) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + 32 * i + lane;
-      if ((lane & (g - 1)) == 0 && k < Kp) bs[k / W - c0] = v[i];
-    }
-  } else if (lane == 0) {
-    const int c = k0 / W - c0;
-    if (W == 32) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        if (k0 + 32 * i < Kp) bs[c + i] = v[i];
-    } else if (W == 64) {
-      if (k0 < Kp) bs[c] = __fadd_rn(v[0], v[1]);
-      if (k0 + 64 < Kp) bs[c + 1] = __fadd_rn(v[2], v[3]);
-    } else if (k0 < Kp) {  // W = 128
-      bs[c] = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]), v[2]), v[3]);
-    }
-  }
 }
 
 // f(valid, v) for this thread's columns k = tid + j * kTruncThreads of the
@@ -473,29 +433,9 @@ __global__ void __launch_bounds__(kTruncThreads)
   }
 }
 
-// warp_running over bs[0..n) with the carry of the sums before it; returns
-// the carry after.  Chunks of n that are multiples of 32 chain into
-// warp_running's order over the whole row.
-__device__ __forceinline__ float warp_running_from(float* bs, int n, int lane,
-                                                   float carry) {
-  for (int base = 0; base < n; base += 32) {
-    const int c = base + lane;
-    float v = c < n ? bs[c] : 0.f;
-    for (int off = 1; off < 32; off <<= 1) {
-      const float x = __shfl_up_sync(kFullMask, v, off);
-      if (lane >= off) v = __fadd_rn(v, x);
-    }
-    v = __fadd_rn(v, carry);
-    if (c < n) bs[c] = v;
-    carry = __shfl_sync(kFullMask, v, 31);
-  }
-  __syncwarp();
-  return carry;
-}
-
 // K11: block (s, p) sums the W-blocks of tiles [p * tpb, (p + 1) * tpb) of
-// row s (a tile is kTile columns), one warp per tile; the row's last block
-// to arrive scans the row.
+// row s of the masked weights; the row's last block to arrive scans the
+// row (draw_tile.cuh's split_row_running).
 template <typename T>
 __global__ void __launch_bounds__(kSumThreads)
     masked_blocksums_kernel(const T* __restrict__ w,
@@ -504,43 +444,10 @@ __global__ void __launch_bounds__(kSumThreads)
                             unsigned* __restrict__ arrived, int ncols, int nb,
                             int W, int tpb) {
   extern __shared__ float sbs[];
-  __shared__ bool last;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int s = blockIdx.x;
   const MaskedRow<T> row{w + static_cast<size_t>(s) * ncols, tau[s]};
-  float* out = running + static_cast<size_t>(s) * nb;
-  const int Kp = nb * W;
-  const int kv = ncols < Kp ? ncols : Kp;
-  const int nt = (Kp + kTile - 1) / kTile;
-  const int t0 = blockIdx.y * tpb;
-  const int t1 = t0 + tpb < nt ? t0 + tpb : nt;
-  const int c0 = t0 * (kTile / W);  // first W-block of this run
-  const int c1 = t1 * (kTile / W) < nb ? t1 * (kTile / W) : nb;
-  for (int ti = t0 + warp; ti < t1; ti += kSumWarps)
-    tile_block_sums(row, ti, kv, Kp, W, sbs, c0, lane);
-  __syncthreads();
-  for (int i = tid; i < c1 - c0; i += kSumThreads) out[c0 + i] = sbs[i];
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(arrived + s, 1u) == gridDim.y - 1;
-  __syncthreads();
-  if (!last) return;
-  // the last block of the row: warp_running's scan over the row's sums,
-  // kScanChunk at a time through shared memory
-  __threadfence();
-  if (tid == 0) arrived[s] = 0u;  // ready for the next launch
-  float carry = 0.f;
-  for (int c = 0; c < nb; c += kScanChunk) {
-    const int n = nb - c < kScanChunk ? nb - c : kScanChunk;
-    for (int i = tid; i < n; i += kSumThreads) sbs[i] = __ldcg(out + c + i);
-    __syncthreads();
-    if (warp == 0) carry = warp_running_from(sbs, n, lane, carry);
-    __syncthreads();
-    for (int i = tid; i < n; i += kSumThreads) out[c + i] = sbs[i];
-    __syncthreads();
-  }
+  split_row_running(row, running + static_cast<size_t>(s) * nb, arrived + s,
+                    ncols, nb, W, tpb, sbs);
 }
 
 template <typename T>
@@ -601,22 +508,6 @@ int launch_fused_trunc(const void* w, USrc usrc, const void* params, void* out,
                                      iters, staged, list_cap, st);
 }
 
-// K11's split of a row: tiles per block, so that the (B, P) grid fills
-// the card (kSumBlocksPerSM blocks on every SM) while each block keeps at
-// least kMinBlocksPerRun W-blocks and at most about kScanChunk.
-int masked_tiles_per_block(int B, int nb, int W) {
-  int dev = 0, sms = 132;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int nt = (nb * W + kTile - 1) / kTile;
-  int P = (kSumBlocksPerSM * sms + B - 1) / B;
-  if (P > nb / kMinBlocksPerRun) P = nb / kMinBlocksPerRun;
-  const int least = (nb + kScanChunk - 1) / kScanChunk;
-  if (P < least) P = least;
-  if (P < 1) P = 1;
-  return (nt + P - 1) / P;
-}
-
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
@@ -659,11 +550,9 @@ int masked_blocksums(const void* w, const void* tau, void* running,
   const float* tt = static_cast<const float*>(tau);
   float* r = static_cast<float*>(running);
   unsigned* a = static_cast<unsigned*>(arrived);
-  const int tpb = masked_tiles_per_block(B, nb, W);
+  const int tpb = split_tiles_per_block(B, nb, W);
   const int nt = (nb * W + kTile - 1) / kTile;
-  const int run_blocks = tpb * (kTile / W);
-  const int scan = nb < kScanChunk ? nb : kScanChunk;
-  const size_t smem = sizeof(float) * (run_blocks > scan ? run_blocks : scan);
+  const size_t smem = sizeof(float) * split_sum_floats(nb, W, tpb);
   const dim3 grid(B, (nt + tpb - 1) / tpb);
   if (dtype == 1)
     masked_blocksums_kernel<__nv_bfloat16><<<grid, kSumThreads, smem, st>>>(

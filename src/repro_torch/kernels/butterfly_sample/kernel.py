@@ -50,6 +50,17 @@ current stream without synchronising, raises if the launch failed, and
 adds one to its count in :data:`LAUNCHES`.  Rows may be narrower than
 Kp = nb * W: columns at or past a row's width count as zero (the padding
 of K to a multiple of W), so nobody copies the weights to pad them.
+
+K4 and K5 run in one of two layouts (:data:`LAYOUTS`), which give the
+same indices: ``"warp"``, one warp per row, for narrow rows and many of
+them (the sweep's chunk), and ``"split"``, a row split over several
+thread blocks as K11 splits it, for wide rows (a vocabulary).
+:func:`fused_layout` picks one from the shapes before the launch; the
+private ``_fused_draw`` and ``_fused_draw_rng`` take ``layout=`` to force
+one, for holding the two against each other on the card.  K3 runs one
+draw per group of W / 4 lanes and reads each lane's four weights with one
+16-byte load where the rows allow it (:func:`walk_vector_loads`), four
+loads otherwise.
 """
 
 from __future__ import annotations
@@ -78,6 +89,15 @@ _WARPS_PER_BLOCK = 4
 _FUSED_SMEM_BYTES = 48 << 10
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+# K4/K5 layouts.  The split layout reads a row with up to a few hundred
+# warps in place of one; it pays a scratch, a per-row arrival counter and
+# a scan by the row's last block, which narrow rows do not repay.
+# _SPLIT_COLS is the row width (nb * W columns) from which the split
+# layout is taken: on the H100 it won from 2,048 columns at B = 64, 1,024
+# and 27,392 and lost below (chip_smoke.py phase 2g; PERF.md).
+LAYOUTS = ("warp", "split")
+_SPLIT_COLS = 2048
 
 # The fused truncated draw (K9) runs one block of _TRUNC_THREADS threads per
 # row and stages the row (as fp32) in dynamic shared memory while
@@ -171,6 +191,29 @@ def fused_fits(nb: int, W: int) -> bool:
     return 4 * _WARPS_PER_BLOCK * (nb + W) <= _FUSED_SMEM_BYTES
 
 
+def fused_layout(B: int, nb: int, W: int) -> str:
+    """The layout of K4/K5 for B rows of nb W-blocks: ``"split"`` for
+    rows of at least ``_SPLIT_COLS`` columns, else ``"warp"``.  The
+    crossover was measured at the same width for every B timed, so B
+    does not enter the rule."""
+    return "split" if nb * W >= _SPLIT_COLS else "warp"
+
+
+def _resolve_layout(layout, B: int, nb: int, W: int) -> str:
+    if layout is None:
+        return fused_layout(B, nb, W)
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS} or None, got {layout!r}")
+    return layout
+
+
+def walk_vector_loads(w: torch.Tensor) -> bool:
+    """True when K3 may read four weights per lane with one load: every
+    row start 16-byte aligned (8-byte for bf16), i.e. an aligned base and
+    a row width that is a multiple of 4."""
+    return w.shape[1] % 4 == 0 and w.data_ptr() % (4 * w.element_size()) == 0
+
+
 def trunc_row_staged(ncols: int, nb: int, W: int) -> bool:
     """True when K9 can stage a row of ``ncols`` weights in shared memory."""
     scratch = max(_TRUNC_LIST_CAP, nb + W)
@@ -191,9 +234,9 @@ _I = ctypes.c_int
 _U = ctypes.c_uint
 _SIGS = {
     "blocksums": [_P] * 2 + [_I] * 5 + [_P],
-    "walk": [_P] * 5 + [_I] * 5 + [_P],
-    "fused_draw": [_P] * 3 + [_I] * 5 + [_P],
-    "fused_draw_rng": [_P] * 2 + [_I] * 4 + [_U] * 3 + [_I] * 2 + [_P],
+    "walk": [_P] * 5 + [_I] * 6 + [_P],
+    "fused_draw": [_P] * 5 + [_I] * 6 + [_P],
+    "fused_draw_rng": [_P] * 4 + [_I] * 5 + [_U] * 3 + [_I] * 2 + [_P],
     "threefry_uniforms": [_P, _I] + [_U] * 3 + [_P],
 }
 
@@ -290,8 +333,9 @@ def blocksums_torch(w: torch.Tensor, W: int, nb: int) -> torch.Tensor:
 def walk(w, running, u, rows, W: int) -> torch.Tensor:
     """(Bt,) int32 draws in [0, Kp) from prebuilt running block sums (K3):
     draw s uses row ``rows[s]`` of ``running`` and reads only block jb of
-    row ``rows[s]`` of ``w``.  The kernel finds jb itself.  rows must
-    index valid rows (not checked: that would synchronise)."""
+    row ``rows[s]`` of ``w``.  The kernel finds jb itself, with W / 4
+    lanes per draw.  rows must index valid rows (not checked: that would
+    synchronise)."""
     nb = running.shape[1]
     ncols = _check_weights(w, nb, W)
     _check_running(running, w)
@@ -302,7 +346,8 @@ def walk(w, running, u, rows, W: int) -> torch.Tensor:
     _check_vec("rows", rows, torch.int32, Bt, w)
     out = torch.empty((Bt,), dtype=torch.int32, device=w.device)
     _launch("walk", w.data_ptr(), running.data_ptr(), u.data_ptr(),
-            rows.data_ptr(), out.data_ptr(), Bt, ncols, nb, W, _DTYPES[w.dtype])
+            rows.data_ptr(), out.data_ptr(), Bt, ncols, nb, W,
+            int(walk_vector_loads(w)), _DTYPES[w.dtype])
     return out
 
 
@@ -329,15 +374,36 @@ def walk_torch(w, running, u, rows, W: int) -> torch.Tensor:
 def fused_draw(w, u, W: int) -> torch.Tensor:
     """(B,) int32 draws in [0, Kp) from (B, K) weights in one launch (K4):
     block sums, running sums, selection, Fenwick table and descent."""
-    nb = num_blocks(w.shape[1], W)
+    return _fused_draw(w, u, W)
+
+
+def _split_buffers(layout: str, B: int, nb: int, device):
+    """Scratch (B, nb) float32 running sums and the per-row arrival
+    counters of the split layout; nothing for the warp layout."""
+    if layout == "warp":
+        return None, None
+    return (torch.empty((B, nb), dtype=torch.float32, device=device),
+            _arrival_counters(B, device))
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _fused_draw(w, u, W: int, layout=None) -> torch.Tensor:
+    """:func:`fused_draw` in the layout ``layout`` (``"warp"`` or
+    ``"split"``); None picks it with :func:`fused_layout`.  Both give the
+    same indices; forcing is for timing them against each other."""
+    B, nb = w.shape[0], num_blocks(w.shape[1], W)
+    layout = _resolve_layout(layout, B, nb, W)
     ncols = _check_weights(w, nb, W)
-    B = w.shape[0]
     _check_vec("u", u, torch.float32, B, w)
     if not fused_fits(nb, W):
         raise ValueError(f"fused draw needs too much shared memory at nb={nb}, W={W}")
+    scratch, arrived = _split_buffers(layout, B, nb, w.device)
     out = torch.empty((B,), dtype=torch.int32, device=w.device)
-    _launch("fused_draw", w.data_ptr(), u.data_ptr(), out.data_ptr(), B, ncols,
-            nb, W, _DTYPES[w.dtype])
+    _launch("fused_draw", w.data_ptr(), u.data_ptr(), out.data_ptr(), _ptr(scratch),
+            _ptr(arrived), B, ncols, nb, W, int(layout == "split"), _DTYPES[w.dtype])
     return out
 
 
@@ -359,14 +425,23 @@ def fused_draw_rng(w, seed2, row_offset, W: int, hw: bool = False) -> torch.Tens
     K4 with row r's uniform made in the kernel from the folded seed
     ``seed2`` and global row ``row_offset + r`` (Threefry; Philox with
     ``hw``).  No uniform tensor exists."""
-    nb = num_blocks(w.shape[1], W)
+    return _fused_draw_rng(w, seed2, row_offset, W, hw)
+
+
+def _fused_draw_rng(w, seed2, row_offset, W: int, hw: bool = False, layout=None
+                    ) -> torch.Tensor:
+    """:func:`fused_draw_rng` in the layout ``layout``, as
+    :func:`_fused_draw`."""
+    B, nb = w.shape[0], num_blocks(w.shape[1], W)
+    layout = _resolve_layout(layout, B, nb, W)
     ncols = _check_weights(w, nb, W)
     if not fused_fits(nb, W):
         raise ValueError(f"fused draw needs too much shared memory at nb={nb}, W={W}")
-    B = w.shape[0]
+    scratch, arrived = _split_buffers(layout, B, nb, w.device)
     out = torch.empty((B,), dtype=torch.int32, device=w.device)
-    _launch("fused_draw_rng", w.data_ptr(), out.data_ptr(), B, ncols, nb, W,
-            *_seed_args(seed2, row_offset), int(bool(hw)), _DTYPES[w.dtype])
+    _launch("fused_draw_rng", w.data_ptr(), out.data_ptr(), _ptr(scratch), _ptr(arrived),
+            B, ncols, nb, W, int(layout == "split"), *_seed_args(seed2, row_offset),
+            int(bool(hw)), _DTYPES[w.dtype])
     return out
 
 
@@ -498,9 +573,10 @@ def fused_trunc_draw_torch(w, u, params, W: int, iters: int = 32) -> torch.Tenso
 # ---------------------------------------------------------------------------
 
 
-# K11's per-row arrival counters, one zeroed buffer per (device, stream):
-# the kernel leaves them zero again, and launches on one stream never
-# overlap, so no call pays for a memset.
+# The per-row arrival counters of K11 and of K4/K5's split layout, one
+# zeroed buffer per (device, stream): each kernel leaves them zero again,
+# and launches on one stream never overlap, so the kernels can share the
+# buffer and no call pays for a memset.
 _ARRIVED: Dict[tuple, torch.Tensor] = {}
 
 

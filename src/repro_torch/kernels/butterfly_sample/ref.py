@@ -15,6 +15,13 @@
 * :func:`masked_blocksums_warp_order_torch` — K11's sums in the card's
   order: an xor tree per 32-column piece, pieces added in order, then
   ``warp_running``'s 32-wide scan chunks with a carry.
+* :func:`split_running_order_torch` — the running sums of a row split
+  over P thread blocks (K11, K4/K5's split layout) as the blocks form
+  them: each block's run of 128-column tiles, then the last block's scan
+  in chunks.
+* :func:`group_walk_order_torch` — K3's walk as a group of W / 4 lanes
+  makes it: each lane four weights, the Fenwick levels in the lane and
+  across lanes, the descent reading each level's lane.
 """
 
 from __future__ import annotations
@@ -28,7 +35,8 @@ from repro_torch.core.reference import draw_prefix as butterfly_sample_ref
 from repro_torch.kernels.lda_draw import ref as _lref
 
 __all__ = ["boundary_ties", "butterfly_sample_ref", "cuda_sum_depth",
-           "masked_blocksums_warp_order_torch", "radix_topk_tau_torch", "trunc_boundary_ties",
+           "group_walk_order_torch", "masked_blocksums_warp_order_torch",
+           "radix_topk_tau_torch", "split_running_order_torch", "trunc_boundary_ties",
            "trunc_tau64"]
 
 
@@ -242,3 +250,115 @@ def masked_blocksums_warp_order_torch(w, tau, W: int, nb: int) -> torch.Tensor:
         out[:, c] = v[:, c] + carry[:, None]
         carry = out[:, c, 31]
     return out.view(B, n32)[:, :nb].contiguous()
+
+
+TILE = 128  # columns a warp sums at once in a split row (draw_tile.cuh kTile)
+
+
+def _tile_block_sums(wt: torch.Tensor, W: int) -> torch.Tensor:
+    """(B, n * TILE) columns -> (B, n * TILE / W) W-block sums as
+    ``tile_block_sums`` forms them: per 32-column piece an xor tree over
+    min(W, 32) lanes, then a block's pieces added in order."""
+    B, k = wt.shape
+    pieces = wt.view(B, k // TILE, 4, 32)
+    if W <= 32:
+        return _xor_tree(pieces.reshape(B, k // TILE, 4, 32 // W, W)).reshape(B, -1)
+    p = _xor_tree(pieces)  # (B, tiles, 4): the piece sums
+    if W == 64:
+        return torch.stack([p[..., 0] + p[..., 1], p[..., 2] + p[..., 3]], -1).reshape(B, -1)
+    return ((p[..., 0] + p[..., 1]) + p[..., 2]) + p[..., 3]
+
+
+def split_running_order_torch(w, W: int, nb: int, P: int, scan_chunk: int = 4096
+                              ) -> torch.Tensor:
+    """(B, nb) float32 running W-block sums of (B, K) weights as a row
+    split over P thread blocks forms them (``draw_tile.cuh``'s
+    ``split_row_running``): block p sums the W-blocks of its run of
+    ``tpb = ceil(nt / P)`` 128-column tiles, columns at or past K zero;
+    the last block scans the row ``scan_chunk`` sums at a time (a
+    multiple of 32), each chunk a 32-wide Hillis-Steele scan per group of
+    32 with the carry of everything before it.  Equal to
+    :func:`masked_blocksums_warp_order_torch` with nothing masked for
+    every P, which is what lets the split layout keep one warp's order."""
+    wf = torch.as_tensor(w).to(torch.float32)
+    B, K = wf.shape
+    nt = -(-nb * W // TILE)
+    tpb = -(-nt // P)
+    wp = torch.nn.functional.pad(wf[:, :nb * W], (0, nt * TILE - min(K, nb * W)))
+    bs = torch.empty((B, nt * TILE // W), dtype=torch.float32)
+    per = TILE // W
+    for t0 in range(0, nt, tpb):  # block p = t0 // tpb: its run of tiles
+        t1 = min(t0 + tpb, nt)
+        bs[:, t0 * per:t1 * per] = _tile_block_sums(wp[:, t0 * TILE:t1 * TILE], W)
+    bs = bs[:, :nb]
+    out = torch.empty_like(bs)
+    carry = torch.zeros((B,), dtype=torch.float32)
+    for c in range(0, nb, scan_chunk):  # the last block's chunks
+        for g in range(c, min(c + scan_chunk, nb), 32):  # warp_running_from
+            v = torch.nn.functional.pad(bs[:, g:g + 32], (0, 32 - bs[:, g:g + 32].shape[1]))
+            off = 1
+            while off < 32:
+                v = torch.cat([v[:, :off], v[:, off:] + v[:, :-off]], dim=1)
+                off *= 2
+            v = v + carry[:, None]
+            n = min(32, nb - g)
+            out[:, g:g + n] = v[:, :n]
+            carry = v[:, 31]
+    return out
+
+
+def group_walk_order_torch(w, running, u, rows, W: int) -> torch.Tensor:
+    """(Bt,) int32 draws as K3's group walk (``draw_tile.cuh``'s
+    ``group_walk``) makes them: G = W / 4 lanes per draw.  Lane q counts
+    ``running[c] <= stop`` for c = q, q + G, ... and the group adds the
+    counts; lane q holds weights 4q..4q+3 of block jb (zero past the row's
+    width); the Fenwick up-sweep adds t[hi] += t[hi - bit] at bit = 1, 2
+    inside each lane and at bit = 4b as a shuffle up by b lanes; the
+    descent reads t[R + bit - 1] from lane (R + bit - 1) >> 2 (element 3
+    while bit >= 4, then element 1, then element 0 or 2).  Equal to
+    ``kernel.walk_torch`` bit for bit."""
+    wt = torch.as_tensor(w)
+    wf = wt if wt.dtype == torch.float32 else wt.to(torch.float32)
+    ncols = wf.shape[1]
+    rows = torch.as_tensor(rows).long()
+    run = torch.as_tensor(running, dtype=torch.float32)[rows]
+    Bt, nb = run.shape
+    G = W // 4
+    stop = run[:, -1] * torch.as_tensor(u, dtype=torch.float32)
+    npad = -(-nb // G) * G
+    lanes = torch.nn.functional.pad(run, (0, npad - nb), value=float("inf"))
+    cnt = (lanes.view(Bt, npad // G, G) <= stop[:, None, None]).sum(dim=1).sum(dim=1)
+    jb = cnt.clamp(max=nb - 1)
+    prev = torch.gather(run, 1, (jb - 1).clamp(min=0)[:, None])[:, 0]
+    lo = torch.where(jb > 0, prev, torch.zeros_like(prev))
+    cols = jb[:, None] * W + torch.arange(W)[None, :]
+    blk = wf[rows[:, None], cols.clamp(max=ncols - 1)]
+    e = torch.where(cols < ncols, blk, torch.zeros_like(blk)).view(Bt, G, 4)
+    e0, e2 = e[..., 0], e[..., 2]
+    e1 = e[..., 1] + e0
+    e3 = (e[..., 3] + e[..., 2]) + e1
+    q = torch.arange(G)
+    b = 1
+    while b < G:  # shuffle up by b lanes, added where (q + 1) % 2b == 0
+        x = torch.cat([e3[:, :b], e3[:, :-b]], dim=1)
+        e3 = torch.where(((q + 1) & (2 * b - 1)) == 0, e3 + x, e3)
+        b *= 2
+    acc, R = lo, torch.zeros_like(jb)
+
+    def step(y, bit):
+        nonlocal acc, R
+        mid = acc + y
+        go = stop >= mid
+        acc = torch.where(go, mid, acc)
+        R = torch.where(go, R + bit, R)
+
+    bit = W // 2
+    while bit >= 4:
+        step(torch.gather(e3, 1, ((R + bit - 1) >> 2)[:, None])[:, 0], bit)
+        bit //= 2
+    L = (R >> 2)[:, None]
+    step(torch.gather(e1, 1, L)[:, 0], 2)
+    step(torch.where((R & 2) != 0, torch.gather(e2, 1, L)[:, 0],
+                     torch.gather(e0, 1, L)[:, 0]), 1)
+    return (jb * W + R).to(torch.int32)
+

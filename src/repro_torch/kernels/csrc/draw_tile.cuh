@@ -14,6 +14,12 @@
 // order inside a block sum (an xor-shuffle tree) and inside the running
 // sum (a warp scan) differs from theirs, which matters only where
 // u * total lies within fp32 rounding of a partial-sum boundary.
+//
+// Besides the one-warp-per-sample steps, two layouts that other kernels
+// share: a row split over several thread blocks (tile_block_sums,
+// split_row_running; K4/K5's split layout and K11), which keeps one
+// warp's order of every sum, and a draw walked by a group of W / 4 lanes
+// (group_walk; K3), which makes exactly warp_walk's adds.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -195,6 +201,258 @@ __device__ __forceinline__ int warp_draw_tile(float* prod, float* run, int nb,
   float* t = prod + jb * W;
   warp_fenwick(t, W, lane);
   return jb * W + descent(t, stop, lo, W);
+}
+
+// ---------------------------------------------------------------------------
+// A row split over several thread blocks
+// ---------------------------------------------------------------------------
+
+constexpr int kTile = 128;            // columns a warp sums at once
+constexpr int kSumThreads = 256;      // threads per block of a split row
+constexpr int kSumWarps = kSumThreads / 32;
+constexpr int kSumBlocksPerSM = 8;    // blocks per SM the (B, P) grid aims at
+constexpr int kMinBlocksPerRun = 32;  // least W-blocks a block sums
+constexpr int kScanChunk = 4096;      // most sums the scanning block holds at once
+
+// The W-block sums of columns [kTile * t, kTile * t + kTile) of a row (W
+// divides kTile; columns at or past kv load as zero; blocks at or past
+// Kp = nb * W are not written), by one warp with the arithmetic of
+// warp_block_sums_strided: each 32-column piece an xor tree over min(W, 32)
+// lanes, a block's pieces added in order.  The four pieces are loaded
+// before any is summed.  Block c goes to bs[c - c0].
+template <typename Load>
+__device__ __forceinline__ void tile_block_sums(const Load& row, int t, int kv,
+                                                int Kp, int W, float* bs,
+                                                int c0, int lane) {
+  const int k0 = kTile * t;
+  float v[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int k = k0 + 32 * i + lane;
+    v[i] = k < kv ? row(k) : 0.f;
+  }
+  const int g = W < 32 ? W : 32;  // lanes that share one block per piece
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    for (int off = 1; off < g; off <<= 1)
+      v[i] = __fadd_rn(v[i], __shfl_xor_sync(kFullMask, v[i], off));
+  if (W < 32) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + 32 * i + lane;
+      if ((lane & (g - 1)) == 0 && k < Kp) bs[k / W - c0] = v[i];
+    }
+  } else if (lane == 0) {
+    const int c = k0 / W - c0;
+    if (W == 32) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (k0 + 32 * i < Kp) bs[c + i] = v[i];
+    } else if (W == 64) {
+      if (k0 < Kp) bs[c] = __fadd_rn(v[0], v[1]);
+      if (k0 + 64 < Kp) bs[c + 1] = __fadd_rn(v[2], v[3]);
+    } else if (k0 < Kp) {  // W = 128
+      bs[c] = __fadd_rn(__fadd_rn(__fadd_rn(v[0], v[1]), v[2]), v[3]);
+    }
+  }
+}
+
+// warp_running over bs[0..n) with the carry of the sums before it; returns
+// the carry after.  Chunks of n that are multiples of 32 chain into
+// warp_running's order over the whole row.
+__device__ __forceinline__ float warp_running_from(float* bs, int n, int lane,
+                                                   float carry) {
+  for (int base = 0; base < n; base += 32) {
+    const int c = base + lane;
+    float v = c < n ? bs[c] : 0.f;
+    for (int off = 1; off < 32; off <<= 1) {
+      const float x = __shfl_up_sync(kFullMask, v, off);
+      if (lane >= off) v = __fadd_rn(v, x);
+    }
+    v = __fadd_rn(v, carry);
+    if (c < n) bs[c] = v;
+    carry = __shfl_sync(kFullMask, v, 31);
+  }
+  __syncwarp();
+  return carry;
+}
+
+// Tiles per block of a row split over the (B, P) grid: P so that the grid
+// fills the card (kSumBlocksPerSM blocks on every SM) while each block
+// keeps at least kMinBlocksPerRun W-blocks and at most about kScanChunk.
+inline int split_tiles_per_block(int B, int nb, int W) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int nt = (nb * W + kTile - 1) / kTile;
+  int P = (kSumBlocksPerSM * sms + B - 1) / B;
+  if (P > nb / kMinBlocksPerRun) P = nb / kMinBlocksPerRun;
+  const int least = (nb + kScanChunk - 1) / kScanChunk;
+  if (P < least) P = least;
+  if (P < 1) P = 1;
+  return (nt + P - 1) / P;
+}
+
+// Floats of the split row's shared buffer: one block's run of W-block
+// sums, or one chunk of the scan, whichever is larger.
+__host__ __device__ inline int split_sum_floats(int nb, int W, int tpb) {
+  const int run_blocks = tpb * (kTile / W);
+  const int scan = nb < kScanChunk ? nb : kScanChunk;
+  return run_blocks > scan ? run_blocks : scan;
+}
+
+// The running W-block sums of one row by a split over gridDim.y blocks of
+// kSumThreads threads: block p sums the W-blocks of tiles [p * tpb,
+// (p + 1) * tpb) (a tile is kTile columns, one warp per tile) into sbs,
+// writes them to out, and takes the row's arrival counter after a
+// __threadfence.  The last block to arrive scans the row with
+// warp_running's order, kScanChunk sums at a time through sbs, writes the
+// running sums to out, leaves the counter at zero for the next launch and
+// returns true; the others return false.  When nb <= kScanChunk, sbs then
+// holds the whole running row too.  sbs holds split_sum_floats(nb, W, tpb)
+// floats.
+template <typename Load>
+__device__ __forceinline__ bool split_row_running(const Load& row, float* out,
+                                                  unsigned* arrived, int ncols,
+                                                  int nb, int W, int tpb,
+                                                  float* sbs) {
+  __shared__ bool last;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int Kp = nb * W;
+  const int kv = ncols < Kp ? ncols : Kp;
+  const int nt = (Kp + kTile - 1) / kTile;
+  const int t0 = blockIdx.y * tpb;
+  const int t1 = t0 + tpb < nt ? t0 + tpb : nt;
+  const int c0 = t0 * (kTile / W);  // first W-block of this run
+  const int c1 = t1 * (kTile / W) < nb ? t1 * (kTile / W) : nb;
+  for (int ti = t0 + warp; ti < t1; ti += kSumWarps)
+    tile_block_sums(row, ti, kv, Kp, W, sbs, c0, lane);
+  __syncthreads();
+  for (int i = tid; i < c1 - c0; i += kSumThreads) out[c0 + i] = sbs[i];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(arrived, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  if (tid == 0) *arrived = 0u;  // ready for the next launch
+  float carry = 0.f;
+  for (int c = 0; c < nb; c += kScanChunk) {
+    const int n = nb - c < kScanChunk ? nb - c : kScanChunk;
+    for (int i = tid; i < n; i += kSumThreads) sbs[i] = __ldcg(out + c + i);
+    __syncthreads();
+    if (warp == 0) carry = warp_running_from(sbs, n, lane, carry);
+    __syncthreads();
+    for (int i = tid; i < n; i += kSumThreads) out[c + i] = sbs[i];
+    __syncthreads();
+  }
+  return true;
+}
+
+// ---------------------------------------------------------------------------
+// One draw per group of W / 4 lanes
+// ---------------------------------------------------------------------------
+
+// Four consecutive weights w[0..3] as floats.  VEC: one 16-byte load (8
+// for bf16), which needs w 16-byte (8-byte) aligned; else four loads.
+template <bool VEC>
+__device__ __forceinline__ void load4(const float* __restrict__ w, float (&e)[4]) {
+  if (VEC) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(w));
+    e[0] = x.x; e[1] = x.y; e[2] = x.z; e[3] = x.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = w[i];
+  }
+}
+
+template <bool VEC>
+__device__ __forceinline__ void load4(const __nv_bfloat16* __restrict__ w,
+                                      float (&e)[4]) {
+  if (VEC) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(w));
+    const __nv_bfloat162 a = *reinterpret_cast<const __nv_bfloat162*>(&x.x);
+    const __nv_bfloat162 b = *reinterpret_cast<const __nv_bfloat162*>(&x.y);
+    e[0] = __low2float(a); e[1] = __high2float(a);
+    e[2] = __low2float(b); e[3] = __high2float(b);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = to_f32(w[i]);
+  }
+}
+
+// warp_walk for one sample by a group of G = W / 4 lanes (the group is
+// aligned in its warp, every lane of the warp calls this): q = lane % G.
+// The group counts #{c : run[c] <= stop} over its lanes (exact, so in any
+// order); lane q holds weights 4q..4q+3 of block jb of row w (zero past
+// ncols; VEC: ncols % 4 == 0 and w aligned for load4).  The Fenwick
+// up-sweep makes warp_fenwick's adds (t[hi] += t[hi - bit]), the first two
+// levels inside each lane and the others as shuffles up by bit / 4 lanes;
+// the descent makes descent()'s log2(W) compares from lo, reading t[R + bit
+// - 1] from its lane (element 3 while bit >= 4, then 1, then 0 or 2).  So
+// the index equals warp_walk's bit for bit.  Returns it in [0, Kp).
+template <int W, bool VEC, typename T>
+__device__ __forceinline__ int group_walk(const T* __restrict__ w,
+                                          const float* __restrict__ run,
+                                          int ncols, int nb, float u, int q) {
+  constexpr int G = W / 4;
+  static_assert(G >= 2 && G <= 32 && (G & (G - 1)) == 0, "W in [8, 128]");
+  const float stop = __fmul_rn(run[nb - 1], u);
+  unsigned cnt = 0;
+#pragma unroll 4
+  for (int c = q; c < nb; c += G) cnt += run[c] <= stop ? 1u : 0u;
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    cnt += __shfl_xor_sync(kFullMask, cnt, off, G);
+  const int jb = static_cast<int>(cnt) < nb - 1 ? static_cast<int>(cnt) : nb - 1;
+  const float lo = jb > 0 ? run[jb - 1] : 0.f;
+  const int k0 = jb * W + 4 * q;
+  float e[4];
+  if (VEC) {
+    if (k0 < ncols) {
+      load4<true>(w + k0, e);
+    } else {
+      e[0] = e[1] = e[2] = e[3] = 0.f;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) e[i] = k0 + i < ncols ? to_f32(w[k0 + i]) : 0.f;
+  }
+  // Fenwick up-sweep: bit = 1 and 2 inside the lane, then bit = 4 b
+  e[1] = __fadd_rn(e[1], e[0]);
+  e[3] = __fadd_rn(e[3], e[2]);
+  e[3] = __fadd_rn(e[3], e[1]);
+#pragma unroll
+  for (int b = 1; b < G; b <<= 1) {
+    const float x = __shfl_up_sync(kFullMask, e[3], b, G);
+    if (((q + 1) & (2 * b - 1)) == 0) e[3] = __fadd_rn(e[3], x);
+  }
+  // descent from lo
+  float acc = lo;
+  int R = 0;
+#pragma unroll
+  for (int bit = W >> 1; bit >= 4; bit >>= 1) {
+    const float y = __shfl_sync(kFullMask, e[3], (R + bit - 1) >> 2, G);
+    const float mid = __fadd_rn(acc, y);
+    if (stop >= mid) {
+      acc = mid;
+      R += bit;
+    }
+  }
+  const int L = R >> 2;  // bit = 2 reads t[R + 1], bit = 1 t[R] or t[R + 2]
+  const float y1 = __shfl_sync(kFullMask, e[1], L, G);
+  const float y0 = __shfl_sync(kFullMask, e[0], L, G);
+  const float y2 = __shfl_sync(kFullMask, e[2], L, G);
+  float mid = __fadd_rn(acc, y1);
+  if (stop >= mid) {
+    acc = mid;
+    R += 2;
+  }
+  mid = __fadd_rn(acc, (R & 2) ? y2 : y0);
+  if (stop >= mid) R += 1;
+  return jb * W + R;
 }
 
 }  // namespace draw_tile

@@ -604,3 +604,113 @@ def test_one_rank_nccl_mesh_decode(dev, tmp_path):
         assert torch.equal(tok.to_local(), bops.butterfly_sample_rng(w, key, W=p.W))
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# The layouts: K4/K5 split over several blocks per row, K3 by lane groups
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.butterfly_sample.ref import (  # noqa: E402
+    group_walk_order_torch,
+    split_running_order_torch,
+)
+
+LAYOUT_BKW = [(27392, 240, 16), (1000, 240, 32), (5, 17, 8), (64, 4096, 64),
+              (64, 4099, 32), (3, 20011, 8), (64, 32000, 128), (8, 256000, 128),
+              (64, 256000, 128)]
+
+
+@pytest.mark.parametrize("B,K,W", LAYOUT_BKW)
+def test_split_layout_equals_warp_layout(dev, B, K, W):
+    """K4 and K5 draw the same indices in both layouts, bit for bit, on
+    integer, Dirichlet and bf16 weights with all-zero rows, at offsets that
+    wrap and with hw=True; K5 equals K4 on rng.row_uniforms, and on
+    integer weights both equal the plain version."""
+    nb = KB.num_blocks(K, W)
+    for kind, dtype in (("int", torch.float32), ("dirichlet", torch.float32),
+                        ("int", torch.bfloat16)):
+        w, u = _weights(dev, B + K + W, B, K, kind, dtype)
+        w[::5] = 0
+        warp = KB._fused_draw(w, u, W, layout="warp")
+        split = KB._fused_draw(w, u, W, layout="split")
+        torch.cuda.synchronize()
+        assert torch.equal(warp, split), (kind, dtype)
+        if kind == "int":
+            assert torch.equal(split, KB.fused_draw_torch(w, u, W))
+        assert bool((split[::5] == nb * W - 1).all())
+        for r0, hw in ((0, False), (2**32 - B // 2, False), (11, True)):
+            a = KB._fused_draw_rng(w, SEED2, r0, W, hw=hw, layout="split")
+            assert torch.equal(a, KB._fused_draw_rng(w, SEED2, r0, W, hw=hw, layout="warp"))
+            if not hw:
+                uu = rng.row_uniforms(SEED2.to(dev), r0, B)
+                assert torch.equal(a, KB._fused_draw(w, uu, W, layout="warp"))
+
+
+def test_split_layout_running_sums_and_launches(dev):
+    """One launch per call in either layout, the arrival counters left at
+    zero for the next launch; the card's warp-order running sums (K2) equal
+    the exact-order model of a row split, whose sums the split layout
+    walks."""
+    w, u = _weights(dev, 1, 64, 256000, "dirichlet")
+    KB.reset_launches()
+    for layout in KB.LAYOUTS:
+        KB._fused_draw(w, u, 128, layout=layout)
+        KB._fused_draw_rng(w, SEED2, 0, 128, layout=layout)
+    assert KB.LAUNCHES == {**_NO_LAUNCHES, "fused_draw": 2, "fused_draw_rng": 2}
+    torch.cuda.synchronize()
+    assert int(KB._arrival_counters(64, w.device)[:64].abs().sum()) == 0
+    nb = KB.num_blocks(256000, 128)
+    want = split_running_order_torch(w.cpu(), 128, nb, 7)
+    assert torch.equal(KB.blocksums(w, 128, nb).cpu(), want)
+    assert KB.fused_layout(64, nb, 128) == "split"
+    with pytest.raises(ValueError, match="layout"):
+        KB._fused_draw(w, u, 128, layout="rows")
+
+
+@pytest.mark.parametrize("W", GRID_W)
+def test_group_walk_equals_fused_draw(dev, W):
+    """K3 (a group of W / 4 lanes per draw) equals its plain version on the
+    same running sums bit for bit, and K4's draw on the same uniforms:
+    integer, Dirichlet and bf16 weights, all-zero rows, S = 1 and 4, row
+    widths with ncols % 4 != 0 and a misaligned base (four loads a lane)."""
+    B = 3000
+    for K in (240, 4 * W + 3, 4099, 1000):
+        for kind, dtype in (("int", torch.float32), ("dirichlet", torch.float32),
+                            ("int", torch.bfloat16)):
+            w, u = _weights(dev, K + W, B, K, kind, dtype)
+            w[::7] = 0
+            nb = KB.num_blocks(K, W)
+            run = KB.blocksums(w, W, nb)
+            rows = torch.arange(B, dtype=torch.int32, device=dev)
+            one = KB.walk(w, run, u, rows, W)
+            assert torch.equal(one, KB.fused_draw(w, u, W)), (K, kind, dtype)
+            u4 = torch.rand(4 * B, device=dev)
+            got = KB.walk(w, run, u4, rows.repeat(4), W)
+            want = KB.walk_torch(w, run, u4, rows.repeat(4), W)
+            assert torch.equal(got, want), (K, kind, dtype)
+            assert torch.equal(got.cpu(), group_walk_order_torch(w.cpu(), run.cpu(), u4.cpu(),
+                                                                 rows.repeat(4).cpu(), W))
+            assert bool((one[::7] == nb * W - 1).all())
+    # a base that is not 16-byte aligned takes the four-load instantiation
+    w, u = _weights(dev, W, B, 241, "dirichlet")
+    shifted = w.reshape(-1)[1:1 + B * 240].view(B, 240)
+    assert not KB.walk_vector_loads(shifted)
+    nb = KB.num_blocks(240, W)
+    run = KB.blocksums(shifted, W, nb)
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    assert torch.equal(KB.walk(shifted, run, u, rows, W),
+                       KB.walk_torch(shifted, run, u, rows, W))
+
+
+@pytest.mark.parametrize("W", [8, 16])
+def test_masked_blocksums_equals_warp_order_narrow_w(dev, W):
+    """K11 after its row split moved to draw_tile.cuh, at the widths below
+    those of test_masked_blocksums_equals_warp_order."""
+    for B, K in ((8, 100003), (64, 20000)):
+        w, prm, _ = _trunc_inputs(dev, B + K + W, B, K, "softmax")
+        prm[:, 0], prm[:, 1] = 64.0, 0.95
+        tau = tr.thresholds_from_params(w, prm).contiguous()
+        nb = KB.num_blocks(K, W)
+        for t in (tau, torch.zeros_like(tau)):
+            assert torch.equal(KB.masked_blocksums(w, t, W, nb),
+                               masked_blocksums_warp_order_torch(w, t, W, nb)), (B, K)
