@@ -60,11 +60,18 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    several blocks) equal to the layout the rule picks, bit for bit, in
    every case, ``hw=True`` included; the device Threefry against
    ``rng.row_uniforms`` over 2**21 counters; K5 and K10 timed at (64,
-   256000) beside K4 / K9 on the PyTorch uniforms they replace.  Phase 2g
-   times K4 and K5 in both layouts at the chunk, (64, 4096), (64, 32000),
-   (8, 256000), (64, 256000) and a grid of B x K around the layout rule's
-   crossover, K3 at the chunk with S=1 and S=4, and K2 at the chunk and at
-   (64, 256000).
+   256000) beside K4 / K9 on the PyTorch uniforms they replace.  K8 in
+   both layouts (one warp, a group of W/4 lanes per draw) against the
+   rule's pick and against K6 + K7, and K2's split against its warp layout
+   with K3 on the split's sums against K4, bit for bit, at the chunk's
+   cases, W = 8 ... 128, K = 239, bf16, zero rows and (for K2) decode
+   widths.  Phase 2g times K2, K4 and K5 in both layouts (K2 beside
+   ``view(B, nb, W).sum(-1).cumsum(1)``; K2 also with device times at
+   every shape) at the chunk, (64, 4096), (64,
+   32000), (8, 256000), (64, 256000) and a grid of B x K around the layout
+   rule's crossover, K3 at the chunk with S=1 and S=4, K8 in both layouts
+   and K6 + K7 at the chunk for K = 240 ... 3,000 and over every padded
+   position of the corpus, and K11 at (64, 256000).
 3. The main paths at the paper's Wikipedia scale (M=43,556 docs,
    V=37,286 words, K=240, ~3.07M tokens, Zipf word ids, made from --seed),
    each run with the launch counts set to 0 just before it and read just
@@ -409,6 +416,7 @@ def phase_kernels(corpus, dev, seed: int):
             plain = ops.lda_draw_factored(th, ph, d, w, u, W=W, impl="torch")
             fused = ops.lda_draw_factored(th, ph, d, w, u, W=W)
             tally.indices("lda_fused_draw", case, fused, plain, th, ph, d, w, u, exact)
+            check_lda_layouts(tally, case, th, ph, d, w, u, W)
             two = KL.lda_draw_docs(th, ph, d, w, u, W, route="two_pass")
             tally.indices("lda_walk", case + " two-pass route", two, plain,
                           th, ph, d, w, u, exact)
@@ -425,6 +433,14 @@ def phase_kernels(corpus, dev, seed: int):
                   ops.lda_draw_factored(th, ph, d, w, u, W=32),
                   ops.lda_draw_factored(th, ph, d, w, u, W=32, impl="torch"),
                   th.float(), ph.float(), d, w, u, True)
+    check_lda_layouts(tally, "W=32 bf16", th, ph, d, w, u, 32)
+    # K8's layouts at the other widths, and at K = 239 (ncols % 4 != 0: the
+    # group layout's four-loads-a-lane instantiation)
+    for W in (8, 64, 128):
+        th, ph = factors("dirichlet", C, V, K, g, dev)
+        check_lda_layouts(tally, f"W={W} dirichlet", th, ph, d, w, u, W)
+    th, ph = (x[:, :K - 1].contiguous() for x in factors("dirichlet", C, V, K, g, dev))
+    check_lda_layouts(tally, f"K={K - 1} W=32 dirichlet", th, ph, d, w, u, 32)
     # the sweep's last chunk: padded with all-zero theta rows
     th, ph = factors("dirichlet", corpus.docs.shape[0], V, K, g, dev)
     docs = torch.as_tensor(corpus.docs, device=dev)
@@ -434,9 +450,26 @@ def phase_kernels(corpus, dev, seed: int):
     a = ops.lda_draw_factored(th_c, ph, d, wz, u, W=32)
     b = ops.lda_draw_factored(th_c, ph, d, wz, u, W=32, impl="torch")
     tally.indices("lda_fused_draw", "W=32 zero rows", a, b, th_c, ph, d, wz, u, False)
+    check_lda_layouts(tally, "W=32 zero rows", th_c, ph, d, wz, u, 32)
     if int(a.min()) < 0 or int(a.max()) >= K:
         raise AssertionError("zero-row chunk drew an index outside [0, K)")
     return tally, (d, w, u, u4)
+
+
+def check_lda_layouts(tally, case, th, ph, d, w, u, W):
+    """K8 in each layout that fits against the layout the rule picks, and
+    K8 against K6 + K7 on the same uniforms (all bit for bit: the group
+    layout makes the warp layout's adds, which are K6's and K7's)."""
+    nb = KL.num_blocks(th.shape[1], W)
+    a = KL.lda_fused_draw(th, ph, d, w, u, W)
+    for layout in KL.LAYOUTS:
+        if (KL.group_fits if layout == "group" else KL.fused_fits)(nb, W):
+            tally.same("lda_fused_draw", f"{case} {layout} layout",
+                       KL._lda_fused_draw(th, ph, d, w, u, W, layout=layout), a)
+    run = KL.lda_blocksums(th, ph, d, w, W, nb)
+    rows = torch.arange(u.shape[0], dtype=torch.int32, device=u.device)
+    tally.same("lda_fused_draw", f"{case} vs K6 + K7", a,
+               KL.lda_walk(th, ph, run, u, rows, d, w, W))
 
 
 def chunk_weights(th, ph, d, w):
@@ -474,6 +507,19 @@ def check_walk(tally, case, wts, run, W, u, u4, exact):
     tally.same("walk", f"{case} vs K4", KB.walk(wts, run, u, rows, W), KB.fused_draw(wts, u, W))
 
 
+def check_blocksums_layouts(tally, case, wts, W, u):
+    """K2's split layout against its warp layout (bit for bit: the same
+    adds), and K3 on the split's running sums against K4 on the same
+    uniforms."""
+    nb = KB.num_blocks(wts.shape[1], W)
+    split = KB._blocksums(wts, W, nb, layout="split")
+    tally.same("blocksums", f"{case} split vs warp", split,
+               KB._blocksums(wts, W, nb, layout="warp"))
+    rows = torch.arange(wts.shape[0], dtype=torch.int32, device=wts.device)
+    tally.same("walk", f"{case} on K2 split sums vs K4", KB.walk(wts, split, u, rows, W),
+               KB.fused_draw(wts, u, W))
+
+
 def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
     """K1-K4 against their plain versions on the chunk's given weights."""
     d, w, u, u4 = inputs
@@ -496,6 +542,7 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
             _, run_p = bops.build_block_sums(wts, W=W, impl="torch")
             tally.running("blocksums", case, run, run_p, exact)
             check_walk(tally, case, wts, run, W, u, u4, exact)
+            check_blocksums_layouts(tally, case, wts, W, u)
     # K3 (W / 4 lanes per draw) at the other widths, and at K = 239 (ncols
     # % 4 != 0: the four-loads-a-lane instantiation)
     for W in (8, 64, 128):
@@ -503,11 +550,22 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
             wts = chunk_weights(*factors(kind, C, V, K, g, dev), d, w)
             check_walk(tally, f"W={W} {kind}", wts, bops.build_block_sums(wts, W=W)[1], W,
                        u, u4, kind == "int")
+            check_blocksums_layouts(tally, f"W={W} {kind}", wts, W, u)
     wt = chunk_weights(*factors("dirichlet", C, V, K, g, dev), d, w)[:, :K - 1].contiguous()
     if KB.walk_vector_loads(wt):
         raise AssertionError("K = 239 should take the four-loads-a-lane walk")
     check_walk(tally, f"K={K - 1} W=16 dirichlet", wt, bops.build_block_sums(wt, W=16)[1],
                16, u, u4, False)
+    check_blocksums_layouts(tally, f"K={K - 1} W=16 dirichlet", wt, 16, u)
+    # K2 at vocabulary widths, where its rule takes the split layout
+    for B2, K2, W2, dtype in ((DECODE_B, gemma2_9b.VOCAB_SIZE, 128, torch.float32),
+                              (8, 32000, 128, torch.float32), (DECODE_B, 4096, 64,
+                                                               torch.float32),
+                              (DECODE_B, gemma2_9b.VOCAB_SIZE, 128, torch.bfloat16),
+                              (DECODE_B, 32003, 128, torch.float32)):
+        wv = trunc_weights("softmax", B2, K2, g, dev, zero_rows=(0, B2 - 1)).to(dtype)
+        check_blocksums_layouts(tally, f"({B2},{K2}) W={W2} {str(dtype)[6:]}", wv, W2,
+                                torch.rand(B2, generator=g, device=dev))
     for W in (8, 4, 64, 128):
         check_table(tally, f"W={W} int", chunk_weights(*factors("int", C, V, K, g, dev), d, w),
                     W, True)
@@ -522,6 +580,7 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
                       bops.butterfly_sample(wb, u, W=16, route=route),
                       bops.butterfly_sample(wb, u, W=16, impl="torch"), wb.float(), u, True)
     check_walk(tally, "W=16 bf16", wb, bops.build_block_sums(wb, W=16)[1], 16, u, u4, True)
+    check_blocksums_layouts(tally, "W=16 bf16", wb, 16, u)
     # the sweep's last chunk: padded with all-zero rows
     th, ph = factors("dirichlet", corpus.docs.shape[0], V, K, g, dev)
     docs = torch.as_tensor(corpus.docs, device=dev)
@@ -537,6 +596,7 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
             raise AssertionError("zero-row chunk drew outside [0, K) or not K-1")
     check_walk(tally, "W=16 zero rows", wz, bops.build_block_sums(wz, W=16)[1], 16, u, u4,
                False)
+    check_blocksums_layouts(tally, "W=16 zero rows", wz, 16, u)
     check_table(tally, "W=16 zero rows", wz, 16, False)
     # a large K: the port's switch picks the route; the forced two-pass
     # route must agree with it
@@ -1465,35 +1525,91 @@ def phase_seeded_timing(dev, seed):
     return out
 
 
-# K4/K5 layout shapes: the sweep's chunk (K = 240, W = 16; B is the
+# K2 and K4/K5 layout shapes: the sweep's chunk (K = 240, W = 16; B is the
 # chunk's), the decode widths at W = default_w(K), and a grid of row widths
 # and batches around the rule's crossover (kernel.fused_layout)
 LAYOUT_SHAPES = [(27392, 240), (64, 4096), (64, 32000), (8, 256000), (64, 256000)] + [
     (B, K) for B in (64, 1024, 27392) for K in (512, 1024, 2048, 4096)]
+# K8 layout shapes at the lda_kernel sweep's W = 32: the chunk of 256
+# documents at K = 240 and at wider K around the layout rule (the warp
+# layout fits up to ~3,000 columns: K = 3,000 runs the two-pass route),
+# and every padded position of the paper corpus at once (the distributed
+# sweep's one launch)
+LDA_LAYOUT_KS = (240, 1024, 2048, 3000)
+
+
+def _timed(fn, main: bool) -> dict:
+    """CUDA-event ms of fn(); at the main paths' shapes also the
+    profiler's device ms and the host's microseconds per call."""
+    out = {"ms": cuda_ms(fn)}
+    if main:
+        out["device_ms"] = device_ms(fn)
+        out["host_us"] = host_us(fn)
+    return out
+
+
+def _lda_layout_timing(corpus, dev, g, C: int):
+    """K8 in each layout (and K6 + K7, the two-pass route) at the chunk
+    for LDA_LAYOUT_KS and at every padded position of the corpus (K =
+    240), W = 32, Dirichlet factors."""
+    W, V = 32, corpus.vocab_size
+    layouts = getattr(KL, "LAYOUTS", None)
+    M, N = corpus.docs.shape
+    out = []
+    for Kc, docs in [(k, corpus.docs[:C]) for k in LDA_LAYOUT_KS] + [(CONFIG.K, corpus.docs)]:
+        Cd = docs.shape[0]
+        th, ph = factors("dirichlet", Cd, V, Kc, g, dev)
+        d = (torch.arange(Cd * N, device=dev, dtype=torch.int32) // N).contiguous()
+        w = torch.as_tensor(docs, device=dev).reshape(-1).to(torch.int32).contiguous()
+        u = torch.rand(d.numel(), generator=g, device=dev)
+        nb = KL.num_blocks(Kc, W)
+        main = Kc == CONFIG.K
+        row = {"draws": d.numel(), "K": Kc, "W": W, "nb": nb,
+               "bound_ms": bounds("lda_fused_draw", th, ph, d, w, None, W, nb)[0]}
+        if layouts:
+            row["rule"] = KL.lda_fused_layout(nb, W)
+            calls = {lay: (lambda lay=lay: KL._lda_fused_draw(th, ph, d, w, u, W, layout=lay))
+                     for lay in layouts
+                     if (KL.group_fits if lay == "group" else KL.fused_fits)(nb, W)}
+        else:
+            calls = ({"default": lambda: KL.lda_fused_draw(th, ph, d, w, u, W)}
+                     if KL.fused_fits(nb, W) else {})
+        rows = torch.arange(d.numel(), dtype=torch.int32, device=dev)
+        calls["K6 + K7"] = lambda: KL.lda_walk(th, ph, KL.lda_blocksums(th, ph, d, w, W, nb),
+                                               u, rows, d, w, W)
+        for name, fn in calls.items():
+            row[name] = _timed(fn, main)
+        log("  K8 " + " ".join(f"{k}={v}" for k, v in row.items()))
+        out.append(row)
+        del th, ph, d, w, u, rows
+    return out
 
 
 def phase_layout_timing(corpus, dev, seed):
-    """CUDA-event times of K4 and K5 in each layout at LAYOUT_SHAPES, K3 at
-    the chunk (W = 16) with S = 1 and 4, and K2 at the chunk and at (64,
+    """CUDA-event times of K2, K4 and K5 in each layout at LAYOUT_SHAPES
+    (K2 beside its library call, ``view(B, nb, W).sum(-1).cumsum(1)``), K3
+    at the chunk (W = 16) with S = 1 and 4, K8 in each layout at
+    LDA_LAYOUT_KS and over every position of the corpus, and K11 at (64,
     256000) W = 128, each beside its bound (each input read once, each
     output written once); at the main paths' shapes also the device time
     from torch.profiler, which leaves out the host's time per call, and
-    that host time (where it exceeds the device time, the CUDA-event
-    time of back-to-back calls measures the host).  Uses
-    only entry points the kernels had before their layouts, so that
-    ``--timing-only --src`` times an older commit's kernels with the same
-    inputs (it reports its one layout as "default")."""
+    that host time (where it exceeds the device time, the CUDA-event time
+    of back-to-back calls measures the host).  Uses only entry points the
+    kernels had before their layouts, so that ``--timing-only --src``
+    times an older commit's kernels with the same inputs (it reports its
+    one layout as "default")."""
     g = torch.Generator(device=dev).manual_seed(seed + 20)
     s2, _ = _seed2(dev)
-    res = {"fused": [], "walk": {}, "blocksums": {}}
+    res = {"fused": [], "walk": {}}
     layouts = getattr(KB, "LAYOUTS", None)
+    k2_layouts = layouts if hasattr(KB, "_blocksums") else None
     C, K = 256, CONFIG.K
     docs_c = torch.as_tensor(corpus.docs[:C], device=dev)
     N = docs_c.shape[1]
     d = (torch.arange(C * N, device=dev, dtype=torch.int32) // N).contiguous()
     w = docs_c.reshape(-1).contiguous()
     chunk = chunk_weights(*factors("dirichlet", C, corpus.vocab_size, K, g, dev), d, w)
-    log(f"phase 2g: K4/K5 layouts, K3 by lane groups, K2 at vocabulary width "
+    log(f"phase 2g: K2 and K4/K5 layouts, K3 by lane groups, K8 layouts, K11 "
         f"({'layouts ' + str(layouts) if layouts else 'one layout'})")
     for i, (B, Kc) in enumerate(LAYOUT_SHAPES):
         main = i < 5  # the shapes of the main paths
@@ -1505,7 +1621,8 @@ def phase_layout_timing(corpus, dev, seed):
         u = torch.rand(B, generator=g, device=dev)
         nb = KB.num_blocks(Kc, W)
         row = {"B": B, "K": Kc, "W": W, "nb": nb,
-               "bound_ms": (B * Kc * 4 + B * 8) / HBM_BYTES_PER_S * 1e3}
+               "bound_ms": (B * Kc * 4 + B * 8) / HBM_BYTES_PER_S * 1e3,
+               "K2 bound_ms": given_bounds("blocksums", wts, W, nb, None, None)[0]}
         calls = ({lay: (lambda lay=lay: KB._fused_draw(wts, u, W, layout=lay),
                         lambda lay=lay: KB._fused_draw_rng(wts, s2, 0, W, layout=lay))
                   for lay in layouts} if layouts else
@@ -1520,9 +1637,20 @@ def phase_layout_timing(corpus, dev, seed):
                 row[f"K4 {lay} device"] = device_ms(k4)
                 row[f"K5 {lay} device"] = device_ms(k5)
                 row[f"K5 {lay} host_us"] = host_us(k5)
+        k2 = ({lay: (lambda lay=lay: KB._blocksums(wts, W, nb, layout=lay))
+               for lay in k2_layouts} if k2_layouts else
+              {"default": lambda: KB.blocksums(wts, W, nb)})
+        if k2_layouts:
+            row["K2 rule"] = KB.blocksums_layout(B, nb, W)
+        if Kc % W == 0:  # the library yardstick needs whole W-blocks
+            k2["library"] = lambda: torch.cumsum(wts.view(B, nb, W).sum(-1), dim=1)
+        for lay, fn in k2.items():  # device times at every shape: the crossover
+            row[f"K2 {lay}"] = cuda_ms(fn)
+            row[f"K2 {lay} device"] = device_ms(fn)
         log("  " + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else f"{k}={v}"
                             for k, v in row.items()))
         res["fused"].append(row)
+        del wts
     W, nb, B = 16, KB.num_blocks(K, 16), chunk.shape[0]
     run = KB.blocksums(chunk, W, nb)
     for S in (1, 4):
@@ -1536,16 +1664,14 @@ def phase_layout_timing(corpus, dev, seed):
                                  "draws": S * B}
         log(f"  K3 chunk ({B},{K}) W={W} S={S}: {ms:.4f} ms (device {_ms(dms)}, host "
             f"{hus:.1f} us per call), bound {bms:.5f} ms")
-    wv = torch._standard_gamma(torch.full((DECODE_B, gemma2_9b.VOCAB_SIZE), 0.3, device=dev),
-                               generator=g)
-    for name, wts, Wb in (("chunk W=16", chunk, 16), (f"({DECODE_B},{wv.shape[1]}) W=128",
-                                                      wv, 128)):
-        nbb = KB.num_blocks(wts.shape[1], Wb)
-        ms = cuda_ms(lambda: KB.blocksums(wts, Wb, nbb))
-        dms = device_ms(lambda: KB.blocksums(wts, Wb, nbb))
-        bms, _ = given_bounds("blocksums", wts, Wb, nbb, None, None)
-        res["blocksums"][name] = {"ms": ms, "device_ms": dms, "bound_ms": bms}
-        log(f"  K2 {name}: {ms:.4f} ms (device {_ms(dms)}), bound {bms:.5f} ms")
+    res["lda_fused"] = _lda_layout_timing(corpus, dev, g, C)
+    # K11 (untouched by the K2 and K8 layouts) at the decode's shape
+    Bv, Kv, Wv = DECODE_B, gemma2_9b.VOCAB_SIZE, 128
+    wv = trunc_weights("softmax", Bv, Kv, g, dev)
+    tau = tr.thresholds_from_params(wv, trunc_params("uniform", Bv, g, dev)).contiguous()
+    nbv = KB.num_blocks(Kv, Wv)
+    res["masked_blocksums"] = _timed(lambda: KB.masked_blocksums(wv, tau, Wv, nbv), True)
+    log(f"  K11 ({Bv},{Kv}) W={Wv}: {res['masked_blocksums']}")
     return res
 
 

@@ -1,8 +1,8 @@
 // Categorical draws on given weights for Hopper (sm_90a): block sums,
 // block selection, a Fenwick table of the selected W-block and the
 // add-only descent (paper Alg. 9/10 in the Fenwick form): one warp per
-// row (K2, K4/K5's warp layout), several blocks per row (K4/K5's split
-// layout) or a group of W / 4 lanes per draw (K3).
+// row (K2, K4/K5's warp layout), several blocks per row (K2's and K4/K5's
+// split layouts) or a group of W / 4 lanes per draw (K3).
 //
 // Replaces the TPU kernels of src/repro/kernels/butterfly_sample/kernel.py:
 //   blocksums       <- _blocksum_kernel       (blocksums_pallas)       K2
@@ -16,8 +16,24 @@
 // * W virtually (columns at or past the row's width read as zero).
 //
 // K2 writes the running block sums directly (a warp scan after the block
-// sums, as K6 does), one warp per row, so the caller's cumsum of the
-// reference (_build_sums_impl) is gone.
+// sums, as K6 does), so the caller's cumsum of the reference
+// (_build_sums_impl) is gone.  It has two layouts, picked by the wrapper
+// from (B, nb, W):
+// - warp: one warp per row, for narrow rows and many of them (the sweep's
+//   chunk).
+// - split: a wide row (a vocabulary) read by one warp is latency-bound
+//   (5.4 ms for 64 rows of 256,000), so the row is split over a (B, P)
+//   grid of 256-thread blocks with K4/K5's and K11's P and runs of tiles
+//   (draw_tile.cuh's split_row_running4), the row's last block scanning in
+//   place in the output with all its warps (block_running_from: one warp
+//   scanning 2,000 sums alone is the launch's tail, most at small B).  A lane
+//   reads four columns (one 16-byte load, 8 for bf16, where rows are
+//   aligned; a four-load instantiation otherwise) and a warp has two tiles'
+//   loads in flight (tile_pair_block_sums4), so more bytes are in flight
+//   per SM than with one column a lane.  Its sums are tile_block_sums' bit
+//   for bit and its scan makes warp_running's adds, so the layouts agree
+//   bit for bit.  Each block is held to kSumBlocksPerSM blocks per SM's
+//   registers.
 //
 // K3 computes its block jb itself from the running row, so the
 // reference's XLA block search before pass B is not needed; rows[s] lets
@@ -74,13 +90,16 @@ constexpr int kWarps = 4;  // warps (samples in flight) per block
 using draw_tile::group_walk;
 using draw_tile::kSumThreads;
 using draw_tile::kTile;
+using draw_tile::rows_aligned;
 using draw_tile::split_row_running;
+using draw_tile::split_row_running4;
 using draw_tile::split_sum_floats;
 using draw_tile::split_tiles_per_block;
 using draw_tile::warp_block_sums;
 using draw_tile::warp_running;
 using draw_tile::warp_walk;
 using draw_tile::WeightRow;
+using draw_tile::WeightRow4;
 using threefry::ArrayU;
 using threefry::PhiloxU;
 using threefry::ThreefryU;
@@ -97,6 +116,22 @@ __global__ void __launch_bounds__(kWarps * 32)
   float* out = running + static_cast<size_t>(s) * nb;
   warp_block_sums<false>(row, ncols, nb, W, nullptr, out, lane);
   warp_running(out, nb, lane);
+}
+
+// K2, split layout: block (s, p) sums the W-blocks of its run of row s's
+// tiles; the row's last block scans the row in place in running.  VEC: row
+// starts 16-byte aligned (8-byte for bf16), one load for a lane's four
+// columns.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kSumThreads, draw_tile::kSumBlocksPerSM)
+    blocksums_split_kernel(const T* __restrict__ w, float* __restrict__ running,
+                           unsigned* __restrict__ arrived, int ncols, int nb, int W,
+                           int tpb) {
+  extern __shared__ float sbs[];
+  const int s = blockIdx.x;
+  split_row_running4(WeightRow4<T, VEC>{w + static_cast<size_t>(s) * ncols, ncols},
+                     running + static_cast<size_t>(s) * nb, arrived + s, nb, W, tpb,
+                     sbs);
 }
 
 // K3: draw s by the group of W / 4 lanes threadIdx.x / (W / 4) of its block.
@@ -172,6 +207,22 @@ __global__ void threefry_uniforms_kernel(ThreefryU src, float* __restrict__ out,
 
 inline unsigned grid_for(int n) {
   return static_cast<unsigned>((n + kWarps - 1) / kWarps);
+}
+
+template <typename T>
+int launch_blocksums_split(const T* w, float* running, unsigned* arrived, int B,
+                           int ncols, int nb, int W, cudaStream_t st) {
+  const int tpb = split_tiles_per_block(B, nb, W);
+  const int nt = (nb * W + kTile - 1) / kTile;
+  const size_t smem = sizeof(float) * split_sum_floats(nb, W, tpb);
+  const dim3 grid(B, (nt + tpb - 1) / tpb);
+  if (rows_aligned(w, ncols))
+    blocksums_split_kernel<T, true><<<grid, kSumThreads, smem, st>>>(
+        w, running, arrived, ncols, nb, W, tpb);
+  else
+    blocksums_split_kernel<T, false><<<grid, kSumThreads, smem, st>>>(
+        w, running, arrived, ncols, nb, W, tpb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, typename USrc>
@@ -250,11 +301,22 @@ int launch_walk(const void* w, const float* running, const float* u,
 // returns cudaGetLastError() (0 on success).
 extern "C" {
 
-int blocksums(const void* w, void* running, int B, int ncols, int nb, int W,
-              int dtype, void* stream) {
+// split: 0 for the warp layout (arrived unused), 1 for the split layout:
+// arrived B uint32 zeros (each row's block count; the kernel leaves them
+// zero again).
+int blocksums(const void* w, void* running, void* arrived, int B, int ncols,
+              int nb, int W, int split, int dtype, void* stream) {
   if (B <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   float* r = static_cast<float*>(running);
+  if (split) {
+    unsigned* a = static_cast<unsigned*>(arrived);
+    if (dtype == 1)
+      return launch_blocksums_split(static_cast<const __nv_bfloat16*>(w), r, a, B,
+                                    ncols, nb, W, st);
+    return launch_blocksums_split(static_cast<const float*>(w), r, a, B, ncols, nb, W,
+                                  st);
+  }
   if (dtype == 1)
     blocksums_kernel<__nv_bfloat16><<<grid_for(B), kWarps * 32, 0, st>>>(
         static_cast<const __nv_bfloat16*>(w), r, B, ncols, nb, W);

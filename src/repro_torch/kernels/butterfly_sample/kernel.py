@@ -51,13 +51,16 @@ adds one to its count in :data:`LAUNCHES`.  Rows may be narrower than
 Kp = nb * W: columns at or past a row's width count as zero (the padding
 of K to a multiple of W), so nobody copies the weights to pad them.
 
-K4 and K5 run in one of two layouts (:data:`LAYOUTS`), which give the
-same indices: ``"warp"``, one warp per row, for narrow rows and many of
-them (the sweep's chunk), and ``"split"``, a row split over several
-thread blocks as K11 splits it, for wide rows (a vocabulary).
-:func:`fused_layout` picks one from the shapes before the launch; the
-private ``_fused_draw`` and ``_fused_draw_rng`` take ``layout=`` to force
-one, for holding the two against each other on the card.  K3 runs one
+K2, K4 and K5 run in one of two layouts (:data:`LAYOUTS`), which give
+the same sums and indices: ``"warp"``, one warp per row, for narrow rows
+and many of them (the sweep's chunk), and ``"split"``, a row split over
+several thread blocks as K11 splits it, for wide rows (a vocabulary); K2's
+split reads four columns a lane and two tiles per warp at once.
+:func:`fused_layout` (K4/K5) and :func:`blocksums_layout` (K2) pick one
+from the shapes before the launch; the
+private ``_blocksums``, ``_fused_draw`` and ``_fused_draw_rng`` take
+``layout=`` to force one, for holding the two against each other on the
+card.  K3 runs one
 draw per group of W / 4 lanes and reads each lane's four weights with one
 16-byte load where the rows allow it (:func:`walk_vector_loads`), four
 loads otherwise.
@@ -98,6 +101,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # and 27,392 and lost below (chip_smoke.py phase 2g; PERF.md).
 LAYOUTS = ("warp", "split")
 _SPLIT_COLS = 2048
+# K2's split layout (four columns a lane, two tiles in flight per warp, a
+# block-wide scan) won on the card's own time from 512 columns at B = 64
+# and 1,024, and from 2,048 (a tie at 1,024) at B = 27,392, the largest B
+# timed (chip_smoke.py phase 2g; PERF.md): _SPLIT_COLS as K4/K5 for any B,
+# and from _K2_SPLIT_COLS for up to _K2_FEW_ROWS rows.
+_K2_SPLIT_COLS = 512
+_K2_FEW_ROWS = 1024
 
 # The fused truncated draw (K9) runs one block of _TRUNC_THREADS threads per
 # row and stages the row (as fp32) in dynamic shared memory while
@@ -199,9 +209,19 @@ def fused_layout(B: int, nb: int, W: int) -> str:
     return "split" if nb * W >= _SPLIT_COLS else "warp"
 
 
-def _resolve_layout(layout, B: int, nb: int, W: int) -> str:
+def blocksums_layout(B: int, nb: int, W: int) -> str:
+    """The layout of K2 for B rows of nb W-blocks: ``"split"`` where
+    :func:`fused_layout` takes it, and also from ``_K2_SPLIT_COLS``
+    columns for up to ``_K2_FEW_ROWS`` rows; else ``"warp"`` (the sweep's
+    chunk)."""
+    if fused_layout(B, nb, W) == "split":
+        return "split"
+    return "split" if B <= _K2_FEW_ROWS and nb * W >= _K2_SPLIT_COLS else "warp"
+
+
+def _resolve_layout(layout, B: int, nb: int, W: int, rule=None) -> str:
     if layout is None:
-        return fused_layout(B, nb, W)
+        return (rule or fused_layout)(B, nb, W)
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS} or None, got {layout!r}")
     return layout
@@ -233,7 +253,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint
 _SIGS = {
-    "blocksums": [_P] * 2 + [_I] * 5 + [_P],
+    "blocksums": [_P] * 3 + [_I] * 6 + [_P],
     "walk": [_P] * 5 + [_I] * 6 + [_P],
     "fused_draw": [_P] * 5 + [_I] * 6 + [_P],
     "fused_draw_rng": [_P] * 4 + [_I] * 5 + [_U] * 3 + [_I] * 2 + [_P],
@@ -308,11 +328,22 @@ def _seed_args(seed2, row_offset):
 def blocksums(w: torch.Tensor, W: int, nb: int) -> torch.Tensor:
     """(B, nb) float32 running W-block sums of (B, K) weights (K2).  The
     kernel writes the running sums itself: no cumsum follows."""
-    ncols = _check_weights(w, nb, W)
+    return _blocksums(w, W, nb)
+
+
+def _blocksums(w: torch.Tensor, W: int, nb: int, layout=None) -> torch.Tensor:
+    """:func:`blocksums` in the layout ``layout`` (``"warp"`` or
+    ``"split"``); None picks it with :func:`blocksums_layout`.  Both give
+    the same sums bit for bit; forcing is for timing them against each
+    other."""
     B = w.shape[0]
+    layout = _resolve_layout(layout, B, nb, W, blocksums_layout)
+    ncols = _check_weights(w, nb, W)
+    split = layout == "split"
     out = torch.empty((B, nb), dtype=torch.float32, device=w.device)
-    _launch("blocksums", w.data_ptr(), out.data_ptr(), B, ncols, nb, W,
-            _DTYPES[w.dtype])
+    arrived = _arrival_counters(B, w.device) if split else None
+    _launch("blocksums", w.data_ptr(), out.data_ptr(), _ptr(arrived), B, ncols, nb, W,
+            int(split), _DTYPES[w.dtype])
     return out
 
 
@@ -573,7 +604,7 @@ def fused_trunc_draw_torch(w, u, params, W: int, iters: int = 32) -> torch.Tenso
 # ---------------------------------------------------------------------------
 
 
-# The per-row arrival counters of K11 and of K4/K5's split layout, one
+# The per-row arrival counters of K11 and of K2's and K4/K5's split layouts, one
 # zeroed buffer per (device, stream): each kernel leaves them zero again,
 # and launches on one stream never overlap, so the kernels can share the
 # buffer and no call pays for a memset.

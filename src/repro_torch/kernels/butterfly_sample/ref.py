@@ -16,9 +16,10 @@
   order: an xor tree per 32-column piece, pieces added in order, then
   ``warp_running``'s 32-wide scan chunks with a carry.
 * :func:`split_running_order_torch` — the running sums of a row split
-  over P thread blocks (K11, K4/K5's split layout) as the blocks form
-  them: each block's run of 128-column tiles, then the last block's scan
-  in chunks.
+  over P thread blocks (K11, K4/K5's split layout; K2's, whose lanes hold
+  four columns each) as the blocks form them: each block's run of
+  128-column tiles, then the last block's scan in chunks;
+  :func:`split_blocks_per_row` gives the card's P.
 * :func:`group_walk_order_torch` — K3's walk as a group of W / 4 lanes
   makes it: each lane four weights, the Fenwick levels in the lane and
   across lanes, the descent reading each level's lane.
@@ -34,10 +35,11 @@ import torch
 from repro_torch.core.reference import draw_prefix as butterfly_sample_ref
 from repro_torch.kernels.lda_draw import ref as _lref
 
-__all__ = ["boundary_ties", "butterfly_sample_ref", "cuda_sum_depth",
-           "group_walk_order_torch", "masked_blocksums_warp_order_torch",
-           "radix_topk_tau_torch", "split_running_order_torch", "trunc_boundary_ties",
-           "trunc_tau64"]
+__all__ = ["block_sums4_order_torch", "boundary_ties", "butterfly_sample_ref",
+           "cuda_sum_depth", "group_walk_order_torch",
+           "masked_blocksums_warp_order_torch", "radix_topk_tau_torch",
+           "split_blocks_per_row", "split_running_order_torch", "trunc_boundary_ties",
+           "trunc_tau64", "warp_running_order_torch"]
 
 
 def boundary_ties(a, b, weights, u) -> Dict[str, int]:
@@ -238,6 +240,15 @@ def masked_blocksums_warp_order_torch(w, tau, W: int, nb: int) -> torch.Tensor:
         bs = pieces[..., 0]
         for i in range(1, W // 32):
             bs = bs + pieces[..., i]
+    return warp_running_order_torch(bs)
+
+
+def warp_running_order_torch(bs: torch.Tensor) -> torch.Tensor:
+    """(B, nb) running sums of (B, nb) block sums in ``warp_running``'s
+    order: a Hillis-Steele scan of each chunk of 32 blocks (element j adds
+    element j - off of the level before, off = 1 .. 16), plus the carry of
+    the chunks before it."""
+    B, nb = bs.shape
     n32 = -(-nb // 32) * 32
     v = torch.nn.functional.pad(bs, (0, n32 - nb)).view(B, n32 // 32, 32)
     off = 1
@@ -245,11 +256,28 @@ def masked_blocksums_warp_order_torch(w, tau, W: int, nb: int) -> torch.Tensor:
         v = torch.cat([v[..., :off], v[..., off:] + v[..., :-off]], dim=-1)
         off *= 2
     out = torch.empty_like(v)
-    carry = torch.zeros((B,), dtype=torch.float32, device=wf.device)
+    carry = torch.zeros((B,), dtype=torch.float32, device=bs.device)
     for c in range(v.shape[1]):
         out[:, c] = v[:, c] + carry[:, None]
         carry = out[:, c, 31]
     return out.view(B, n32)[:, :nb].contiguous()
+
+
+def block_sums4_order_torch(x: torch.Tensor, W: int) -> torch.Tensor:
+    """(..., n * W) columns -> (..., n) W-block sums as lanes that hold four
+    columns each form them (``draw_tile.cuh``'s ``block_sum4``: K2's split,
+    K8's group layout): lane q adds columns 4q..4q+3 as (e0 + e1) + (e2 +
+    e3), an xor tree over the P = min(W / 4, 8) lanes of each 32-column
+    piece finishes the piece, and a W-block adds its pieces in order."""
+    G = W // 4
+    P = min(G, 8)
+    e = x.reshape(*x.shape[:-1], -1, G, 4)
+    lanes = (e[..., 0] + e[..., 1]) + (e[..., 2] + e[..., 3])
+    pieces = _xor_tree(lanes.reshape(*lanes.shape[:-1], G // P, P))
+    bs = pieces[..., 0]
+    for i in range(1, G // P):
+        bs = bs + pieces[..., i]
+    return bs
 
 
 TILE = 128  # columns a warp sums at once in a split row (draw_tile.cuh kTile)
@@ -269,17 +297,39 @@ def _tile_block_sums(wt: torch.Tensor, W: int) -> torch.Tensor:
     return ((p[..., 0] + p[..., 1]) + p[..., 2]) + p[..., 3]
 
 
-def split_running_order_torch(w, W: int, nb: int, P: int, scan_chunk: int = 4096
-                              ) -> torch.Tensor:
+def split_blocks_per_row(B: int, nb: int, W: int, sms: int = 132,
+                         blocks_per_sm: int = 8, min_blocks_per_run: int = 32,
+                         scan_chunk: int = 4096) -> int:
+    """P, the thread blocks per row of a split (K2, K4/K5, K11), as
+    ``draw_tile.cuh``'s ``split_tiles_per_block`` sizes it on a card of
+    ``sms`` SMs (the H100's 132): enough blocks to fill the card, each
+    with at least ``min_blocks_per_run`` W-blocks and at most about
+    ``scan_chunk``; then P = ceil(nt / tpb) over nt 128-column tiles."""
+    nt = -(-nb * W // TILE)
+    P = -(-blocks_per_sm * sms // B)
+    P = min(P, nb // min_blocks_per_run)
+    P = max(P, -(-nb // scan_chunk), 1)
+    tpb = -(-nt // P)
+    return -(-nt // tpb)
+
+
+def split_running_order_torch(w, W: int, nb: int, P: int, scan_chunk: int = 4096,
+                              cols_per_lane: int = 1) -> torch.Tensor:
     """(B, nb) float32 running W-block sums of (B, K) weights as a row
     split over P thread blocks forms them (``draw_tile.cuh``'s
-    ``split_row_running``): block p sums the W-blocks of its run of
-    ``tpb = ceil(nt / P)`` 128-column tiles, columns at or past K zero;
-    the last block scans the row ``scan_chunk`` sums at a time (a
-    multiple of 32), each chunk a 32-wide Hillis-Steele scan per group of
-    32 with the carry of everything before it.  Equal to
-    :func:`masked_blocksums_warp_order_torch` with nothing masked for
-    every P, which is what lets the split layout keep one warp's order."""
+    ``split_row_running``, or with ``cols_per_lane=4`` K2's
+    ``split_row_running4``): block p sums the W-blocks of its run of
+    ``tpb = ceil(nt / P)`` 128-column tiles, columns at or past K zero,
+    with one column a lane (``tile_block_sums``) or four
+    (:func:`block_sums4_order_torch`); the last block scans the row
+    ``scan_chunk`` sums at a time (a multiple of 32), each chunk a 32-wide
+    Hillis-Steele scan per group of 32 with the carry of everything before
+    it.  Equal to :func:`masked_blocksums_warp_order_torch` with nothing
+    masked for every P and both lane widths, which is what lets the split
+    layouts keep one warp's order."""
+    if cols_per_lane not in (1, 4):
+        raise ValueError(f"cols_per_lane must be 1 or 4, got {cols_per_lane}")
+    tile_sums = _tile_block_sums if cols_per_lane == 1 else block_sums4_order_torch
     wf = torch.as_tensor(w).to(torch.float32)
     B, K = wf.shape
     nt = -(-nb * W // TILE)
@@ -289,7 +339,7 @@ def split_running_order_torch(w, W: int, nb: int, P: int, scan_chunk: int = 4096
     per = TILE // W
     for t0 in range(0, nt, tpb):  # block p = t0 // tpb: its run of tiles
         t1 = min(t0 + tpb, nt)
-        bs[:, t0 * per:t1 * per] = _tile_block_sums(wp[:, t0 * TILE:t1 * TILE], W)
+        bs[:, t0 * per:t1 * per] = tile_sums(wp[:, t0 * TILE:t1 * TILE], W)
     bs = bs[:, :nb]
     out = torch.empty_like(bs)
     carry = torch.zeros((B,), dtype=torch.float32)

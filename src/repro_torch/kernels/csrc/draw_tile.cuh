@@ -455,4 +455,322 @@ __device__ __forceinline__ int group_walk(const T* __restrict__ w,
   return jb * W + R;
 }
 
+// ---------------------------------------------------------------------------
+// Four columns a lane: K2's split layout and K8's group layout
+// ---------------------------------------------------------------------------
+//
+// The helpers below are K2's and K8's alone; the functions above, which
+// K3, K4/K5, K6/K7 and K9-K11 run, are not routed through them.  A lane
+// holds four consecutive columns and adds them as (e0 + e1) + (e2 + e3):
+// the first two levels of a 32-lane xor tree over one column a lane, which
+// is the balanced pairwise tree in index order.  xor shuffles over the
+// lanes of each 32-column piece make its other three levels, and a W-block
+// of several pieces adds them in order.  So every block sum is
+// warp_block_sums_strided's (and tile_block_sums') bit for bit.
+
+// True when every row of a (rows, ncols) array at w starts 16-byte aligned
+// (8-byte for bf16): ncols % 4 == 0 and an aligned base, so that load4 may
+// read a lane's four columns at once.  The launchers pick a loader's VEC
+// instantiation with it.
+template <typename T>
+inline bool rows_aligned(const T* w, int ncols) {
+  return ncols % 4 == 0 && reinterpret_cast<size_t>(w) % (4 * sizeof(T)) == 0;
+}
+
+// 4-wide row loaders: load(k0, e) sets e[0..3] to the weights of columns
+// k0..k0+3 (k0 % 4 == 0), zero past ncols.  VEC: one load4 per operand,
+// which needs ncols % 4 == 0 and aligned row starts (a lane's four columns
+// are then all in the row or all past it); else four loads, each checked
+// against ncols.
+template <typename T, bool VEC>
+struct WeightRow4 {  // w[k]: one row of given weights (K2)
+  const T* __restrict__ w;
+  int ncols;
+  __device__ __forceinline__ void operator()(int k0, float (&e)[4]) const {
+    if (VEC) {
+      if (k0 < ncols) {
+        load4<true>(w + k0, e);
+      } else {
+        e[0] = e[1] = e[2] = e[3] = 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) e[i] = k0 + i < ncols ? to_f32(w[k0 + i]) : 0.f;
+    }
+  }
+};
+
+template <typename T, bool VEC>
+struct ProductRow4 {  // w[k] = a[k] * b[k], as ProductRow forms it (K8)
+  const T* __restrict__ a;
+  const T* __restrict__ b;
+  int ncols;
+  __device__ __forceinline__ void operator()(int k0, float (&e)[4]) const {
+    if (VEC) {
+      if (k0 < ncols) {
+        float x[4], y[4];
+        load4<true>(a + k0, x);
+        load4<true>(b + k0, y);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) e[i] = __fmul_rn(x[i], y[i]);
+      } else {
+        e[0] = e[1] = e[2] = e[3] = 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        e[i] = k0 + i < ncols ? __fmul_rn(to_f32(a[k0 + i]), to_f32(b[k0 + i])) : 0.f;
+    }
+  }
+};
+
+// The sum of one W-block by its G = W / 4 lanes (aligned in the warp, lane
+// q of the block holding e = columns 4q..4q+3; every lane of the warp calls
+// this): in-lane pairs, xor shuffles over each 32-column piece's
+// P = min(G, 8) lanes, then the pieces in order.  The block's lane 0 gets
+// the sum.
+__device__ __forceinline__ float block_sum4(const float (&e)[4], int W, int lane) {
+  const int G = W / 4;
+  const int P = G < 8 ? G : 8;
+  float v = __fadd_rn(__fadd_rn(e[0], e[1]), __fadd_rn(e[2], e[3]));
+  for (int off = 1; off < P; off <<= 1)
+    v = __fadd_rn(v, __shfl_xor_sync(kFullMask, v, off));
+  if (G > P) {  // W > 32: the block's pieces in order
+    const int base = lane & ~(G - 1);
+    float t = __shfl_sync(kFullMask, v, base);
+    for (int i = 1; i < G / P; ++i) t = __fadd_rn(t, __shfl_sync(kFullMask, v, base + i * P));
+    v = t;
+  }
+  return v;
+}
+
+// K2's split: the W-block sums of tiles t and t + kSumWarps (a tile at or
+// past t1 is skipped) from four columns a lane, both tiles' loads issued
+// before either is summed; the sums of tile_block_sums bit for bit.  Block
+// c goes to bs[c - c0].
+template <typename Load4>
+__device__ __forceinline__ void tile_pair_block_sums4(const Load4& row, int t, int t1,
+                                                      int Kp, int W, float* bs, int c0,
+                                                      int lane) {
+  float e[2][4];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int tj = t + j * kSumWarps;
+    if (tj < t1) {
+      row(kTile * tj + 4 * lane, e[j]);
+    } else {
+      e[j][0] = e[j][1] = e[j][2] = e[j][3] = 0.f;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int tj = t + j * kSumWarps;
+    const float v = block_sum4(e[j], W, lane);
+    const int k = kTile * tj + 4 * lane;
+    if (tj < t1 && (lane & (W / 4 - 1)) == 0 && k < Kp) bs[k / W - c0] = v;
+  }
+}
+
+// warp_running_from over bs[0..n) (n <= kScanChunk) by every warp of a
+// kSumThreads block, with the carry of the sums before it; returns the
+// carry after.  Each warp scans chunks of 32 with warp_running's
+// Hillis-Steele adds and leaves the chunk's total in cr[chunk + 1]; one
+// thread chains the totals (the carry after chunk k is its total plus the
+// carry before it, as warp_running_from's lane 31 forms it); then every
+// sum adds the carry before its chunk.  So every sum is warp_running_from's
+// bit for bit.  cr: n / 32 + 1 floats of shared memory.  Every thread of
+// the block calls this; it ends with a __syncthreads.
+__device__ __forceinline__ float block_running_from(float* bs, int n, float carry,
+                                                    float* cr) {
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  for (int g = (tid >> 5) * 32; g < n; g += kSumThreads) {
+    float v = g + lane < n ? bs[g + lane] : 0.f;
+    for (int off = 1; off < 32; off <<= 1) {
+      const float x = __shfl_up_sync(kFullMask, v, off);
+      if (lane >= off) v = __fadd_rn(v, x);
+    }
+    if (g + lane < n) bs[g + lane] = v;
+    if (lane == 31) cr[g / 32 + 1] = v;
+  }
+  __syncthreads();
+  const int nc = (n + 31) / 32;
+  if (tid == 0) {
+    float c = carry;
+    cr[0] = c;
+    for (int k = 1; k <= nc; ++k) {
+      c = __fadd_rn(cr[k], c);
+      cr[k] = c;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < n; i += kSumThreads) bs[i] = __fadd_rn(bs[i], cr[i / 32]);
+  const float after = cr[nc];
+  __syncthreads();
+  return after;
+}
+
+// split_row_running with tile_pair_block_sums4 in place of tile_block_sums
+// and block_running_from in place of warp 0's warp_running_from (K2's
+// split layout): the same runs of tiles per block, the same arrival
+// counter, the same adds in the last block's scan, so the same running
+// sums bit for bit.  row is a 4-wide loader.
+template <typename Load4>
+__device__ __forceinline__ void split_row_running4(const Load4& row, float* out,
+                                                   unsigned* arrived, int nb, int W,
+                                                   int tpb, float* sbs) {
+  __shared__ bool last;
+  __shared__ float cr[kScanChunk / 32 + 1];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int Kp = nb * W;
+  const int nt = (Kp + kTile - 1) / kTile;
+  const int t0 = blockIdx.y * tpb;
+  const int t1 = t0 + tpb < nt ? t0 + tpb : nt;
+  const int c0 = t0 * (kTile / W);
+  const int c1 = t1 * (kTile / W) < nb ? t1 * (kTile / W) : nb;
+  for (int ti = t0 + warp; ti < t1; ti += 2 * kSumWarps)
+    tile_pair_block_sums4(row, ti, t1, Kp, W, sbs, c0, lane);
+  __syncthreads();
+  for (int i = tid; i < c1 - c0; i += kSumThreads) out[c0 + i] = sbs[i];
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(arrived, 1u) == gridDim.y - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (tid == 0) *arrived = 0u;  // ready for the next launch
+  float carry = 0.f;
+  for (int c = 0; c < nb; c += kScanChunk) {
+    const int n = nb - c < kScanChunk ? nb - c : kScanChunk;
+    for (int i = tid; i < n; i += kSumThreads) sbs[i] = __ldcg(out + c + i);
+    __syncthreads();
+    carry = block_running_from(sbs, n, carry, cr);
+    for (int i = tid; i < n; i += kSumThreads) out[c + i] = sbs[i];
+    __syncthreads();
+  }
+}
+
+// K8's group layout: the nb W-block sums of one row by a group of G = W / 4
+// lanes (aligned in its warp; every lane of the warp calls this with the
+// same nb), lane q holding columns 4q..4q+3 of each block; the loads of
+// kGroupBatch blocks are issued before the first of them is summed.  The
+// group's lane 0 writes block c's sum to bs[c] (this group's shared
+// memory).
+constexpr int kGroupBatch = 8;
+
+template <int W, typename Load4>
+__device__ __forceinline__ void group_block_sums(const Load4& row, int nb, float* bs,
+                                                 int q) {
+  const int lane = threadIdx.x & 31;
+  for (int b0 = 0; b0 < nb; b0 += kGroupBatch) {
+    float e[kGroupBatch][4];
+#pragma unroll
+    for (int i = 0; i < kGroupBatch; ++i) {
+      if (b0 + i < nb) {
+        row((b0 + i) * W + 4 * q, e[i]);
+      } else {
+        e[i][0] = e[i][1] = e[i][2] = e[i][3] = 0.f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGroupBatch; ++i) {
+      const float v = block_sum4(e[i], W, lane);
+      if (q == 0 && b0 + i < nb) bs[b0 + i] = v;
+    }
+  }
+  __syncwarp();
+}
+
+// warp_running over bs[0..nb) (this group's shared memory) by its G lanes:
+// each chunk of 32 takes the Hillis-Steele levels off = 1 .. 16, element j
+// of the chunk adding element j - off of the level before (j >= off), lane
+// q doing elements q, q + G, ...; then the carry of the chunks before.
+// These are warp_running's adds bit for bit.
+template <int G>
+__device__ __forceinline__ void group_running(float* bs, int nb, int q) {
+  constexpr int R = 32 / G;  // chunk elements per lane
+  float carry = 0.f;
+  for (int base = 0; base < nb; base += 32) {
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      float v[R];
+#pragma unroll
+      for (int s = 0; s < R; ++s) {
+        const int j = s * G + q;
+        const int c = base + j;
+        v[s] = c < nb ? (j >= off ? __fadd_rn(bs[c], bs[c - off]) : bs[c]) : 0.f;
+      }
+      __syncwarp();
+#pragma unroll
+      for (int s = 0; s < R; ++s)
+        if (base + s * G + q < nb) bs[base + s * G + q] = v[s];
+      __syncwarp();
+    }
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      const int c = base + s * G + q;
+      if (c < nb) bs[c] = __fadd_rn(bs[c], carry);
+    }
+    __syncwarp();
+    if (base + 32 < nb) carry = bs[base + 31];
+  }
+}
+
+// group_walk with a 4-wide loader (K8: the products of block jb, formed
+// again from the factors): the same count, Fenwick up-sweep and descent,
+// so the index equals warp_walk's bit for bit.  run may be shared memory.
+template <int W, typename Load4>
+__device__ __forceinline__ int group_walk(const Load4& row,
+                                          const float* __restrict__ run, int nb,
+                                          float u, int q) {
+  constexpr int G = W / 4;
+  static_assert(G >= 2 && G <= 32 && (G & (G - 1)) == 0, "W in [8, 128]");
+  const float stop = __fmul_rn(run[nb - 1], u);
+  unsigned cnt = 0;
+#pragma unroll 4
+  for (int c = q; c < nb; c += G) cnt += run[c] <= stop ? 1u : 0u;
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1)
+    cnt += __shfl_xor_sync(kFullMask, cnt, off, G);
+  const int jb = static_cast<int>(cnt) < nb - 1 ? static_cast<int>(cnt) : nb - 1;
+  const float lo = jb > 0 ? run[jb - 1] : 0.f;
+  float e[4];
+  row(jb * W + 4 * q, e);
+  // Fenwick up-sweep: bit = 1 and 2 inside the lane, then bit = 4 b
+  e[1] = __fadd_rn(e[1], e[0]);
+  e[3] = __fadd_rn(e[3], e[2]);
+  e[3] = __fadd_rn(e[3], e[1]);
+#pragma unroll
+  for (int b = 1; b < G; b <<= 1) {
+    const float x = __shfl_up_sync(kFullMask, e[3], b, G);
+    if (((q + 1) & (2 * b - 1)) == 0) e[3] = __fadd_rn(e[3], x);
+  }
+  // descent from lo
+  float acc = lo;
+  int R = 0;
+#pragma unroll
+  for (int bit = W >> 1; bit >= 4; bit >>= 1) {
+    const float y = __shfl_sync(kFullMask, e[3], (R + bit - 1) >> 2, G);
+    const float mid = __fadd_rn(acc, y);
+    if (stop >= mid) {
+      acc = mid;
+      R += bit;
+    }
+  }
+  const int L = R >> 2;  // bit = 2 reads t[R + 1], bit = 1 t[R] or t[R + 2]
+  const float y1 = __shfl_sync(kFullMask, e[1], L, G);
+  const float y0 = __shfl_sync(kFullMask, e[0], L, G);
+  const float y2 = __shfl_sync(kFullMask, e[2], L, G);
+  float mid = __fadd_rn(acc, y1);
+  if (stop >= mid) {
+    acc = mid;
+    R += 2;
+  }
+  mid = __fadd_rn(acc, (R & 2) ? y2 : y0);
+  if (stop >= mid) R += 1;
+  return jb * W + R;
+}
+
 }  // namespace draw_tile

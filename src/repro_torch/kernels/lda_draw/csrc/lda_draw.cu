@@ -7,8 +7,9 @@
 //   lda_blocksums    <- _factored_blocksum_kernel (lda_blocksums_pallas)   K6
 //   lda_walk         <- _factored_walk_kernel     (lda_walk_pallas)        K7
 //
-// Design.  One warp owns one sample from start to end; kWarps warps share a
-// block only to fill the SM, never to exchange data.  The TPU kernels fetch
+// Design.  K6, K7 and K8's warp layout: one warp owns one sample from
+// start to end; kWarps warps share a block only to fill the SM, never to
+// exchange data.  The TPU kernels fetch
 // the theta and phi rows with scalar-prefetch index maps and carry a (tb, Kp)
 // tile across a sequential grid axis; here each warp loads its own doc and
 // word ids and reads the two rows coalesced (lane i reads k = i, i+32, ...),
@@ -17,12 +18,26 @@
 // (draw_tile.cuh).  K is padded to Kp = nb * W virtually: columns at or past
 // the rows' width read as zero, so callers never copy phi to pad it.
 //
+// K8 has a second layout, group, which the wrapper picks where it fits (the
+// sweep's chunk: K = 240, W = 32).  One warp per draw keeps few draws in
+// flight, and each of its 32-column steps waits on that step's loads
+// before its shuffle tree, so a draw pays a chain of dependent L2 round
+// trips.  In the group layout a group of G = W / 4 lanes owns a draw (32 /
+// G draws per warp, as K3 walks): lane q holds columns 4q..4q+3 of each
+// W-block of theta and phi, read with one 16-byte load per factor (8 for
+// bf16) where every row start is aligned and four loads otherwise (a
+// second instantiation), the loads of draw_tile::kGroupBatch blocks issued
+// before the first sum (group_block_sums).  It keeps only the nb block sums
+// of each draw in shared memory, scans them with warp_running's adds
+// (group_running) and walks block jb with group_walk, forming its products
+// again from the factors (L1/L2).  Every add is the warp layout's, so the
+// layouts, and K8 and K6 + K7, give the same indices.
+//
 // Bound.  All three are memory-bound gathers: per sample K8 and K6 read two
 // K-wide rows (8K bytes in fp32) and do 2K flops; K7 reads one running row
 // (4 nb bytes) and two W-wide slices.  The design keeps the only other
 // traffic to 4 bytes of ids, 4 of u and 4 (K6: 4 nb) of output per sample;
-// theta rows repeat across a document's words and hit L1/L2.  Wide (16-byte)
-// loads and several samples per warp are left for later work.
+// theta rows repeat across a document's words and hit L1/L2.
 //
 // Block address.  K7 computes its block jb from the running row itself, so
 // the reference's separate XLA block search before pass B is not needed;
@@ -37,7 +52,11 @@ namespace {
 
 constexpr int kWarps = 4;  // warps (samples in flight) per block
 
+using draw_tile::group_block_sums;
+using draw_tile::group_running;
+using draw_tile::group_walk;
 using draw_tile::ProductRow;
+using draw_tile::ProductRow4;
 using draw_tile::warp_block_sums;
 using draw_tile::warp_draw_tile;
 using draw_tile::warp_fenwick;
@@ -46,6 +65,8 @@ using draw_tile::warp_running;
 using draw_tile::warp_select;
 using draw_tile::descent;
 
+// K8, warp layout: one warp per draw, its product row and block sums in
+// shared memory.
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     lda_fused_draw_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
@@ -66,6 +87,35 @@ __global__ void __launch_bounds__(kWarps * 32)
   warp_block_sums<true>(row, ncols, nb, W, prod, run, lane);
   const int idx = warp_draw_tile(prod, run, nb, W, u[s], lane);
   if (lane == 0) out[s] = idx;
+}
+
+// K8, group layout: draw s by the group of W / 4 lanes threadIdx.x / (W /
+// 4) of its block, its nb block sums in smem + (that group) * nb.  VEC:
+// theta and phi rows 16-byte aligned (8-byte for bf16).
+template <typename T, int W, bool VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+    lda_fused_group_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
+                           const int* __restrict__ doc_ids,
+                           const int* __restrict__ words,
+                           const float* __restrict__ u, int* __restrict__ out,
+                           int Bt, int ncols, int nb) {
+  extern __shared__ float smem[];
+  constexpr int G = W / 4;
+  constexpr int kDraws = kWarps * 32 / G;  // draws per block
+  const int base = blockIdx.x * kDraws;
+  if (base + (threadIdx.x & ~31) / G >= Bt) return;  // the whole warp is past Bt
+  const int q = threadIdx.x & (G - 1);
+  const int gi = threadIdx.x / G;
+  const int gid = base + gi;
+  // a group past Bt redoes the last draw, so every lane joins the shuffles
+  const int s = gid < Bt ? gid : Bt - 1;
+  const ProductRow4<T, VEC> row{theta + static_cast<size_t>(doc_ids[s]) * ncols,
+                                phi + static_cast<size_t>(words[s]) * ncols, ncols};
+  float* run = smem + gi * nb;
+  group_block_sums<W>(row, nb, run, q);
+  group_running<G>(run, nb, q);
+  const int idx = group_walk<W>(row, run, nb, u[s], q);
+  if (q == 0 && gid < Bt) out[s] = idx;
 }
 
 template <typename T>
@@ -119,6 +169,45 @@ inline unsigned grid_for(int Bt) {
   return static_cast<unsigned>((Bt + kWarps - 1) / kWarps);
 }
 
+template <typename T, int W>
+int launch_group_w(const T* theta, const T* phi, const int* d, const int* w,
+                   const float* u, int* out, int Bt, int ncols, int nb, bool vec,
+                   cudaStream_t st) {
+  constexpr int kDraws = kWarps * 32 / (W / 4);
+  const unsigned grid = static_cast<unsigned>((Bt + kDraws - 1) / kDraws);
+  const size_t smem = sizeof(float) * kDraws * nb;
+  if (vec)
+    lda_fused_group_kernel<T, W, true><<<grid, kWarps * 32, smem, st>>>(
+        theta, phi, d, w, u, out, Bt, ncols, nb);
+  else
+    lda_fused_group_kernel<T, W, false><<<grid, kWarps * 32, smem, st>>>(
+        theta, phi, d, w, u, out, Bt, ncols, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_group(const void* theta, const void* phi, const int* d, const int* w,
+                 const float* u, int* out, int Bt, int ncols, int nb, int W,
+                 cudaStream_t st) {
+  const T* th = static_cast<const T*>(theta);
+  const T* ph = static_cast<const T*>(phi);
+  const bool vec = draw_tile::rows_aligned(th, ncols) && draw_tile::rows_aligned(ph, ncols);
+  switch (W) {
+    case 8:
+      return launch_group_w<T, 8>(th, ph, d, w, u, out, Bt, ncols, nb, vec, st);
+    case 16:
+      return launch_group_w<T, 16>(th, ph, d, w, u, out, Bt, ncols, nb, vec, st);
+    case 32:
+      return launch_group_w<T, 32>(th, ph, d, w, u, out, Bt, ncols, nb, vec, st);
+    case 64:
+      return launch_group_w<T, 64>(th, ph, d, w, u, out, Bt, ncols, nb, vec, st);
+    case 128:
+      return launch_group_w<T, 128>(th, ph, d, w, u, out, Bt, ncols, nb, vec, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // Plain C interface, loaded with ctypes.  dtype: 0 = float32, 1 = bfloat16.
@@ -126,16 +215,24 @@ inline unsigned grid_for(int Bt) {
 // returns cudaGetLastError() (0 on success).
 extern "C" {
 
+// group: 0 for the warp layout, 1 for the group layout (W / 4 lanes per
+// draw; one 16-byte load per lane and factor where every row start is
+// aligned, four loads otherwise).
 int lda_fused_draw(const void* theta, const void* phi, const void* doc_ids,
                    const void* words, const void* u, void* out, int Bt,
-                   int ncols, int nb, int W, int dtype, void* stream) {
+                   int ncols, int nb, int W, int group, int dtype, void* stream) {
   if (Bt <= 0) return 0;
-  const size_t smem = sizeof(float) * kWarps * (nb * W + nb);
   auto st = static_cast<cudaStream_t>(stream);
   const int* d = static_cast<const int*>(doc_ids);
   const int* w = static_cast<const int*>(words);
   const float* uu = static_cast<const float*>(u);
   int* o = static_cast<int*>(out);
+  if (group) {
+    if (dtype == 1)
+      return launch_group<__nv_bfloat16>(theta, phi, d, w, uu, o, Bt, ncols, nb, W, st);
+    return launch_group<float>(theta, phi, d, w, uu, o, Bt, ncols, nb, W, st);
+  }
+  const size_t smem = sizeof(float) * kWarps * (nb * W + nb);
   if (dtype == 1)
     lda_fused_draw_kernel<__nv_bfloat16><<<grid_for(Bt), kWarps * 32, smem, st>>>(
         static_cast<const __nv_bfloat16*>(theta),
@@ -191,8 +288,9 @@ int lda_walk(const void* theta, const void* phi, const void* running,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Warps per block; the wrapper sizes the fused draw's shared memory
-// (kWarps * (nb * W + nb) floats) from it to pick the fused or two-pass route.
+// Warps per block; the wrapper sizes the fused draw's shared memory from
+// it: kWarps * (nb * W + nb) floats in the warp layout (which picks the
+// fused or two-pass route), kWarps * 32 / (W / 4) * nb in the group layout.
 int lda_warps_per_block(void) { return kWarps; }
 
 }  // extern "C"

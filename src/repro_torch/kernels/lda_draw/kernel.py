@@ -23,6 +23,14 @@ twin.
 Rows may be narrower than Kp = nb * W: columns at or past a row's width
 count as zero (the padding of K to a multiple of W), so nobody copies
 ``phi`` to pad it.
+
+K8 runs in one of two layouts (:data:`LAYOUTS`), which give the same
+indices: ``"warp"``, one warp per draw with the product row in shared
+memory, and ``"group"``, a group of W / 4 lanes per draw (32 / (W / 4)
+draws per warp) with only the nb block sums in shared memory and four
+columns a lane (one 16-byte load per factor where every row start is
+aligned).  :func:`lda_fused_layout` picks one from the shapes before the
+launch; the private ``_lda_fused_draw`` takes ``layout=`` to force one.
 """
 
 from __future__ import annotations
@@ -54,6 +62,10 @@ LAUNCHES: Dict[str, int] = {"lda_fused_draw": 0, "lda_blocksums": 0, "lda_walk":
 _WARPS_PER_BLOCK = 4
 _FUSED_SMEM_BYTES = 48 << 10
 
+# K8's layouts.  The group layout keeps nb floats per draw in shared
+# memory, 32 / (W / 4) draws per warp (group_fits).
+LAYOUTS = ("warp", "group")
+
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -61,8 +73,20 @@ def reset_launches() -> None:
 
 
 def fused_fits(nb: int, W: int) -> bool:
-    """True when the fused kernel's shared memory fits one block."""
+    """True when the fused kernel's shared memory fits one block in the
+    warp layout (the layout that decides the fused / two-pass route)."""
     return 4 * _WARPS_PER_BLOCK * (nb * W + nb) <= _FUSED_SMEM_BYTES
+
+
+def group_fits(nb: int, W: int) -> bool:
+    """True when K8's group layout (nb floats per draw) fits one block."""
+    return 4 * (_WARPS_PER_BLOCK * 32 // (W // 4)) * nb <= _FUSED_SMEM_BYTES
+
+
+def lda_fused_layout(nb: int, W: int) -> str:
+    """The layout of K8 for draws from rows of nb W-blocks: ``"group"``
+    where its shared memory fits, else ``"warp"``."""
+    return "group" if group_fits(nb, W) else "warp"
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +96,7 @@ def fused_fits(nb: int, W: int) -> bool:
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
-    "lda_fused_draw": [_P] * 6 + [_I] * 5 + [_P],
+    "lda_fused_draw": [_P] * 6 + [_I] * 6 + [_P],
     "lda_blocksums": [_P] * 5 + [_I] * 5 + [_P],
     "lda_walk": [_P] * 8 + [_I] * 5 + [_P],
 }
@@ -111,19 +135,31 @@ def lda_fused_draw(theta, phi, doc_ids, words, u, W: int) -> torch.Tensor:
     """(Bt,) int32 draws in [0, Kp) from theta[doc_ids] * phi[words], one
     launch (K8).  Ids int32, u float32, all contiguous (Bt,) CUDA tensors;
     ids must index valid rows (not checked: that would synchronise)."""
+    return _lda_fused_draw(theta, phi, doc_ids, words, u, W)
+
+
+def _lda_fused_draw(theta, phi, doc_ids, words, u, W: int, layout=None) -> torch.Tensor:
+    """:func:`lda_fused_draw` in the layout ``layout`` (``"warp"`` or
+    ``"group"``); None picks it with :func:`lda_fused_layout`.  Both give
+    the same indices; forcing is for timing them against each other."""
     nb = num_blocks(theta.shape[1], W)
+    if layout is None:
+        layout = lda_fused_layout(nb, W)
+    elif layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS} or None, got {layout!r}")
     ncols = _check_factors(theta, phi, nb, W)
     Bt = u.shape[0]
     _check_vec("doc_ids", doc_ids, torch.int32, Bt, theta)
     _check_vec("words", words, torch.int32, Bt, theta)
     _check_vec("u", u, torch.float32, Bt, theta)
-    if not fused_fits(nb, W):
-        raise ValueError(f"fused draw needs too much shared memory at nb={nb}, W={W}")
+    if not (group_fits if layout == "group" else fused_fits)(nb, W):
+        raise ValueError(f"fused draw ({layout} layout) needs too much shared memory "
+                         f"at nb={nb}, W={W}")
     out = torch.empty((Bt,), dtype=torch.int32, device=theta.device)
     _launch(
         "lda_fused_draw", theta.data_ptr(), phi.data_ptr(), doc_ids.data_ptr(),
         words.data_ptr(), u.data_ptr(), out.data_ptr(), Bt, ncols, nb, W,
-        _DTYPES[theta.dtype],
+        int(layout == "group"), _DTYPES[theta.dtype],
     )
     return out
 
@@ -234,7 +270,8 @@ def lda_draw_docs(theta, phi, doc_ids, words, u, W: int, impl: Optional[str] = N
                   route: Optional[str] = None) -> torch.Tensor:
     """(B,) int32 draws in [0, K): one launch of K8, or K6 then K7 when
     ``route="two_pass"`` or when the fused kernel's shared memory does not
-    fit (``route=None``).  Both routes return the same indices."""
+    fit in the warp layout (``route=None``).  Both routes return the same
+    indices."""
     K = theta.shape[1]
     nb = num_blocks(K, W)
     if route is None:

@@ -7,6 +7,11 @@
   in different orders may pick different indices only where
   stop = u * total lies within fp32 rounding of a partial-sum boundary; a
   mismatch anywhere else is a fault.
+* :func:`fused_warp_order_torch` and :func:`fused_group_order_torch` — K8's
+  two layouts as exact-order models of the card's arithmetic: one warp per
+  draw (one column a lane), and a group of W / 4 lanes per draw (four
+  columns a lane).  They make the same fp32 adds in the same order, so
+  they agree bit for bit.
 """
 
 from __future__ import annotations
@@ -67,3 +72,51 @@ def boundary_ties(a, b, theta, phi, doc_ids, words, u) -> Dict[str, int]:
     out["ties"] = int(tie.sum())
     out["faults"] = out["mismatches"] - out["ties"]
     return out
+
+
+# butterfly_sample.ref imports this module, so the models below import it
+# (and butterfly_sample.kernel) where they run.
+
+
+def _products(theta, phi, doc_ids, words, W: int) -> torch.Tensor:
+    """(Bt, nb * W) float32 products theta[doc_ids] * phi[words] as the
+    kernels form them (one fp32 multiply each), zero past the row width."""
+    th = torch.as_tensor(theta).to(torch.float32)[torch.as_tensor(doc_ids).long()]
+    ph = torch.as_tensor(phi).to(torch.float32)[torch.as_tensor(words).long()]
+    K = th.shape[1]
+    return torch.nn.functional.pad(th * ph, (0, -(-K // W) * W - K))
+
+
+def fused_warp_order_torch(theta, phi, doc_ids, words, u, W: int) -> torch.Tensor:
+    """(Bt,) int32 draws in [0, Kp) as K8's warp layout makes them: the
+    block sums of ``warp_block_sums`` (per 32-column piece an xor tree over
+    one column a lane, a block's pieces in order) and ``warp_running``'s
+    scan (``butterfly_sample.ref.masked_blocksums_warp_order_torch`` with
+    nothing masked), then ``warp_draw_tile``'s select, Fenwick table of the
+    selected block and descent (``butterfly_sample.kernel.walk_torch``)."""
+    from repro_torch.kernels.butterfly_sample import kernel as _k
+    from repro_torch.kernels.butterfly_sample import ref as _bref
+
+    prod = _products(theta, phi, doc_ids, words, W)
+    Bt, Kp = prod.shape
+    run = _bref.masked_blocksums_warp_order_torch(
+        prod, torch.full((Bt,), -float("inf")), W, Kp // W)
+    u = torch.as_tensor(u, dtype=torch.float32)
+    return _k.walk_torch(prod, run, u, torch.arange(Bt), W)
+
+
+def fused_group_order_torch(theta, phi, doc_ids, words, u, W: int) -> torch.Tensor:
+    """(Bt,) int32 draws in [0, Kp) as K8's group layout makes them, G =
+    W / 4 lanes per draw: the block sums of ``group_block_sums`` (lane q
+    adds columns 4q..4q+3 as (e0 + e1) + (e2 + e3), an xor tree over each
+    32-column piece's lanes, a block's pieces in order:
+    ``butterfly_sample.ref.block_sums4_order_torch``), ``group_running``'s
+    scan (``warp_running``'s adds: ``warp_running_order_torch``), then
+    ``group_walk`` on the products of block jb
+    (``butterfly_sample.ref.group_walk_order_torch``)."""
+    from repro_torch.kernels.butterfly_sample import ref as _bref
+
+    prod = _products(theta, phi, doc_ids, words, W)
+    run = _bref.warp_running_order_torch(_bref.block_sums4_order_torch(prod, W))
+    u = torch.as_tensor(u, dtype=torch.float32)
+    return _bref.group_walk_order_torch(prod, run, u, torch.arange(prod.shape[0]), W)

@@ -714,3 +714,103 @@ def test_masked_blocksums_equals_warp_order_narrow_w(dev, W):
         for t in (tau, torch.zeros_like(tau)):
             assert torch.equal(KB.masked_blocksums(w, t, W, nb),
                                masked_blocksums_warp_order_torch(w, t, W, nb)), (B, K)
+
+
+# ---------------------------------------------------------------------------
+# The layouts of K2 (a wide row split over several blocks) and K8 (a group
+# of W / 4 lanes per factored draw)
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.butterfly_sample.ref import split_blocks_per_row  # noqa: E402
+from repro_torch.kernels.lda_draw.ref import fused_group_order_torch  # noqa: E402
+
+K2_BKW = [(64, 256000, 128), (8, 32000, 128), (64, 4096, 64), (64, 4099, 32),
+          (3, 20011, 8), (27392, 240, 16), (1000, 2048, 16)]
+
+
+@pytest.mark.parametrize("B,K,W", K2_BKW)
+def test_blocksums_split_equals_warp(dev, B, K, W):
+    """K2's split layout writes the warp layout's running sums bit for bit
+    (integer, Dirichlet and bf16 weights, all-zero rows, K % 4 != 0 and a
+    misaligned base: the four-load instantiation), equal to the
+    exact-order model at the card's P, one launch a call, the arrival
+    counters left at zero; K3 on the split's sums draws what K4 draws."""
+    nb = KB.num_blocks(K, W)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    P = split_blocks_per_row(B, nb, W, sms=sms)
+    cases = [("int", torch.float32), ("dirichlet", torch.float32), ("int", torch.bfloat16)]
+    for kind, dtype in cases:
+        w, u = _weights(dev, B + K + W, B, K, kind, dtype)
+        w[::3] = 0
+        KB.reset_launches()
+        split = KB._blocksums(w, W, nb, layout="split")
+        warp = KB._blocksums(w, W, nb, layout="warp")
+        assert KB.LAUNCHES == {**_NO_LAUNCHES, "blocksums": 2}
+        torch.cuda.synchronize()
+        assert torch.equal(split, warp), (kind, dtype)
+        assert int(KB._arrival_counters(B, dev)[:B].abs().sum()) == 0
+        if B * K <= 64 * 32000:
+            assert torch.equal(split.cpu(), split_running_order_torch(
+                w.cpu(), W, nb, P, cols_per_lane=4)), (kind, dtype)
+        rows = torch.arange(B, dtype=torch.int32, device=dev)
+        assert torch.equal(KB.walk(w, split, u, rows, W), KB.fused_draw(w, u, W))
+    w, _ = _weights(dev, K, B, K + 1, "dirichlet")
+    shifted = w.reshape(-1)[1:1 + B * K].view(B, K)
+    assert torch.equal(KB._blocksums(shifted, W, nb, layout="split"),
+                       KB._blocksums(shifted, W, nb, layout="warp"))
+
+
+LDA_GROUP_VK = [(50, 24), (500, 240), (300, 61), (40, 1000), (30, 3000)]
+
+
+@pytest.mark.parametrize("W", GRID_W)
+@pytest.mark.parametrize("V,Kc", LDA_GROUP_VK)
+def test_lda_group_layout_equals_warp_layout(dev, W, V, Kc):
+    """K8's group layout draws the warp layout's indices bit for bit
+    (integer, Dirichlet and bf16 factors, all-zero theta rows, K % 4 != 0
+    and a misaligned phi: the four-load instantiation), equal to its
+    exact-order model, and K8 equals K6 + K7 on the same uniforms.  Where
+    the group's sums do not fit its shared memory, forcing it raises."""
+    nb = KB.num_blocks(Kc, W)
+    B = 4099
+    if not K.group_fits(nb, W):
+        th, ph, d, w, u = _inputs(dev, W + Kc, B, V, Kc)
+        with pytest.raises(ValueError, match="shared memory"):
+            K._lda_fused_draw(th, ph, d, w, u, W, layout="group")
+        return
+    for kind, dtype in (("int", torch.float32), ("dirichlet", torch.float32),
+                        ("int", torch.bfloat16)):
+        th, ph, d, w, u = _inputs(dev, W + Kc, B, V, Kc, kind, dtype)
+        th[::4] = 0
+        group = K._lda_fused_draw(th, ph, d, w, u, W, layout="group")
+        running = K.lda_blocksums(th, ph, d, w, W, nb)
+        rows = torch.arange(B, dtype=torch.int32, device=dev)
+        two = K.lda_walk(th, ph, running, u, rows, d, w, W)
+        torch.cuda.synchronize()
+        assert torch.equal(group, two), (kind, dtype)
+        if K.fused_fits(nb, W):
+            assert torch.equal(group, K._lda_fused_draw(th, ph, d, w, u, W, layout="warp"))
+        assert torch.equal(group.cpu(), fused_group_order_torch(
+            th.cpu(), ph.cpu(), d.cpu(), w.cpu(), u.cpu(), W)), (kind, dtype)
+        assert bool((group[(d % 4 == 0)] == nb * W - 1).all())
+    th, ph, d, w, u = _inputs(dev, Kc, B, V, Kc + 1, "dirichlet")
+    shifted = ph.reshape(-1)[1:1 + V * Kc].view(V, Kc)
+    th = th[:, :Kc].contiguous()
+    running = K.lda_blocksums(th, shifted, d, w, W, nb)
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    assert torch.equal(K._lda_fused_draw(th, shifted, d, w, u, W, layout="group"),
+                       K.lda_walk(th, shifted, running, u, rows, d, w, W))
+
+
+def test_lda_layouts_launches_and_rule(dev):
+    """One launch a call in either layout; the sweep's chunk (K = 240, W =
+    32) takes the group layout; a forced layout that does not fit raises."""
+    th, ph, d, w, u = _inputs(dev, 5, 1000, 300, 240, "dirichlet")
+    K.reset_launches()
+    for layout in K.LAYOUTS:
+        K._lda_fused_draw(th, ph, d, w, u, 32, layout=layout)
+    assert K.LAUNCHES == {"lda_fused_draw": 2, "lda_blocksums": 0, "lda_walk": 0}
+    assert K.lda_fused_layout(KB.num_blocks(240, 32), 32) == "group"
+    th, ph, d, w, u = _inputs(dev, 6, 64, 30, 2728, "int")
+    with pytest.raises(ValueError, match="shared memory"):
+        K._lda_fused_draw(th, ph, d, w, u, 8, layout="group")
