@@ -507,14 +507,18 @@ def check_walk(tally, case, wts, run, W, u, u4, exact):
     tally.same("walk", f"{case} vs K4", KB.walk(wts, run, u, rows, W), KB.fused_draw(wts, u, W))
 
 
-def check_blocksums_layouts(tally, case, wts, W, u):
-    """K2's split layout against its warp layout (bit for bit: the same
-    adds), and K3 on the split's running sums against K4 on the same
-    uniforms."""
+def check_blocksums_layouts(tally, case, wts, W, u, exact: bool):
+    """K2 in each layout against its plain version (the rule's pick among
+    them, at every shape the main paths give K2), its split layout
+    against its warp layout (bit for bit: the same adds), and K3 on the
+    split's running sums against K4 on the same uniforms."""
     nb = KB.num_blocks(wts.shape[1], W)
     split = KB._blocksums(wts, W, nb, layout="split")
-    tally.same("blocksums", f"{case} split vs warp", split,
-               KB._blocksums(wts, W, nb, layout="warp"))
+    warp = KB._blocksums(wts, W, nb, layout="warp")
+    plain = KB.blocksums_torch(wts, W, nb)
+    for layout, run in (("split", split), ("warp", warp)):
+        tally.running("blocksums", f"{case} {layout}", run, plain, exact)
+    tally.same("blocksums", f"{case} split vs warp", split, warp)
     rows = torch.arange(wts.shape[0], dtype=torch.int32, device=wts.device)
     tally.same("walk", f"{case} on K2 split sums vs K4", KB.walk(wts, split, u, rows, W),
                KB.fused_draw(wts, u, W))
@@ -542,7 +546,7 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
             _, run_p = bops.build_block_sums(wts, W=W, impl="torch")
             tally.running("blocksums", case, run, run_p, exact)
             check_walk(tally, case, wts, run, W, u, u4, exact)
-            check_blocksums_layouts(tally, case, wts, W, u)
+            check_blocksums_layouts(tally, case, wts, W, u, exact)
     # K3 (W / 4 lanes per draw) at the other widths, and at K = 239 (ncols
     # % 4 != 0: the four-loads-a-lane instantiation)
     for W in (8, 64, 128):
@@ -550,13 +554,13 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
             wts = chunk_weights(*factors(kind, C, V, K, g, dev), d, w)
             check_walk(tally, f"W={W} {kind}", wts, bops.build_block_sums(wts, W=W)[1], W,
                        u, u4, kind == "int")
-            check_blocksums_layouts(tally, f"W={W} {kind}", wts, W, u)
+            check_blocksums_layouts(tally, f"W={W} {kind}", wts, W, u, kind == "int")
     wt = chunk_weights(*factors("dirichlet", C, V, K, g, dev), d, w)[:, :K - 1].contiguous()
     if KB.walk_vector_loads(wt):
         raise AssertionError("K = 239 should take the four-loads-a-lane walk")
     check_walk(tally, f"K={K - 1} W=16 dirichlet", wt, bops.build_block_sums(wt, W=16)[1],
                16, u, u4, False)
-    check_blocksums_layouts(tally, f"K={K - 1} W=16 dirichlet", wt, 16, u)
+    check_blocksums_layouts(tally, f"K={K - 1} W=16 dirichlet", wt, 16, u, False)
     # K2 at vocabulary widths, where its rule takes the split layout
     for B2, K2, W2, dtype in ((DECODE_B, gemma2_9b.VOCAB_SIZE, 128, torch.float32),
                               (8, 32000, 128, torch.float32), (DECODE_B, 4096, 64,
@@ -565,7 +569,7 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
                               (DECODE_B, 32003, 128, torch.float32)):
         wv = trunc_weights("softmax", B2, K2, g, dev, zero_rows=(0, B2 - 1)).to(dtype)
         check_blocksums_layouts(tally, f"({B2},{K2}) W={W2} {str(dtype)[6:]}", wv, W2,
-                                torch.rand(B2, generator=g, device=dev))
+                                torch.rand(B2, generator=g, device=dev), False)
     for W in (8, 4, 64, 128):
         check_table(tally, f"W={W} int", chunk_weights(*factors("int", C, V, K, g, dev), d, w),
                     W, True)
@@ -580,7 +584,7 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
                       bops.butterfly_sample(wb, u, W=16, route=route),
                       bops.butterfly_sample(wb, u, W=16, impl="torch"), wb.float(), u, True)
     check_walk(tally, "W=16 bf16", wb, bops.build_block_sums(wb, W=16)[1], 16, u, u4, True)
-    check_blocksums_layouts(tally, "W=16 bf16", wb, 16, u)
+    check_blocksums_layouts(tally, "W=16 bf16", wb, 16, u, True)
     # the sweep's last chunk: padded with all-zero rows
     th, ph = factors("dirichlet", corpus.docs.shape[0], V, K, g, dev)
     docs = torch.as_tensor(corpus.docs, device=dev)
@@ -596,7 +600,7 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
             raise AssertionError("zero-row chunk drew outside [0, K) or not K-1")
     check_walk(tally, "W=16 zero rows", wz, bops.build_block_sums(wz, W=16)[1], 16, u, u4,
                False)
-    check_blocksums_layouts(tally, "W=16 zero rows", wz, 16, u)
+    check_blocksums_layouts(tally, "W=16 zero rows", wz, 16, u, False)
     check_table(tally, "W=16 zero rows", wz, 16, False)
     # a large K: the port's switch picks the route; the forced two-pass
     # route must agree with it

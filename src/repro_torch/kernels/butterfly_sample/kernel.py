@@ -101,13 +101,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # and 27,392 and lost below (chip_smoke.py phase 2g; PERF.md).
 LAYOUTS = ("warp", "split")
 _SPLIT_COLS = 2048
-# K2's split layout (four columns a lane, two tiles in flight per warp, a
-# block-wide scan) won on the card's own time from 512 columns at B = 64
-# and 1,024, and from 2,048 (a tie at 1,024) at B = 27,392, the largest B
-# timed (chip_smoke.py phase 2g; PERF.md): _SPLIT_COLS as K4/K5 for any B,
-# and from _K2_SPLIT_COLS for up to _K2_FEW_ROWS rows.
-_K2_SPLIT_COLS = 512
-_K2_FEW_ROWS = 1024
 
 # The fused truncated draw (K9) runs one block of _TRUNC_THREADS threads per
 # row and stages the row (as fp32) in dynamic shared memory while
@@ -210,13 +203,13 @@ def fused_layout(B: int, nb: int, W: int) -> str:
 
 
 def blocksums_layout(B: int, nb: int, W: int) -> str:
-    """The layout of K2 for B rows of nb W-blocks: ``"split"`` where
-    :func:`fused_layout` takes it, and also from ``_K2_SPLIT_COLS``
-    columns for up to ``_K2_FEW_ROWS`` rows; else ``"warp"`` (the sweep's
-    chunk)."""
-    if fused_layout(B, nb, W) == "split":
-        return "split"
-    return "split" if B <= _K2_FEW_ROWS and nb * W >= _K2_SPLIT_COLS else "warp"
+    """The layout of K2 for B rows of nb W-blocks: K4/K5's
+    (:func:`fused_layout`), so that the two-pass and fused routes of one
+    shape run the same layout.  K2's own split also won from 512 columns
+    for up to 1,024 rows (chip_smoke.py phase 2g; PERF.md), but no path
+    runs rows of 512 to 2,047 columns; the autotuner is to take that
+    crossover up."""
+    return fused_layout(B, nb, W)
 
 
 def _resolve_layout(layout, B: int, nb: int, W: int, rule=None) -> str:

@@ -280,7 +280,13 @@ def block_sums4_order_torch(x: torch.Tensor, W: int) -> torch.Tensor:
     return bs
 
 
-TILE = 128  # columns a warp sums at once in a split row (draw_tile.cuh kTile)
+# The split row's sizing, as draw_tile.cuh's constants of the same role
+# set it for K2, K4/K5 and K11; the models and tests read them from here.
+TILE = 128  # columns a warp sums at once in a split row (kTile)
+SUM_BLOCKS_PER_SM = 8  # blocks per SM the (B, P) grid aims at (kSumBlocksPerSM)
+MIN_BLOCKS_PER_RUN = 32  # least W-blocks a block sums (kMinBlocksPerRun)
+SCAN_CHUNK = 4096  # most sums the scanning block holds at once (kScanChunk)
+H100_SMS = 132  # the H100's SMs: split_tiles_per_block reads the card's count
 
 
 def _tile_block_sums(wt: torch.Tensor, W: int) -> torch.Tensor:
@@ -297,12 +303,13 @@ def _tile_block_sums(wt: torch.Tensor, W: int) -> torch.Tensor:
     return ((p[..., 0] + p[..., 1]) + p[..., 2]) + p[..., 3]
 
 
-def split_blocks_per_row(B: int, nb: int, W: int, sms: int = 132,
-                         blocks_per_sm: int = 8, min_blocks_per_run: int = 32,
-                         scan_chunk: int = 4096) -> int:
+def split_blocks_per_row(B: int, nb: int, W: int, sms: int = H100_SMS,
+                         blocks_per_sm: int = SUM_BLOCKS_PER_SM,
+                         min_blocks_per_run: int = MIN_BLOCKS_PER_RUN,
+                         scan_chunk: int = SCAN_CHUNK) -> int:
     """P, the thread blocks per row of a split (K2, K4/K5, K11), as
     ``draw_tile.cuh``'s ``split_tiles_per_block`` sizes it on a card of
-    ``sms`` SMs (the H100's 132): enough blocks to fill the card, each
+    ``sms`` SMs (``H100_SMS``): enough blocks to fill the card, each
     with at least ``min_blocks_per_run`` W-blocks and at most about
     ``scan_chunk``; then P = ceil(nt / tpb) over nt 128-column tiles."""
     nt = -(-nb * W // TILE)
@@ -313,7 +320,7 @@ def split_blocks_per_row(B: int, nb: int, W: int, sms: int = 132,
     return -(-nt // tpb)
 
 
-def split_running_order_torch(w, W: int, nb: int, P: int, scan_chunk: int = 4096,
+def split_running_order_torch(w, W: int, nb: int, P: int, scan_chunk: int = SCAN_CHUNK,
                               cols_per_lane: int = 1) -> torch.Tensor:
     """(B, nb) float32 running W-block sums of (B, K) weights as a row
     split over P thread blocks forms them (``draw_tile.cuh``'s

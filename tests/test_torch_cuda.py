@@ -648,8 +648,9 @@ def test_split_layout_equals_warp_layout(dev, B, K, W):
 
 def test_split_layout_running_sums_and_launches(dev):
     """One launch per call in either layout, the arrival counters left at
-    zero for the next launch; the card's warp-order running sums (K2) equal
-    the exact-order model of a row split, whose sums the split layout
+    zero for the next launch; K2's running sums in the layout its rule
+    picks here (the split) and in the warp layout each equal the
+    exact-order model of a row split, whose sums K4/K5's split layout
     walks."""
     w, u = _weights(dev, 1, 64, 256000, "dirichlet")
     KB.reset_launches()
@@ -662,6 +663,8 @@ def test_split_layout_running_sums_and_launches(dev):
     nb = KB.num_blocks(256000, 128)
     want = split_running_order_torch(w.cpu(), 128, nb, 7)
     assert torch.equal(KB.blocksums(w, 128, nb).cpu(), want)
+    assert torch.equal(KB._blocksums(w, 128, nb, layout="warp").cpu(), want)
+    assert KB.blocksums_layout(64, nb, 128) == "split"
     assert KB.fused_layout(64, nb, 128) == "split"
     with pytest.raises(ValueError, match="layout"):
         KB._fused_draw(w, u, 128, layout="rows")

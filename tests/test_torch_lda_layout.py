@@ -13,6 +13,9 @@ adds in the same order, so every index and every sum must be equal; on
 integer factors every fp32 sum is exact, so the reference draws the same
 indices too."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -118,6 +121,19 @@ def test_k2_split_model_equals_warp_order(B, K, W):
             assert torch.equal(got, KB.blocksums_torch(w, W, nb))
 
 
+@pytest.mark.parametrize("name,cuda_name", [("TILE", "kTile"),
+                                             ("SUM_BLOCKS_PER_SM", "kSumBlocksPerSM"),
+                                             ("MIN_BLOCKS_PER_RUN", "kMinBlocksPerRun"),
+                                             ("SCAN_CHUNK", "kScanChunk")])
+def test_split_constants_mirror_draw_tile(name, cuda_name):
+    """The split row's sizing constants of the CPU models are those that
+    ``draw_tile.cuh`` compiles into K2, K4/K5 and K11."""
+    src = (Path(KB.__file__).parents[1] / "csrc" / "draw_tile.cuh").read_text()
+    found = re.search(rf"constexpr int {cuda_name} = (\d+);", src)
+    assert found is not None, cuda_name
+    assert getattr(bref, name) == int(found.group(1))
+
+
 @pytest.mark.parametrize("B,nb,W,P", [(64, 2000, 128, 17), (8, 2000, 128, 61),
                                       (64, 250, 128, 7), (27392, 15, 16, 1),
                                       (64, 64, 64, 2), (2000, 100000, 8, 25)])
@@ -149,18 +165,18 @@ def test_lda_fused_layout_rule(nb, W, layout):
     (64, 250, 128, "split"),
     (27392, 32, 64, "split"),   # 2,048 columns: the split at any B
     (27392, 32, 16, "warp"),    # 512 columns, many rows
-    (1024, 32, 16, "split"),    # 512 columns, few rows
-    (64, 8, 64, "split"),
+    (1024, 32, 16, "warp"),     # 512 columns, few rows
+    (64, 8, 64, "warp"),
     (1025, 16, 32, "warp"),
     (64, 15, 16, "warp"),       # below 512 columns
 ])
 def test_blocksums_layout_rule(B, nb, W, layout):
-    """K2's rule: K4/K5's from 2,048 columns at any B, and from 512
-    columns for up to 1,024 rows (the card's crossover, PERF.md)."""
+    """K2's rule is K4/K5's: the split from 2,048 columns at any B, so that
+    the two-pass route (K2 + K3) and the fused one (K4) of a shape run
+    the same layout."""
     assert KB.blocksums_layout(B, nb, W) == layout
     assert layout in KB.LAYOUTS
-    if KB.fused_layout(B, nb, W) == "split":
-        assert layout == "split"
+    assert KB.fused_layout(B, nb, W) == layout
 
 
 def test_private_layout_arguments_reject_unknown_names():
