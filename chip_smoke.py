@@ -25,7 +25,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    and W=16; integer weights (0 mismatches allowed), Dirichlet weights
    (float64-checked boundary ties only), bf16, and the padded last chunk
    with all-zero rows; K1 also at W=4 and W=8, K4 also at K=32,000 x
-   B=64.  K1 also at W=64 and W=128 (integer, Dirichlet, bf16).  K3 (a
+   B=64.  K1 also at W=64 and W=128 (integer, Dirichlet, bf16; and at
+   (128, 256000), the butterfly state's) in both schedules, the split
+   (P > 1 blocks a group at every case) equal to the serial one bit for
+   bit.  K7 in both layouts (one warp, a group of W/4 lanes per draw)
+   against the plain walk on K6's sums, bit for bit, S=1 and 4, at every
+   K8 case.  K3 (a
    group of W/4 lanes per draw) also at W=8, 64 and 128 and at K=239
    (ncols % 4 != 0: four loads a lane), each case against its plain
    version on the plain running sums (ties only on real weights), against
@@ -71,7 +76,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    32000), (8, 256000), (64, 256000) and a grid of B x K around the layout
    rule's crossover, K3 at the chunk with S=1 and S=4, K8 in both layouts
    and K6 + K7 at the chunk for K = 240 ... 3,000 and over every padded
-   position of the corpus, and K11 at (64, 256000).
+   position of the corpus, K7 in both layouts at the chunk and K = 3,000
+   (S=1 and 4), K1 in both schedules at (128, 256000) (each kernel's
+   device time apart) and over a B x K grid at W = 64 and 128, K11 at
+   (64, 256000), and the device times of K1 at the chunk, K6, K9, K10,
+   K12 and K13 at the main paths' shapes.
 3. The main paths at the paper's Wikipedia scale (M=43,556 docs,
    V=37,286 words, K=240, ~3.07M tokens, Zipf word ids, made from --seed),
    each run with the launch counts set to 0 just before it and read just
@@ -156,6 +165,7 @@ from repro_torch.kernels.butterfly_sample.ref import boundary_ties as weight_tie
 from repro_torch.kernels.butterfly_sample.ref import (  # noqa: E402
     cuda_sum_depth, masked_blocksums_warp_order_torch, trunc_boundary_ties)
 from repro_torch.kernels.butterfly_table import kernel as KT  # noqa: E402
+from repro_torch.kernels.butterfly_table import ref as KTR  # noqa: E402
 from repro_torch.kernels.lda_draw import kernel as KL  # noqa: E402
 from repro_torch.kernels.lda_draw import ops  # noqa: E402
 from repro_torch.kernels.lda_draw.ref import boundary_ties  # noqa: E402
@@ -239,11 +249,10 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return s.elapsed_time(e) / reps
 
 
-def device_ms(fn, reps: int = 20):
-    """Mean device time per call of fn() from torch.profiler: the kernels'
-    own time on the card, without the host's gaps between launches (which
-    CUDA events around a run of calls include).  None (not measured) when
-    the trace holds no kernel: the profiler missed them."""
+def device_ms_by_kernel(fn, reps: int = 20) -> dict:
+    """Mean device time per call of fn() from torch.profiler, by kernel
+    name: the kernels' own time on the card, without the host's gaps
+    between launches (which CUDA events around a run of calls include)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -253,9 +262,15 @@ def device_ms(fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / reps / 1e3 if us > 0 else None
+    return {e.key: e.self_device_time_total / reps / 1e3 for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def device_ms(fn, reps: int = 20):
+    """The sum of :func:`device_ms_by_kernel`; None (not measured) when
+    the trace holds no kernel: the profiler missed them."""
+    ms = sum(device_ms_by_kernel(fn, reps).values())
+    return ms if ms > 0 else None
 
 
 def _ms(v) -> str:
@@ -416,7 +431,7 @@ def phase_kernels(corpus, dev, seed: int):
             plain = ops.lda_draw_factored(th, ph, d, w, u, W=W, impl="torch")
             fused = ops.lda_draw_factored(th, ph, d, w, u, W=W)
             tally.indices("lda_fused_draw", case, fused, plain, th, ph, d, w, u, exact)
-            check_lda_layouts(tally, case, th, ph, d, w, u, W)
+            check_lda_layouts(tally, case, th, ph, d, w, u, u4, W)
             two = KL.lda_draw_docs(th, ph, d, w, u, W, route="two_pass")
             tally.indices("lda_walk", case + " two-pass route", two, plain,
                           th, ph, d, w, u, exact)
@@ -433,14 +448,14 @@ def phase_kernels(corpus, dev, seed: int):
                   ops.lda_draw_factored(th, ph, d, w, u, W=32),
                   ops.lda_draw_factored(th, ph, d, w, u, W=32, impl="torch"),
                   th.float(), ph.float(), d, w, u, True)
-    check_lda_layouts(tally, "W=32 bf16", th, ph, d, w, u, 32)
+    check_lda_layouts(tally, "W=32 bf16", th, ph, d, w, u, u4, 32)
     # K8's layouts at the other widths, and at K = 239 (ncols % 4 != 0: the
     # group layout's four-loads-a-lane instantiation)
     for W in (8, 64, 128):
         th, ph = factors("dirichlet", C, V, K, g, dev)
-        check_lda_layouts(tally, f"W={W} dirichlet", th, ph, d, w, u, W)
+        check_lda_layouts(tally, f"W={W} dirichlet", th, ph, d, w, u, u4, W)
     th, ph = (x[:, :K - 1].contiguous() for x in factors("dirichlet", C, V, K, g, dev))
-    check_lda_layouts(tally, f"K={K - 1} W=32 dirichlet", th, ph, d, w, u, 32)
+    check_lda_layouts(tally, f"K={K - 1} W=32 dirichlet", th, ph, d, w, u, u4, 32)
     # the sweep's last chunk: padded with all-zero theta rows
     th, ph = factors("dirichlet", corpus.docs.shape[0], V, K, g, dev)
     docs = torch.as_tensor(corpus.docs, device=dev)
@@ -450,16 +465,18 @@ def phase_kernels(corpus, dev, seed: int):
     a = ops.lda_draw_factored(th_c, ph, d, wz, u, W=32)
     b = ops.lda_draw_factored(th_c, ph, d, wz, u, W=32, impl="torch")
     tally.indices("lda_fused_draw", "W=32 zero rows", a, b, th_c, ph, d, wz, u, False)
-    check_lda_layouts(tally, "W=32 zero rows", th_c, ph, d, wz, u, 32)
+    check_lda_layouts(tally, "W=32 zero rows", th_c, ph, d, wz, u, u4, 32)
     if int(a.min()) < 0 or int(a.max()) >= K:
         raise AssertionError("zero-row chunk drew an index outside [0, K)")
     return tally, (d, w, u, u4)
 
 
-def check_lda_layouts(tally, case, th, ph, d, w, u, W):
+def check_lda_layouts(tally, case, th, ph, d, w, u, u4, W):
     """K8 in each layout that fits against the layout the rule picks, and
     K8 against K6 + K7 on the same uniforms (all bit for bit: the group
-    layout makes the warp layout's adds, which are K6's and K7's)."""
+    layout makes the warp layout's adds, which are K6's and K7's).  K7 in
+    each layout against the plain walk on K6's running sums, S = 1 and 4
+    (bit for bit: the same adds), so its group and warp layouts agree."""
     nb = KL.num_blocks(th.shape[1], W)
     a = KL.lda_fused_draw(th, ph, d, w, u, W)
     for layout in KL.LAYOUTS:
@@ -470,6 +487,13 @@ def check_lda_layouts(tally, case, th, ph, d, w, u, W):
     rows = torch.arange(u.shape[0], dtype=torch.int32, device=u.device)
     tally.same("lda_fused_draw", f"{case} vs K6 + K7", a,
                KL.lda_walk(th, ph, run, u, rows, d, w, W))
+    for S, uu in ((1, u), (4, u4.reshape(-1).contiguous())):
+        rs = rows.repeat(S)
+        ds, ws = d.repeat(S), w.repeat(S)
+        plain = KL.lda_walk_torch(th, ph, run, uu, rs, ds, ws, W).to(torch.int32)
+        for layout in KL.LAYOUTS:
+            tally.same("lda_walk", f"{case} S={S} {layout} vs plain walk",
+                       KL._lda_walk(th, ph, run, uu, rs, ds, ws, W, layout=layout), plain)
 
 
 def chunk_weights(th, ph, d, w):
@@ -479,14 +503,30 @@ def chunk_weights(th, ph, d, w):
 
 def check_table(tally, case, wts, W, exact):
     """K1 in both layouts against its plain version; the sweep pads K to a
-    multiple of W as ``core.butterfly._prep`` does."""
+    multiple of W as ``core.butterfly._prep`` does.  At W = 64 and 128 in
+    both schedules, the split (P blocks a group, P > 1 at every case: its
+    runs end mid-row) equal to the serial one bit for bit, and the
+    rule's pick equal to both."""
     wp, _ = bfly.pad_to_multiple(wts, axis=1, mult=W)
+    G, nb = wp.shape[0] // W, wp.shape[1] // W
+    schedules = KT.SCHEDULES if W >= 64 else (None,)
+    if W >= 64:
+        P = KTR.table_split_blocks(G, nb, W)
+        if P < 2:
+            raise AssertionError(f"K1 {case}: the split gives P = {P}, no run boundary")
+        case = f"{case} P={P}"
     for layout in KT.LAYOUTS:
-        got = KT.butterfly_table_cuda(wp, W, layout)
         want = KT.butterfly_table_torch(wp, W, layout)
-        if layout == "rows":
-            got, want = rows_to_blocks(got, W), rows_to_blocks(want, W)
-        tally.table("butterfly_table", f"{case} {layout}", got, want, W, exact)
+        got = {s: KT._butterfly_table(wp, W, layout, schedule=s) for s in schedules}
+        for s, t in got.items():
+            a, b = (rows_to_blocks(t, W), rows_to_blocks(want, W)) if layout == "rows" \
+                else (t, want)
+            tally.table("butterfly_table", f"{case} {layout} {s or ''}", a, b, W, exact)
+        if W >= 64:
+            tally.same("butterfly_table", f"{case} {layout} split vs serial",
+                       got["split"], got["serial"])
+            tally.same("butterfly_table", f"{case} {layout} rule vs serial",
+                       KT.butterfly_table_cuda(wp, W, layout), got["serial"])
 
 
 def check_walk(tally, case, wts, run, W, u, u4, exact):
@@ -573,12 +613,21 @@ def phase_given_kernels(corpus, dev, seed: int, tally, inputs):
     for W in (8, 4, 64, 128):
         check_table(tally, f"W={W} int", chunk_weights(*factors("int", C, V, K, g, dev), d, w),
                     W, True)
-    check_table(tally, "W=128 dirichlet", chunk_weights(*factors("dirichlet", C, V, K, g,
-                                                                 dev), d, w), 128, False)
+    for W in (64, 128):
+        check_table(tally, f"W={W} dirichlet", chunk_weights(
+            *factors("dirichlet", C, V, K, g, dev), d, w), W, False)
     # bf16 weights (the integer products are integers in bf16 too)
     wb = chunk_weights(*factors("int", C, V, K, g, dev), d, w).to(torch.bfloat16)
-    check_table(tally, "W=16 bf16", wb, 16, True)
-    check_table(tally, "W=128 bf16", wb, 128, True)
+    for W in (16, 64, 128):
+        check_table(tally, f"W={W} bf16", wb, W, True)
+    # K1 at W = 128 on the butterfly state's (128, 256000): integers below
+    # 50 (every running sum below 2**24, exact), peaked softmax, bf16
+    Kv = gemma2_9b.VOCAB_SIZE
+    for kind, wv in (("int", torch.randint(1, 50, (128, Kv), generator=g, device=dev).float()),
+                     ("softmax", trunc_weights("softmax", 128, Kv, g, dev)),
+                     ("softmax bf16", trunc_weights("softmax", 128, Kv, g, dev)
+                      .to(torch.bfloat16))):
+        check_table(tally, f"(128,{Kv}) W=128 {kind}", wv, 128, kind == "int")
     for route in ("fused", "two_pass"):
         tally.weights("fused_draw" if route == "fused" else "walk", f"W=16 bf16 {route}",
                       bops.butterfly_sample(wb, u, W=16, route=route),
@@ -1230,14 +1279,22 @@ def phase_new_timing(dev, seed, phi):
                            lambda: KA.alias_assemble_torch(sp, nL, rank), None,
                            lambda _: (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")),
     }))
-    # K1 at W=128 on the butterfly state's (128, 256000)
+    # K1 at W=128 on the butterfly state's (128, 256000): the rule's pick
+    # (the split), and each schedule forced
     wt = trunc_weights("softmax", 128, K, g, dev)
     t1 = {"ms": cuda_ms(lambda: KT.butterfly_table_cuda(wt, 128, "blocks")),
+          "device_ms": device_ms(lambda: KT.butterfly_table_cuda(wt, 128, "blocks")),
           "plain_ms": cuda_ms(lambda: KT.butterfly_table_torch(wt, 128, "blocks"), reps=3,
                               warmup=1),
-          "bound_ms": 128 * K * 8 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
-    log(f"  butterfly_table W=128 (128,{K}) kernel {t1['ms']:.4f} ms  plain "
-        f"{t1['plain_ms']:.4f} ms  bound {t1['bound_ms'] * 1e3:.2f} us (bytes)")
+          "bound_ms": 128 * K * 8 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+          "schedule": KT.table_schedule(1, K // 128, 128)}
+    for sched in KT.SCHEDULES:
+        fn = lambda sched=sched: KT._butterfly_table(wt, 128, "blocks", schedule=sched)  # noqa: E731
+        t1[f"{sched} ms"], t1[f"{sched} device_ms"] = cuda_ms(fn), device_ms(fn)
+    log(f"  butterfly_table W=128 (128,{K}) kernel ({t1['schedule']}) {t1['ms']:.4f} ms "
+        f"(device {_ms(t1['device_ms'])})  serial {t1['serial ms']:.4f} ms (device "
+        f"{_ms(t1['serial device_ms'])})  plain {t1['plain_ms']:.4f} ms  bound "
+        f"{t1['bound_ms'] * 1e3:.2f} us (bytes)")
     out["butterfly_table_w128"] = t1
     return out
 
@@ -1589,12 +1646,115 @@ def _lda_layout_timing(corpus, dev, g, C: int):
     return out
 
 
+# K1's schedule grid: W = 64 and 128, K = 32,000 and 256,000, B from 128
+# up to the largest power of two whose fp32 weights and table fit in 8 GiB
+TABLE_GRID = [(B, Kc, W) for W in (64, 128) for Kc in (32000, 256000)
+              for B in (128 << i for i in range(9)) if B * Kc * 8 <= 8 << 30]
+
+
+def _table_timing(dev, g):
+    """K1 in each schedule at (128, 256000), W = 128 (the butterfly state of
+    64 rows; also the host's time per call) and over TABLE_GRID, uniform
+    weights: CUDA-event and profiler device ms beside the bound."""
+    scheds = getattr(KT, "SCHEDULES", None)
+    out = []
+    for i, (B, Kc, W) in enumerate([(128, gemma2_9b.VOCAB_SIZE, 128)] + TABLE_GRID):
+        w = torch.rand((B, Kc), generator=g, device=dev)
+        G, nb = B // W, Kc // W
+        row = {"B": B, "K": Kc, "W": W, "bound_ms": B * Kc * 8 / HBM_BYTES_PER_S * 1e3}
+        if scheds:
+            row["rule"] = KT.table_schedule(G, nb, W)
+            row["P"] = KTR.table_split_blocks(G, nb, W)
+            calls = {s: (lambda s=s: KT._butterfly_table(w, W, "blocks", schedule=s))
+                     for s in scheds}
+        else:
+            calls = {"default": lambda: KT.butterfly_table_cuda(w, W, "blocks")}
+        for name, fn in calls.items():
+            if i == 0:  # the main shape: also the host's time and each kernel apart
+                row[name] = _timed(fn, True)
+                row[name]["by_kernel"] = {k.split("<")[0].split("::")[-1]: v for k, v in
+                                          device_ms_by_kernel(fn).items()}
+            else:
+                row[name] = {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
+        log("  K1 " + " ".join(f"{k}={v}" for k, v in row.items()))
+        out.append(row)
+        del w
+    return out
+
+
+def _walk_layout_timing(corpus, dev, g, C: int):
+    """K7 in each layout at the chunk (K = 240) and at K = 3,000 (the
+    two-pass route of ``lda_draw_docs``), W = 32, S = 1 and 4 draws per
+    position, on K6's running sums of Dirichlet factors."""
+    W, V = 32, corpus.vocab_size
+    layouts = KL.LAYOUTS if hasattr(KL, "_lda_walk") else None
+    docs = torch.as_tensor(corpus.docs[:C], device=dev)
+    N = docs.shape[1]
+    d = (torch.arange(C * N, device=dev, dtype=torch.int32) // N).contiguous()
+    w = docs.reshape(-1).to(torch.int32).contiguous()
+    out = []
+    for Kc in (CONFIG.K, 3000):
+        th, ph = factors("dirichlet", C, V, Kc, g, dev)
+        nb = KL.num_blocks(Kc, W)
+        run = KL.lda_blocksums(th, ph, d, w, W, nb)
+        for S in (1, 4):
+            rows = torch.arange(d.numel(), dtype=torch.int32, device=dev).repeat(S)
+            ds, ws = d.repeat(S), w.repeat(S)
+            u = torch.rand(rows.numel(), generator=g, device=dev)
+            idx = KL.lda_walk(th, ph, run, u, rows, ds, ws, W)
+            row = {"K": Kc, "S": S, "draws": rows.numel(), "W": W, "nb": nb,
+                   "bound_ms": bounds("lda_walk", th, ph, d, w, idx, W, nb, S=S)[0]}
+            calls = ({lay: (lambda lay=lay: KL._lda_walk(th, ph, run, u, rows, ds, ws, W,
+                                                         layout=lay)) for lay in layouts}
+                     if layouts else
+                     {"default": lambda: KL.lda_walk(th, ph, run, u, rows, ds, ws, W)})
+            if layouts:
+                row["rule"] = KL.lda_walk_layout(nb, W)
+            for name, fn in calls.items():
+                row[name] = _timed(fn, True)
+            log("  K7 " + " ".join(f"{k}={v}" for k, v in row.items()))
+            out.append(row)
+    return out
+
+
+def _fence_timing(corpus, dev, g, chunk, d, w):
+    """Device times of the kernels that phase 2g times nowhere else, at the
+    main paths' shapes: K1 at the chunk (W = 16, the butterfly sweep's
+    call), K6 at the chunk (W = 32), K9, K10 and K12 at (64, 256000), W =
+    128, gemma2-9b's params, K13 at phi (37,286 x 240)."""
+    K, V = CONFIG.K, corpus.vocab_size
+    th, ph = factors("dirichlet", 256, V, K, g, dev)
+    B, Kv, W = DECODE_B, gemma2_9b.VOCAB_SIZE, 128
+    wv = trunc_weights("softmax", B, Kv, g, dev)
+    prm = trunc_params("uniform", B, g, dev)
+    u = torch.rand(B, generator=g, device=dev)
+    tau = tr.thresholds_from_params(wv, prm).contiguous()
+    run = KB.masked_blocksums(wv, tau, W, KB.num_blocks(Kv, W))
+    rows = torch.arange(B, dtype=torch.int32, device=dev)
+    s2, _ = _seed2(dev)
+    phi = factors("dirichlet", 1, V, K, g, dev)[1]
+    s_sorted, _o, _i, nL = aops._partition(phi)
+    sp = torch.nn.functional.pad(s_sorted, (0, aops._next_pow2(K) - K), value=1.0).contiguous()
+    rank = aops._merged_rank(sp, nL).contiguous()
+    calls = {"K1 chunk W=16": lambda: KT.butterfly_table_cuda(chunk, 16, "blocks"),
+             "K6 chunk W=32": lambda: KL.lda_blocksums(th, ph, d, w, 32, KL.num_blocks(K, 32)),
+             "K9": lambda: KB.fused_trunc_draw(wv, u, prm, W),
+             "K10": lambda: KB.fused_trunc_draw_rng(wv, s2, 0, prm, W),
+             "K12": lambda: KB.walk_trunc(wv, run, u, tau, rows, W),
+             "K13 phi": lambda: KA.alias_assemble(sp, nL, rank)}
+    out = {n: _timed(fn, True) for n, fn in calls.items()}
+    log("  fence " + " ".join(f"{k}={v}" for k, v in out.items()))
+    return out
+
+
 def phase_layout_timing(corpus, dev, seed):
     """CUDA-event times of K2, K4 and K5 in each layout at LAYOUT_SHAPES
     (K2 beside its library call, ``view(B, nb, W).sum(-1).cumsum(1)``), K3
     at the chunk (W = 16) with S = 1 and 4, K8 in each layout at
-    LDA_LAYOUT_KS and over every position of the corpus, and K11 at (64,
-    256000) W = 128, each beside its bound (each input read once, each
+    LDA_LAYOUT_KS and over every position of the corpus, K7 in each layout
+    (``_walk_layout_timing``), K1 in each schedule (``_table_timing``), K11
+    at (64, 256000) W = 128 and the kernels of ``_fence_timing``, each
+    beside its bound (each input read once, each
     output written once); at the main paths' shapes also the device time
     from torch.profiler, which leaves out the host's time per call, and
     that host time (where it exceeds the device time, the CUDA-event time
@@ -1669,6 +1829,9 @@ def phase_layout_timing(corpus, dev, seed):
         log(f"  K3 chunk ({B},{K}) W={W} S={S}: {ms:.4f} ms (device {_ms(dms)}, host "
             f"{hus:.1f} us per call), bound {bms:.5f} ms")
     res["lda_fused"] = _lda_layout_timing(corpus, dev, g, C)
+    res["lda_walk"] = _walk_layout_timing(corpus, dev, g, C)
+    res["butterfly_table"] = _table_timing(dev, g)
+    res["fence"] = _fence_timing(corpus, dev, g, chunk, d, w)
     # K11 (untouched by the K2 and K8 layouts) at the decode's shape
     Bv, Kv, Wv = DECODE_B, gemma2_9b.VOCAB_SIZE, 128
     wv = trunc_weights("softmax", Bv, Kv, g, dev)
@@ -1971,6 +2134,10 @@ def main(argv=None) -> int:
             "library_ms": tm.get("library_ms"), "bound_us": tm["bound_ms"] * 1e3,
             "mismatches": t["mismatches"], "ties": t["ties"], "cases": t["cases"],
         })
+        if name == "butterfly_table":  # the W = 128 call beside the chunk's
+            w128 = timing["butterfly_table_w128"]
+            kernels[-1].update({f"{k}_w128": w128[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "schedule")})
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({

@@ -456,12 +456,14 @@ __device__ __forceinline__ int group_walk(const T* __restrict__ w,
 }
 
 // ---------------------------------------------------------------------------
-// Four columns a lane: K2's split layout and K8's group layout
+// Four columns a lane: K2's split layout, K8's and K7's group layouts
 // ---------------------------------------------------------------------------
 //
-// The helpers below are K2's and K8's alone; the functions above, which
-// K3, K4/K5, K6/K7 and K9-K11 run, are not routed through them.  A lane
-// holds four consecutive columns and adds them as (e0 + e1) + (e2 + e3):
+// The helpers below are K2's, K8's and K7's group layout's alone (K7's
+// group layout runs the group_walk overload over a running row in global
+// memory); the functions above, which K3, K4/K5, K6, K7's warp layout and
+// K9-K11 run, are not routed through them.  A lane holds four
+// consecutive columns and adds them as (e0 + e1) + (e2 + e3):
 // the first two levels of a 32-lane xor tree over one column a lane, which
 // is the balanced pairwise tree in index order.  xor shuffles over the
 // lanes of each 32-column piece make its other three levels, and a W-block

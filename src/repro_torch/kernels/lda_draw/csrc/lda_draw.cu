@@ -33,6 +33,12 @@
 // again from the factors (L1/L2).  Every add is the warp layout's, so the
 // layouts, and K8 and K6 + K7, give the same indices.
 //
+// K7 has the same group layout, which its wrapper takes at every W (it
+// needs no shared memory): K8's group_walk over a running row read from
+// global memory.  The warp layout's select, block load through shared
+// memory, Fenwick table and one-lane descent cost it 37x its bound at the
+// chunk (109,568 draws, S = 4).
+//
 // Bound.  All three are memory-bound gathers: per sample K8 and K6 read two
 // K-wide rows (8K bytes in fp32) and do 2K flops; K7 reads one running row
 // (4 nb bytes) and two W-wide slices.  The design keeps the only other
@@ -165,6 +171,34 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (lane == 0) out[s] = jb * W + R;
 }
 
+// K7, group layout: draw s by the group of W / 4 lanes threadIdx.x / (W /
+// 4) of its block (32 / (W / 4) draws per warp), its running row read
+// from global memory, block jb's products formed with one 16-byte load per
+// lane and factor (VEC) or four loads; group_walk makes lda_walk_kernel's
+// count, Fenwick adds and descent, so the index is the same bit for bit.
+template <typename T, int W, bool VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+    lda_walk_group_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
+                          const float* __restrict__ running,
+                          const float* __restrict__ u, const int* __restrict__ rows,
+                          const int* __restrict__ doc_ids,
+                          const int* __restrict__ words, int* __restrict__ out,
+                          int Bt, int ncols, int nb) {
+  constexpr int G = W / 4;
+  constexpr int kDraws = kWarps * 32 / G;  // draws per block
+  const int base = blockIdx.x * kDraws;
+  if (base + (threadIdx.x & ~31) / G >= Bt) return;  // the whole warp is past Bt
+  const int q = threadIdx.x & (G - 1);
+  const int gid = base + threadIdx.x / G;
+  // a group past Bt redoes the last draw, so every lane joins the shuffles
+  const int s = gid < Bt ? gid : Bt - 1;
+  const ProductRow4<T, VEC> row{theta + static_cast<size_t>(doc_ids[s]) * ncols,
+                                phi + static_cast<size_t>(words[s]) * ncols, ncols};
+  const int idx = group_walk<W>(row, running + static_cast<size_t>(rows[s]) * nb, nb,
+                                u[s], q);
+  if (q == 0 && gid < Bt) out[s] = idx;
+}
+
 inline unsigned grid_for(int Bt) {
   return static_cast<unsigned>((Bt + kWarps - 1) / kWarps);
 }
@@ -203,6 +237,45 @@ int launch_group(const void* theta, const void* phi, const int* d, const int* w,
       return launch_group_w<T, 64>(th, ph, d, w, u, out, Bt, ncols, nb, vec, st);
     case 128:
       return launch_group_w<T, 128>(th, ph, d, w, u, out, Bt, ncols, nb, vec, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int W>
+int launch_walk_group_w(const T* theta, const T* phi, const float* r, const float* u,
+                        const int* rw, const int* d, const int* w, int* out, int Bt,
+                        int ncols, int nb, bool vec, cudaStream_t st) {
+  constexpr int kDraws = kWarps * 32 / (W / 4);
+  const unsigned grid = static_cast<unsigned>((Bt + kDraws - 1) / kDraws);
+  if (vec)
+    lda_walk_group_kernel<T, W, true><<<grid, kWarps * 32, 0, st>>>(
+        theta, phi, r, u, rw, d, w, out, Bt, ncols, nb);
+  else
+    lda_walk_group_kernel<T, W, false><<<grid, kWarps * 32, 0, st>>>(
+        theta, phi, r, u, rw, d, w, out, Bt, ncols, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_walk_group(const void* theta, const void* phi, const float* r, const float* u,
+                      const int* rw, const int* d, const int* w, int* out, int Bt,
+                      int ncols, int nb, int W, cudaStream_t st) {
+  const T* th = static_cast<const T*>(theta);
+  const T* ph = static_cast<const T*>(phi);
+  const bool vec = draw_tile::rows_aligned(th, ncols) && draw_tile::rows_aligned(ph, ncols);
+  switch (W) {
+    case 8:
+      return launch_walk_group_w<T, 8>(th, ph, r, u, rw, d, w, out, Bt, ncols, nb, vec, st);
+    case 16:
+      return launch_walk_group_w<T, 16>(th, ph, r, u, rw, d, w, out, Bt, ncols, nb, vec, st);
+    case 32:
+      return launch_walk_group_w<T, 32>(th, ph, r, u, rw, d, w, out, Bt, ncols, nb, vec, st);
+    case 64:
+      return launch_walk_group_w<T, 64>(th, ph, r, u, rw, d, w, out, Bt, ncols, nb, vec, st);
+    case 128:
+      return launch_walk_group_w<T, 128>(th, ph, r, u, rw, d, w, out, Bt, ncols, nb, vec,
+                                         st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -263,10 +336,12 @@ int lda_blocksums(const void* theta, const void* phi, const void* doc_ids,
   return static_cast<int>(cudaGetLastError());
 }
 
+// group: 0 for the warp layout, 1 for the group layout (W / 4 lanes per
+// draw, no shared memory).
 int lda_walk(const void* theta, const void* phi, const void* running,
              const void* u, const void* rows, const void* doc_ids,
              const void* words, void* out, int Bt, int ncols, int nb, int W,
-             int dtype, void* stream) {
+             int group, int dtype, void* stream) {
   if (Bt <= 0) return 0;
   const size_t smem = sizeof(float) * kWarps * W;
   auto st = static_cast<cudaStream_t>(stream);
@@ -276,6 +351,12 @@ int lda_walk(const void* theta, const void* phi, const void* running,
   const int* d = static_cast<const int*>(doc_ids);
   const int* w = static_cast<const int*>(words);
   int* o = static_cast<int*>(out);
+  if (group) {
+    if (dtype == 1)
+      return launch_walk_group<__nv_bfloat16>(theta, phi, r, uu, rw, d, w, o, Bt, ncols,
+                                              nb, W, st);
+    return launch_walk_group<float>(theta, phi, r, uu, rw, d, w, o, Bt, ncols, nb, W, st);
+  }
   if (dtype == 1)
     lda_walk_kernel<__nv_bfloat16><<<grid_for(Bt), kWarps * 32, smem, st>>>(
         static_cast<const __nv_bfloat16*>(theta),

@@ -31,6 +31,9 @@ draws per warp) with only the nb block sums in shared memory and four
 columns a lane (one 16-byte load per factor where every row start is
 aligned).  :func:`lda_fused_layout` picks one from the shapes before the
 launch; the private ``_lda_fused_draw`` takes ``layout=`` to force one.
+K7 has the same two layouts, its group one walking a running row read
+from global memory (K8's ``group_walk``); :func:`lda_walk_layout` picks
+it, the private ``_lda_walk`` takes ``layout=``.
 """
 
 from __future__ import annotations
@@ -62,8 +65,8 @@ LAUNCHES: Dict[str, int] = {"lda_fused_draw": 0, "lda_blocksums": 0, "lda_walk":
 _WARPS_PER_BLOCK = 4
 _FUSED_SMEM_BYTES = 48 << 10
 
-# K8's layouts.  The group layout keeps nb floats per draw in shared
-# memory, 32 / (W / 4) draws per warp (group_fits).
+# K8's and K7's layouts.  K8's group layout keeps nb floats per draw in
+# shared memory, 32 / (W / 4) draws per warp (group_fits); K7's keeps none.
 LAYOUTS = ("warp", "group")
 
 
@@ -89,6 +92,22 @@ def lda_fused_layout(nb: int, W: int) -> str:
     return "group" if group_fits(nb, W) else "warp"
 
 
+def lda_walk_layout(nb: int, W: int) -> str:
+    """The layout of K7 for draws from running rows of nb W-blocks:
+    ``"group"`` at every W in [8, 128] (it needs no shared memory)."""
+    runtime.check_w(W)
+    return "group"
+
+
+def _resolve_layout(layout, rule: str) -> str:
+    """``layout`` checked against :data:`LAYOUTS`; None takes ``rule``."""
+    if layout is None:
+        return rule
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS} or None, got {layout!r}")
+    return layout
+
+
 # ---------------------------------------------------------------------------
 # ctypes binding
 # ---------------------------------------------------------------------------
@@ -98,7 +117,7 @@ _I = ctypes.c_int
 _SIGS = {
     "lda_fused_draw": [_P] * 6 + [_I] * 6 + [_P],
     "lda_blocksums": [_P] * 5 + [_I] * 5 + [_P],
-    "lda_walk": [_P] * 8 + [_I] * 5 + [_P],
+    "lda_walk": [_P] * 8 + [_I] * 6 + [_P],
 }
 
 
@@ -143,10 +162,7 @@ def _lda_fused_draw(theta, phi, doc_ids, words, u, W: int, layout=None) -> torch
     ``"group"``); None picks it with :func:`lda_fused_layout`.  Both give
     the same indices; forcing is for timing them against each other."""
     nb = num_blocks(theta.shape[1], W)
-    if layout is None:
-        layout = lda_fused_layout(nb, W)
-    elif layout not in LAYOUTS:
-        raise ValueError(f"layout must be one of {LAYOUTS} or None, got {layout!r}")
+    layout = _resolve_layout(layout, lda_fused_layout(nb, W))
     ncols = _check_factors(theta, phi, nb, W)
     Bt = u.shape[0]
     _check_vec("doc_ids", doc_ids, torch.int32, Bt, theta)
@@ -227,7 +243,17 @@ def lda_walk(theta, phi, running, u, rows, doc_ids, words, W: int) -> torch.Tens
     """(Bt,) int32 draws in [0, Kp) from prebuilt running block sums
     (K7): draw s uses running row ``rows[s]``, and reads only block jb of
     theta[doc_ids[s]] and phi[words[s]].  The kernel finds jb itself."""
+    return _lda_walk(theta, phi, running, u, rows, doc_ids, words, W)
+
+
+def _lda_walk(theta, phi, running, u, rows, doc_ids, words, W: int,
+              layout=None) -> torch.Tensor:
+    """:func:`lda_walk` in the layout ``layout`` (``"warp"`` or
+    ``"group"``); None picks it with :func:`lda_walk_layout`.  Both give
+    the same indices; forcing is for holding and timing them against each
+    other."""
     nb = running.shape[1]
+    layout = _resolve_layout(layout, lda_walk_layout(nb, W))
     ncols = _check_factors(theta, phi, nb, W)
     Bt = u.shape[0]
     if running.device != theta.device or running.dtype != torch.float32 \
@@ -240,7 +266,7 @@ def lda_walk(theta, phi, running, u, rows, doc_ids, words, W: int) -> torch.Tens
     _launch(
         "lda_walk", theta.data_ptr(), phi.data_ptr(), running.data_ptr(),
         u.data_ptr(), rows.data_ptr(), doc_ids.data_ptr(), words.data_ptr(),
-        out.data_ptr(), Bt, ncols, nb, W, _DTYPES[theta.dtype],
+        out.data_ptr(), Bt, ncols, nb, W, int(layout == "group"), _DTYPES[theta.dtype],
     )
     return out
 

@@ -12,6 +12,9 @@
   draw (one column a lane), and a group of W / 4 lanes per draw (four
   columns a lane).  They make the same fp32 adds in the same order, so
   they agree bit for bit.
+* :func:`walk_group_order_torch` — K7's group layout (a group of W / 4
+  lanes per draw over a prebuilt running row), whose adds are
+  ``lda_walk_torch``'s.
 """
 
 from __future__ import annotations
@@ -118,5 +121,21 @@ def fused_group_order_torch(theta, phi, doc_ids, words, u, W: int) -> torch.Tens
 
     prod = _products(theta, phi, doc_ids, words, W)
     run = _bref.warp_running_order_torch(_bref.block_sums4_order_torch(prod, W))
+    u = torch.as_tensor(u, dtype=torch.float32)
+    return _bref.group_walk_order_torch(prod, run, u, torch.arange(prod.shape[0]), W)
+
+
+def walk_group_order_torch(theta, phi, running, u, rows, doc_ids, words,
+                           W: int) -> torch.Tensor:
+    """(Bt,) int32 draws in [0, Kp) as K7's group layout makes them, G =
+    W / 4 lanes per draw: draw s walks running row ``rows[s]`` with the
+    products theta[doc_ids[s]] * phi[words[s]] formed as ``ProductRow4``
+    forms them (one fp32 multiply each, zero past the row width) and
+    ``group_walk``'s count, Fenwick up-sweep and descent
+    (``butterfly_sample.ref.group_walk_order_torch``)."""
+    from repro_torch.kernels.butterfly_sample import ref as _bref
+
+    prod = _products(theta, phi, doc_ids, words, W)
+    run = torch.as_tensor(running, dtype=torch.float32)[torch.as_tensor(rows).long()]
     u = torch.as_tensor(u, dtype=torch.float32)
     return _bref.group_walk_order_torch(prod, run, u, torch.arange(prod.shape[0]), W)

@@ -817,3 +817,89 @@ def test_lda_layouts_launches_and_rule(dev):
     th, ph, d, w, u = _inputs(dev, 6, 64, 30, 2728, "int")
     with pytest.raises(ValueError, match="shared memory"):
         K._lda_fused_draw(th, ph, d, w, u, 8, layout="group")
+
+
+# ---------------------------------------------------------------------------
+# K1's split schedule (W = 64, 128) and K7's group layout
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.butterfly_table.ref import table_serial_order_torch  # noqa: E402
+from repro_torch.kernels.lda_draw.ref import walk_group_order_torch  # noqa: E402
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("W", [64, 128])
+def test_table_split_equals_serial(dev, W, G, dtype):
+    """K1's split schedule builds the serial schedule's table bit for bit
+    at (G * W, 256000), Dirichlet weights, in both layouts; the rule picks
+    the split there; one launch a call.  At nb = 37 both equal the
+    exact-order model."""
+    K = 256000
+    w, _ = _weights(dev, W + G, G * W, K, "dirichlet", dtype)
+    assert KT.table_schedule(G, K // W, W) == "split"
+    for layout in KT.LAYOUTS:
+        KT.reset_launches()
+        split = KT._butterfly_table(w, W, layout, schedule="split")
+        serial = KT._butterfly_table(w, W, layout, schedule="serial")
+        torch.cuda.synchronize()
+        assert KT.LAUNCHES == {"butterfly_table": 2}
+        assert torch.equal(split, serial), layout
+        assert torch.equal(KT.butterfly_table_cuda(w, W, layout), split), layout
+    ws = w[:, :37 * W].contiguous()
+    model = table_serial_order_torch(ws.cpu(), W)
+    for schedule in KT.SCHEDULES:
+        assert torch.equal(KT._butterfly_table(ws, W, "blocks", schedule=schedule).cpu(),
+                           model), schedule
+
+
+def _walk_case(dev, seed, B, V, Kc, kind, dtype, S):
+    th, ph, d, w, _ = _inputs(dev, seed, B, V, Kc, kind, dtype)
+    th[::4] = 0
+    nb = KB.num_blocks(Kc, 32)
+    running = K.lda_blocksums(th, ph, d, w, 32, nb)
+    u = torch.rand(S * B, device=dev)
+    rows = torch.arange(B, dtype=torch.int32, device=dev).repeat(S)
+    return th, ph, running, u, rows, d[rows.long()].contiguous(), w[rows.long()].contiguous()
+
+
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("V,Kc", [(37286, 240), (500, 239), (300, 61), (30, 3000)])
+def test_lda_walk_group_equals_warp(dev, V, Kc, S):
+    """K7's group layout draws the warp layout's indices bit for bit at the
+    chunk's 27,392 draws a sample (W = 32; integer, Dirichlet and bf16
+    factors, all-zero theta rows, K % 4 != 0 and a misaligned phi: the
+    four-load instantiation), equal to its exact-order model, and K6 + K7
+    equals K8 on the same uniforms."""
+    B, W = 27392, 32
+    for kind, dtype in (("int", torch.float32), ("dirichlet", torch.float32),
+                        ("int", torch.bfloat16)):
+        th, ph, run, u, rows, dd, ww = _walk_case(dev, V + Kc + S, B, V, Kc, kind, dtype, S)
+        group = K._lda_walk(th, ph, run, u, rows, dd, ww, W, layout="group")
+        warp = K._lda_walk(th, ph, run, u, rows, dd, ww, W, layout="warp")
+        torch.cuda.synchronize()
+        assert torch.equal(group, warp), (kind, dtype)
+        assert torch.equal(K.lda_walk(th, ph, run, u, rows, dd, ww, W), group)
+        assert torch.equal(group.cpu(), walk_group_order_torch(
+            th.cpu(), ph.cpu(), run.cpu(), u.cpu(), rows.cpu(), dd.cpu(), ww.cpu(), W))
+        if S == 1 and K.group_fits(run.shape[1], W):
+            assert torch.equal(group, K.lda_fused_draw(th, ph, dd, ww, u, W))
+    th, ph, run, u, rows, dd, ww = _walk_case(dev, Kc, B, V, Kc + 1, "dirichlet",
+                                              torch.float32, S)
+    shifted = ph.reshape(-1)[1:1 + V * Kc].view(V, Kc)
+    th = th[:, :Kc].contiguous()
+    run = K.lda_blocksums(th, shifted, dd[:B], ww[:B], W, KB.num_blocks(Kc, W))
+    assert torch.equal(K._lda_walk(th, shifted, run, u, rows, dd, ww, W, layout="group"),
+                       K._lda_walk(th, shifted, run, u, rows, dd, ww, W, layout="warp"))
+
+
+def test_lda_walk_layouts_launches_and_rule(dev):
+    """One launch a call in either layout; every W takes the group
+    layout."""
+    th, ph, run, u, rows, dd, ww = _walk_case(dev, 7, 1000, 300, 240, "dirichlet",
+                                              torch.float32, 2)
+    K.reset_launches()
+    for layout in K.LAYOUTS:
+        K._lda_walk(th, ph, run, u, rows, dd, ww, 32, layout=layout)
+    assert K.LAUNCHES == {"lda_fused_draw": 0, "lda_blocksums": 0, "lda_walk": 2}
+    assert all(K.lda_walk_layout(8, W) == "group" for W in GRID_W)

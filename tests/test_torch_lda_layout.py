@@ -1,5 +1,6 @@
-"""The redesigned layouts of K8 (a group of W / 4 lanes per factored draw)
-and K2 (a wide row split over several thread blocks, four columns a lane),
+"""The redesigned layouts of K8 and K7 (a group of W / 4 lanes per
+factored draw) and K2 (a wide row split over several thread blocks, four
+columns a lane),
 on the CPU, as exact-order models of the card's arithmetic: the two
 layouts of each held against each other bit for bit, and on integer
 factors against the plain version and the reference's Pallas kernel
@@ -21,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.lda_draw import ops as jops
 from repro.kernels.lda_draw.kernel import lda_draw_docs_pallas
 from repro_torch.kernels.butterfly_sample import kernel as KB
 from repro_torch.kernels.butterfly_sample import ref as bref
@@ -206,3 +208,80 @@ def test_group_layout_checks_its_own_shared_memory():
     assert KL.group_fits(94, 32) and not KL.fused_fits(94, 32)
     assert KL.fused_fits(341, 8) and not KL.group_fits(341, 8)
     assert KL.fused_fits(8, 32) and KL.group_fits(8, 32)
+
+
+def _walk_inputs(th, ph, d, w, u, W, S, dtype=torch.float32):
+    """K7's inputs for S draws per sample: factors in ``dtype``, the plain
+    running sums of each sample, and draw s * B + i on running row i."""
+    tt, tp = (torch.as_tensor(x).to(dtype) for x in (th, ph))
+    td, tw = torch.as_tensor(d), torch.as_tensor(w)
+    B = td.shape[0]
+    run = KL.lda_blocksums_torch(tt, tp, td, tw, W, KB.num_blocks(th.shape[1], W))
+    uu = torch.as_tensor(np.random.default_rng(S + W).uniform(0, 1, size=S * B)
+                         .astype(np.float32)) if S > 1 else torch.as_tensor(u)
+    rows = torch.arange(B, dtype=torch.int32).repeat(S)
+    return tt, tp, run, uu, rows, td[rows.long()], tw[rows.long()]
+
+
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("K,dtype", [(240, torch.float32), (239, torch.float32),
+                                     (240, torch.bfloat16), (61, torch.float32)])
+@pytest.mark.parametrize("W", GRID_W)
+def test_walk_group_model_equals_plain_walk(W, K, dtype, S):
+    """K7's group layout (four columns a lane, G = W / 4 lanes a draw)
+    makes ``lda_walk_torch``'s adds: equal draws bit for bit on Dirichlet
+    factors, S draws per sample through ``rows``, K = 239 (ncols % 4 !=
+    0), bf16 and all-zero theta rows (which draw the last column)."""
+    th, ph, d, w, u = _factors(W + K + S, K, "dirichlet")
+    tt, tp, run, uu, rows, dd, ww = _walk_inputs(th, ph, d, w, u, W, S, dtype)
+    plain = KL.lda_walk_torch(tt, tp, run, uu, rows, dd, ww, W)
+    group = lref.walk_group_order_torch(tt, tp, run, uu, rows, dd, ww, W)
+    assert group.dtype == torch.int32
+    assert torch.equal(group, plain.to(torch.int32))
+    zero = torch.as_tensor(d % 5 == 0).repeat(S)
+    assert bool((group[zero] == KB.num_blocks(K, W) * W - 1).all())
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("W,K", [(8, 61), (16, 240), (32, 239)])
+def test_walk_group_model_equals_reference_on_integer_factors(W, K, S):
+    """On integer factors (every fp32 sum exact) K7's group model draws
+    what the reference's table-in Pallas walk (``lda_walk_pallas``,
+    interpret mode) draws from the reference's own running sums, clipped
+    to K - 1 as the entry points clip."""
+    th, ph, d, w, u = _factors(5 * W + K + S, K, "int")
+    tt, tp, run, uu, rows, dd, ww = _walk_inputs(th, ph, d, w, u, W, S)
+    jtp, jpp, jrun = jops.lda_build_running(*(jnp.asarray(x) for x in (th, ph, d, w)),
+                                            W=W, impl="xla")
+    np.testing.assert_array_equal(run.numpy(), np.asarray(jrun))
+    ju = jnp.asarray(uu.numpy().reshape(S, -1) if S > 1 else uu.numpy())
+    want = jops.lda_draw_from_running(jtp, jpp, jrun, ju, jnp.asarray(d), jnp.asarray(w),
+                                      K=K, W=W, impl="pallas", interpret=True)
+    group = lref.walk_group_order_torch(tt, tp, run, uu, rows, dd, ww, W)
+    np.testing.assert_array_equal(group.clamp(max=K - 1).numpy(),
+                                  np.asarray(want).reshape(-1))
+
+
+@pytest.mark.parametrize("nb", [1, 8, 94, 2000])
+@pytest.mark.parametrize("W", GRID_W)
+def test_lda_walk_layout_rule(nb, W):
+    """K7 takes its group layout at every W and nb: it needs no shared
+    memory."""
+    assert KL.lda_walk_layout(nb, W) == "group"
+    assert KL.lda_walk_layout(nb, W) in KL.LAYOUTS
+
+
+def test_private_walk_layout_argument_rejects_unknown_names():
+    th = torch.ones((4, 240))
+    ph = torch.ones((9, 240))
+    ids = torch.zeros((4,), dtype=torch.int32)
+    u = torch.full((4,), 0.5)
+    run = torch.ones((4, 8))
+    for bad in ("split", "warps", "", "Group"):
+        with pytest.raises(ValueError, match="layout"):
+            KL._lda_walk(th, ph, run, u, ids, ids, ids, 32, layout=bad)
+    for layout in KL.LAYOUTS:  # a known layout gets past the name check
+        with pytest.raises(ValueError, match="CUDA"):
+            KL._lda_walk(th, ph, run, u, ids, ids, ids, 32, layout=layout)
+    with pytest.raises(ValueError, match="power of two"):
+        KL.lda_walk_layout(8, 4)
