@@ -30,13 +30,14 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (P > 1 blocks a group at every case) equal to the serial one bit for
    bit.  K7 in both layouts (one warp, a group of W/4 lanes per draw)
    against the plain walk on K6's sums, bit for bit, S=1 and 4, at every
-   K8 case.  K3 (a
+   K8 case, and K6 in both layouts equal bit for bit there (and to its
+   plain version on integer factors).  K3 (a
    group of W/4 lanes per draw) also at W=8, 64 and 128 and at K=239
    (ncols % 4 != 0: four loads a lane), each case against its plain
    version on the plain running sums (ties only on real weights), against
    the plain walk on the card's running sums and against K4's draw on the
-   same uniforms (both bit for bit).  The truncated draws (phase 2d): K9, K11 and K12 (S=1 and S=4) and both
-   routes forced, at (8, 256000), (64, 256000), (64, 128256) and (24, 300);
+   same uniforms (both bit for bit).  The truncated draws (phase 2d): K9, K11 and K12 (S=1 and S=4; K12
+   in both layouts, equal bit for bit) and both routes forced, at (8, 256000), (64, 256000), (64, 128256) and (24, 300);
    integer and peaked-softmax weights, bf16, zero rows, gemma2-9b's and
    per-row params with disabled stages; real-weight mismatches are ties
    only where float64 shows them within the rounding of sums as deep as
@@ -79,8 +80,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    position of the corpus, K7 in both layouts at the chunk and K = 3,000
    (S=1 and 4), K1 in both schedules at (128, 256000) (each kernel's
    device time apart) and over a B x K grid at W = 64 and 128, K11 at
-   (64, 256000), and the device times of K1 at the chunk, K6, K9, K10,
-   K12 and K13 at the main paths' shapes.
+   (64, 256000), the device times of K1 at the chunk, K6, K9, K10, K12
+   and K13 at the main paths' shapes, K6 in both layouts beside its
+   library call (the gathered product, ``view(Bt, nb, W).sum(-1).
+   cumsum(1)``) at the chunk and at K = 3,000, and K12 in both layouts at
+   (64, 256000), (64, 4096), (64, 32000) and (64, 128256) with S = 1 and
+   4, beside the device time of a 64-element ``add_``.
 3. The main paths at the paper's Wikipedia scale (M=43,556 docs,
    V=37,286 words, K=240, ~3.07M tokens, Zipf word ids, made from --seed),
    each run with the launch counts set to 0 just before it and read just
@@ -124,7 +129,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``lda_draw_factored_rng`` on the whole batch; 30 sweeps of the planted
    corpus below 0.6x its start.
 
-The last two lines are the ``{"kernels": [...]}`` record (13 kernels) and
+The last two lines are the ``{"kernels": [...]}`` record (13 kernels; a
+kernel with several layouts also gives the one its rule picks at each
+main-path shape) and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script exits 1 before printing a result.
 """
@@ -212,6 +219,29 @@ KERNELS = {  # wrapper name -> (kernel-table id, source, TPU kernel it replaces,
 # shared memory
 DECODE_B = 64
 DECODE_VOCABS = (gemma2_9b.VOCAB_SIZE, 32000)
+
+
+def path_layouts() -> dict:
+    """The layout (K1: schedule) each kernel's rule picks at the shapes the
+    main paths give it: the chunk (27,392 draws, K = 240; W = 16 for the
+    given weights, 32 for the factors) and the decode widths (W = 128);
+    kernels with one layout are absent."""
+    Vd = gemma2_9b.VOCAB_SIZE
+    nbv, nbc = KB.num_blocks(Vd, 128), KB.num_blocks(CONFIG.K, 16)
+    chunk, dec = "chunk", f"(64, {Vd})"
+    return {
+        "butterfly_table": {chunk: KT.table_schedule(27392 // 16, nbc, 16),
+                            f"(128, {Vd})": KT.table_schedule(1, Vd // 128, 128)},
+        "blocksums": {chunk: KB.blocksums_layout(27392, nbc, 16),
+                      dec: KB.blocksums_layout(64, nbv, 128)},
+        "fused_draw": {chunk: KB.fused_layout(27392, nbc, 16)},
+        "fused_draw_rng": {dec: KB.fused_layout(64, nbv, 128)},
+        "lda_blocksums": {chunk: KL.lda_blocksums_layout(KL.num_blocks(CONFIG.K, 32), 32)},
+        "lda_walk": {chunk: KL.lda_walk_layout(KL.num_blocks(CONFIG.K, 32), 32)},
+        "lda_fused_draw": {chunk: KL.lda_fused_layout(KL.num_blocks(CONFIG.K, 32), 32)},
+        "walk_trunc": {f"(64, {K})": KB.walk_trunc_layout(KB.num_blocks(K, 128), 128)
+                       for K in DECODE_VOCABS},
+    }
 
 
 def reset_counts() -> None:
@@ -431,7 +461,7 @@ def phase_kernels(corpus, dev, seed: int):
             plain = ops.lda_draw_factored(th, ph, d, w, u, W=W, impl="torch")
             fused = ops.lda_draw_factored(th, ph, d, w, u, W=W)
             tally.indices("lda_fused_draw", case, fused, plain, th, ph, d, w, u, exact)
-            check_lda_layouts(tally, case, th, ph, d, w, u, u4, W)
+            check_lda_layouts(tally, case, th, ph, d, w, u, u4, W, exact)
             two = KL.lda_draw_docs(th, ph, d, w, u, W, route="two_pass")
             tally.indices("lda_walk", case + " two-pass route", two, plain,
                           th, ph, d, w, u, exact)
@@ -448,7 +478,7 @@ def phase_kernels(corpus, dev, seed: int):
                   ops.lda_draw_factored(th, ph, d, w, u, W=32),
                   ops.lda_draw_factored(th, ph, d, w, u, W=32, impl="torch"),
                   th.float(), ph.float(), d, w, u, True)
-    check_lda_layouts(tally, "W=32 bf16", th, ph, d, w, u, u4, 32)
+    check_lda_layouts(tally, "W=32 bf16", th, ph, d, w, u, u4, 32, True)
     # K8's layouts at the other widths, and at K = 239 (ncols % 4 != 0: the
     # group layout's four-loads-a-lane instantiation)
     for W in (8, 64, 128):
@@ -471,12 +501,14 @@ def phase_kernels(corpus, dev, seed: int):
     return tally, (d, w, u, u4)
 
 
-def check_lda_layouts(tally, case, th, ph, d, w, u, u4, W):
+def check_lda_layouts(tally, case, th, ph, d, w, u, u4, W, exact=False):
     """K8 in each layout that fits against the layout the rule picks, and
     K8 against K6 + K7 on the same uniforms (all bit for bit: the group
-    layout makes the warp layout's adds, which are K6's and K7's).  K7 in
-    each layout against the plain walk on K6's running sums, S = 1 and 4
-    (bit for bit: the same adds), so its group and warp layouts agree."""
+    layout makes the warp layout's adds, which are K6's and K7's).  K6 in
+    each layout that fits against the rule's pick (bit for bit), and on
+    integer factors (``exact``) against its plain version.  K7 in each
+    layout against the plain walk on K6's running sums, S = 1 and 4 (bit
+    for bit: the same adds), so its group and warp layouts agree."""
     nb = KL.num_blocks(th.shape[1], W)
     a = KL.lda_fused_draw(th, ph, d, w, u, W)
     for layout in KL.LAYOUTS:
@@ -484,6 +516,13 @@ def check_lda_layouts(tally, case, th, ph, d, w, u, u4, W):
             tally.same("lda_fused_draw", f"{case} {layout} layout",
                        KL._lda_fused_draw(th, ph, d, w, u, W, layout=layout), a)
     run = KL.lda_blocksums(th, ph, d, w, W, nb)
+    for layout in KL.LAYOUTS:
+        if layout == "warp" or KL.group_fits(nb, W):
+            tally.same("lda_blocksums", f"{case} {layout} layout",
+                       KL._lda_blocksums(th, ph, d, w, W, nb, layout=layout), run)
+    if exact:
+        tally.same("lda_blocksums", f"{case} vs plain", run,
+                   KL.lda_blocksums_torch(th, ph, d, w, W, nb))
     rows = torch.arange(u.shape[0], dtype=torch.int32, device=u.device)
     tally.same("lda_fused_draw", f"{case} vs K6 + K7", a,
                KL.lda_walk(th, ph, run, u, rows, d, w, W))
@@ -736,12 +775,23 @@ def phase_timing(corpus, dev, seed, inputs):
                            lambda: KL.lda_fused_draw_torch(th, ph, d, w, u, W), None,
                            bound("lda_fused_draw")),
         "lda_blocksums": (lambda: KL.lda_blocksums(th, ph, d, w, W, nb),
-                          lambda: KL.lda_blocksums_torch(th, ph, d, w, W, nb), None,
+                          lambda: KL.lda_blocksums_torch(th, ph, d, w, W, nb),
+                          k6_library(th, ph, d, w, W, nb),
                           bound("lda_blocksums")),
         "lda_walk": (lambda: KL.lda_walk(th, ph, run, uf, rows4, d4, w4, W),
                      lambda: KL.lda_walk_torch(th, ph, run, uf, rows4, d4, w4, W), None,
                      bound("lda_walk", S)),
     })
+
+
+def k6_library(th, ph, d, w, W, nb):
+    """K6's library yardstick, one PyTorch expression (never called by the
+    port): the gathered products padded to nb * W columns, W-block sums,
+    cumsum; the (Bt, K) product is formed."""
+    dl, wl = d.long(), w.long()
+    pad = nb * W - th.shape[1]
+    return lambda: torch.nn.functional.pad(th[dl] * ph[wl], (0, pad)).view(
+        dl.numel(), nb, W).sum(-1).cumsum(1)
 
 
 def given_bounds(name, wts, W, nb, out_idx, rows):
@@ -1060,7 +1110,9 @@ def trunc_edge_rows(K: int, g: torch.Generator, dev):
 def phase_trunc_kernels(dev, seed: int, tally):
     """K9, K11 and K12 against their plain versions at TRUNC_CASES:
     integer and peaked-softmax weights, bf16, zero rows, gemma2-9b's and
-    per-row params, both routes forced, K12 with S=1 and S=4.  K9's radix
+    per-row params, both routes forced, K12 with S=1 and S=4 and in each
+    layout (one warp, a group of W/4 lanes per draw) equal to the rule's
+    pick bit for bit.  K9's radix
     select against its bisection body (``threshold="bisect"``), equal bit
     for bit, there and on the edge rows at EDGE_KS, with the row staged and
     read from L2; K11 against ``masked_blocksums_warp_order_torch``, equal
@@ -1093,8 +1145,12 @@ def phase_trunc_kernels(dev, seed: int, tally):
             us = torch.rand((S, B), generator=g, device=dev)
             rows = torch.arange(B, dtype=torch.int32, device=dev).repeat(S)
             uf = us.reshape(-1).contiguous()
-            tally.weights("walk_trunc", f"{case} S={S}", KB.walk_trunc(w, run, uf, tau, rows, W),
+            a = KB.walk_trunc(w, run, uf, tau, rows, W)
+            tally.weights("walk_trunc", f"{case} S={S}", a,
                           KB.walk_trunc_torch(w, run, uf, tau, rows, W), wm, uf, exact)
+            for layout in KB.WALK_TRUNC_LAYOUTS:
+                tally.same("walk_trunc", f"{case} S={S} {layout} layout",
+                           KB._walk_trunc(w, run, uf, tau, rows, W, layout=layout), a)
         # both routes forced through the entry point
         fused = bops.butterfly_sample_truncated(w, u, prm, W=W, route="fused")
         two = bops.butterfly_sample_truncated(w, u, prm, W=W, route="two_pass")
@@ -1753,7 +1809,9 @@ def phase_layout_timing(corpus, dev, seed):
     at the chunk (W = 16) with S = 1 and 4, K8 in each layout at
     LDA_LAYOUT_KS and over every position of the corpus, K7 in each layout
     (``_walk_layout_timing``), K1 in each schedule (``_table_timing``), K11
-    at (64, 256000) W = 128 and the kernels of ``_fence_timing``, each
+    at (64, 256000) W = 128, the kernels of ``_fence_timing``, K6 in each
+    layout (``_blocksums_layout_timing``) and K12 in each layout
+    (``_walk_trunc_layout_timing``), each
     beside its bound (each input read once, each
     output written once); at the main paths' shapes also the device time
     from torch.profiler, which leaves out the host's time per call, and
@@ -1839,7 +1897,75 @@ def phase_layout_timing(corpus, dev, seed):
     nbv = KB.num_blocks(Kv, Wv)
     res["masked_blocksums"] = _timed(lambda: KB.masked_blocksums(wv, tau, Wv, nbv), True)
     log(f"  K11 ({Bv},{Kv}) W={Wv}: {res['masked_blocksums']}")
+    res["lda_blocksums"] = _blocksums_layout_timing(corpus, dev, g, C)
+    res["walk_trunc"] = _walk_trunc_layout_timing(dev, g, wv, tau)
     return res
+
+
+def _blocksums_layout_timing(corpus, dev, g, C: int):
+    """K6 in each layout that fits at the chunk (K = 240) and at K = 3,000,
+    W = 32, Dirichlet factors, beside its library yardstick
+    (``k6_library``) and its bound."""
+    W, V = 32, corpus.vocab_size
+    layouts = KL.LAYOUTS if hasattr(KL, "_lda_blocksums") else None
+    docs = torch.as_tensor(corpus.docs[:C], device=dev)
+    N = docs.shape[1]
+    d = (torch.arange(C * N, device=dev, dtype=torch.int32) // N).contiguous()
+    w = docs.reshape(-1).to(torch.int32).contiguous()
+    out = []
+    for Kc in (CONFIG.K, 3000):
+        th, ph = factors("dirichlet", C, V, Kc, g, dev)
+        nb = KL.num_blocks(Kc, W)
+        row = {"K": Kc, "draws": d.numel(), "W": W, "nb": nb,
+               "bound_ms": bounds("lda_blocksums", th, ph, d, w, None, W, nb)[0]}
+        if layouts:
+            row["rule"] = KL.lda_blocksums_layout(nb, W)
+            calls = {lay: (lambda lay=lay: KL._lda_blocksums(th, ph, d, w, W, nb, layout=lay))
+                     for lay in layouts if lay == "warp" or KL.group_fits(nb, W)}
+        else:
+            calls = {"default": lambda: KL.lda_blocksums(th, ph, d, w, W, nb)}
+        calls["library"] = k6_library(th, ph, d, w, W, nb)
+        for name, fn in calls.items():
+            row[name] = _timed(fn, True)
+        log("  K6 " + " ".join(f"{k}={v}" for k, v in row.items()))
+        out.append(row)
+    return out
+
+
+def _walk_trunc_layout_timing(dev, g, wv, tau):
+    """K12 in each layout at the decode's (64, 256000) and at (64, K) for K
+    = 4,096, 32,000 and 128,256 (peaked softmax, gemma2-9b's params), W =
+    default_w(K), S = 1 and 4 draws per row, on K11's masked running sums,
+    beside its bound; and the profiler's time of a 64-element ``add_``, the
+    least device time of a launch."""
+    B = wv.shape[0]
+    layouts = getattr(KB, "WALK_TRUNC_LAYOUTS", None)
+    x = torch.zeros(B, device=dev)
+    out = {"floor_device_ms": device_ms(lambda: x.add_(1.0)), "rows": []}
+    for Kv in (gemma2_9b.VOCAB_SIZE, 4096, 32000, 128256):
+        if Kv != wv.shape[1]:
+            wv = trunc_weights("softmax", B, Kv, g, dev)
+            tau = tr.thresholds_from_params(wv, trunc_params("uniform", B, g, dev)).contiguous()
+        W = runtime.default_w(Kv)
+        nb = KB.num_blocks(Kv, W)
+        run = KB.masked_blocksums(wv, tau, W, nb)
+        for S in (1, 4):
+            rows = torch.arange(B, dtype=torch.int32, device=dev).repeat(S)
+            u = torch.rand(S * B, generator=g, device=dev)
+            row = {"B": B, "K": Kv, "S": S, "W": W, "nb": nb,
+                   "bound_ms": trunc_bounds("walk_trunc", wv, W, nb, S=S)[0]}
+            if layouts:
+                row["rule"] = KB.walk_trunc_layout(nb, W)
+                calls = {lay: (lambda lay=lay: KB._walk_trunc(wv, run, u, tau, rows, W,
+                                                              layout=lay)) for lay in layouts}
+            else:
+                calls = {"default": lambda: KB.walk_trunc(wv, run, u, tau, rows, W)}
+            for name, fn in calls.items():
+                row[name] = _timed(fn, True)
+            log("  K12 " + " ".join(f"{k}={v}" for k, v in row.items()))
+            out["rows"].append(row)
+    log(f"  device floor (64-element add_): {_ms(out['floor_device_ms'])}")
+    return out
 
 
 def _shard_emulation(dev, g, B, V, W, prm, key):
@@ -2124,6 +2250,7 @@ def main(argv=None) -> int:
     add_counts(launches, counts)
 
     kernels = []
+    layouts = path_layouts()
     for name, (kid, src, replaces, _) in KERNELS.items():
         t, tm = tally.t[name], timing[name]
         kernels.append({
@@ -2134,6 +2261,8 @@ def main(argv=None) -> int:
             "library_ms": tm.get("library_ms"), "bound_us": tm["bound_ms"] * 1e3,
             "mismatches": t["mismatches"], "ties": t["ties"], "cases": t["cases"],
         })
+        if name in layouts:
+            kernels[-1]["layouts"] = layouts[name]
         if name == "butterfly_table":  # the W = 128 call beside the chunk's
             w128 = timing["butterfly_table_w128"]
             kernels[-1].update({f"{k}_w128": w128[k] for k in (

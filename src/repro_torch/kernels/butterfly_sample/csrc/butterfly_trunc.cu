@@ -72,9 +72,21 @@
 // (tile_block_sums, split_row_running, split_tiles_per_block) lives in
 // draw_tile.cuh, where K4/K5's split layout (butterfly_sample.cu) shares
 // it.  K12 reads tau[rows[s]] and re-masks the one W-block it fetches,
-// finding its block itself, one warp per draw.  Bound: device memory (each
-// weight read once by K11; one running row and one W-block per draw by
-// K12).
+// finding its block itself.  Bound: device memory (each weight read once by
+// K11; one running row and one W-block per draw by K12).
+//
+// K12 design.  Two layouts, which give the same index bit for bit.  The
+// warp layout (one warp per draw: warp_walk's select, block load through
+// shared memory, Fenwick table with a __syncwarp per level and one-lane
+// descent) is K3's before its group walk.  The group layout, which the
+// wrapper takes at every W, is K3's and K7's: a group of W / 4 lanes per
+// draw runs draw_tile.cuh's group_walk over the running row in global
+// memory, with MaskedRow4 loading a lane's four masked weights (one
+// 16-byte load, 8 for bf16, where every row start is aligned; four loads
+// otherwise).  The count over the running row, the Fenwick adds and the
+// descent are warp_walk's, so the index is too; at W = 128 a group is a
+// whole warp, and the gain is the register Fenwick table and the vector
+// load, not more draws per warp.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,6 +103,7 @@ constexpr int kRedFloats = 2 * kTruncWarps;
 constexpr int kBins = 256;           // K9: 8-bit digits of the radix select
 constexpr int kInFlight = 8;         // K9: loads in flight per thread in a pass
 
+using draw_tile::group_walk;
 using draw_tile::kFullMask;
 using draw_tile::kSumThreads;
 using draw_tile::kTile;
@@ -111,6 +124,34 @@ struct MaskedRow {  // w[k] * [w[k] >= tau]: one row of given weights, masked
   __device__ __forceinline__ float operator()(int k) const {
     const float v = to_f32(w[k]);
     return v >= tau ? v : 0.f;
+  }
+};
+
+// MaskedRow for a group of W / 4 lanes (K12's group layout): e[0..3] =
+// the masked weights of columns k0..k0+3 (k0 % 4 == 0), zero past ncols,
+// each v = w[k] kept where v >= tau as MaskedRow keeps it.  VEC: one load4,
+// which needs ncols % 4 == 0 and aligned row starts; else four loads.
+template <typename T, bool VEC>
+struct MaskedRow4 {
+  const T* __restrict__ w;
+  int ncols;
+  float tau;
+  __device__ __forceinline__ void operator()(int k0, float (&e)[4]) const {
+    if (VEC) {
+      if (k0 < ncols) {
+        draw_tile::load4<true>(w + k0, e);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) e[i] = e[i] >= tau ? e[i] : 0.f;
+      } else {
+        e[0] = e[1] = e[2] = e[3] = 0.f;
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v = k0 + i < ncols ? to_f32(w[k0 + i]) : 0.f;
+        e[i] = v >= tau ? v : 0.f;
+      }
+    }
   }
 };
 
@@ -470,8 +511,76 @@ __global__ void __launch_bounds__(kWarps * 32)
   if (lane == 0) out[s] = idx;
 }
 
+// K12, group layout: draw s by the group of W / 4 lanes threadIdx.x / (W /
+// 4) of its block (32 / (W / 4) draws per warp), on running row rows[s]
+// read from global memory and block jb of weight row rows[s] masked by
+// tau[rows[s]]; no shared memory.
+template <typename T, int W, bool VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+    walk_trunc_group_kernel(const T* __restrict__ w,
+                            const float* __restrict__ running,
+                            const float* __restrict__ u,
+                            const float* __restrict__ tau,
+                            const int* __restrict__ rows, int* __restrict__ out,
+                            int Bt, int ncols, int nb) {
+  constexpr int G = W / 4;
+  constexpr int kDraws = kWarps * 32 / G;  // draws per block
+  const int base = blockIdx.x * kDraws;
+  if (base + (threadIdx.x & ~31) / G >= Bt) return;  // the whole warp is past Bt
+  const int q = threadIdx.x & (G - 1);
+  const int gid = base + threadIdx.x / G;
+  // a group past Bt redoes the last draw, so every lane joins the shuffles
+  const int s = gid < Bt ? gid : Bt - 1;
+  const size_t r = static_cast<size_t>(rows[s]);
+  const MaskedRow4<T, VEC> row{w + r * ncols, ncols, tau[r]};
+  const int idx = group_walk<W>(row, running + r * nb, nb, u[s], q);
+  if (q == 0 && gid < Bt) out[s] = idx;
+}
+
 inline unsigned grid_for(int n) {
   return static_cast<unsigned>((n + kWarps - 1) / kWarps);
+}
+
+template <typename T, int W>
+int launch_walk_trunc_group_w(const T* w, const float* r, const float* u,
+                              const float* tau, const int* rows, int* out, int Bt,
+                              int ncols, int nb, bool vec, cudaStream_t st) {
+  constexpr int kDraws = kWarps * 32 / (W / 4);
+  const unsigned grid = static_cast<unsigned>((Bt + kDraws - 1) / kDraws);
+  if (vec)
+    walk_trunc_group_kernel<T, W, true><<<grid, kWarps * 32, 0, st>>>(
+        w, r, u, tau, rows, out, Bt, ncols, nb);
+  else
+    walk_trunc_group_kernel<T, W, false><<<grid, kWarps * 32, 0, st>>>(
+        w, r, u, tau, rows, out, Bt, ncols, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_walk_trunc_group(const void* w, const float* r, const float* u,
+                            const float* tau, const int* rows, int* out, int Bt,
+                            int ncols, int nb, int W, cudaStream_t st) {
+  const T* wt = static_cast<const T*>(w);
+  const bool vec = draw_tile::rows_aligned(wt, ncols);
+  switch (W) {
+    case 8:
+      return launch_walk_trunc_group_w<T, 8>(wt, r, u, tau, rows, out, Bt, ncols, nb, vec,
+                                             st);
+    case 16:
+      return launch_walk_trunc_group_w<T, 16>(wt, r, u, tau, rows, out, Bt, ncols, nb,
+                                              vec, st);
+    case 32:
+      return launch_walk_trunc_group_w<T, 32>(wt, r, u, tau, rows, out, Bt, ncols, nb,
+                                              vec, st);
+    case 64:
+      return launch_walk_trunc_group_w<T, 64>(wt, r, u, tau, rows, out, Bt, ncols, nb,
+                                              vec, st);
+    case 128:
+      return launch_walk_trunc_group_w<T, 128>(wt, r, u, tau, rows, out, Bt, ncols, nb,
+                                               vec, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 size_t trunc_smem_bytes(int ncols, int nb, int W, int staged, int list_cap) {
@@ -563,9 +672,11 @@ int masked_blocksums(const void* w, const void* tau, void* running,
   return static_cast<int>(cudaGetLastError());
 }
 
+// group: 0 for the warp layout, 1 for the group layout (W / 4 lanes per
+// draw, no shared memory).
 int walk_trunc(const void* w, const void* running, const void* u,
                const void* tau, const void* rows, void* out, int Bt, int ncols,
-               int nb, int W, int dtype, void* stream) {
+               int nb, int W, int group, int dtype, void* stream) {
   if (Bt <= 0) return 0;
   const size_t smem = sizeof(float) * kWarps * W;
   auto st = static_cast<cudaStream_t>(stream);
@@ -574,6 +685,12 @@ int walk_trunc(const void* w, const void* running, const void* u,
   const float* tt = static_cast<const float*>(tau);
   const int* rw = static_cast<const int*>(rows);
   int* o = static_cast<int*>(out);
+  if (group) {
+    if (dtype == 1)
+      return launch_walk_trunc_group<__nv_bfloat16>(w, r, uu, tt, rw, o, Bt, ncols, nb, W,
+                                                    st);
+    return launch_walk_trunc_group<float>(w, r, uu, tt, rw, o, Bt, ncols, nb, W, st);
+  }
   if (dtype == 1)
     walk_trunc_kernel<__nv_bfloat16><<<grid_for(Bt), kWarps * 32, smem, st>>>(
         static_cast<const __nv_bfloat16*>(w), r, uu, tt, rw, o, Bt, ncols, nb,

@@ -63,7 +63,10 @@ private ``_blocksums``, ``_fused_draw`` and ``_fused_draw_rng`` take
 card.  K3 runs one
 draw per group of W / 4 lanes and reads each lane's four weights with one
 16-byte load where the rows allow it (:func:`walk_vector_loads`), four
-loads otherwise.
+loads otherwise.  K12 runs in one of :data:`WALK_TRUNC_LAYOUTS`, which
+give the same indices: ``"warp"``, one warp per draw, and ``"group"``,
+K3's group walk on the masked weights, which :func:`walk_trunc_layout`
+picks; the private ``_walk_trunc`` takes ``layout=``.
 """
 
 from __future__ import annotations
@@ -101,6 +104,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # and 27,392 and lost below (chip_smoke.py phase 2g; PERF.md).
 LAYOUTS = ("warp", "split")
 _SPLIT_COLS = 2048
+
+# K12's layouts: one warp per draw, or a group of W / 4 lanes per draw
+# (K3's group walk on masked weights), which walk_trunc_layout picks.
+WALK_TRUNC_LAYOUTS = ("warp", "group")
 
 # The fused truncated draw (K9) runs one block of _TRUNC_THREADS threads per
 # row and stages the row (as fp32) in dynamic shared memory while
@@ -258,7 +265,7 @@ _TRUNC_SIGS = {
     "fused_trunc_draw": [_P] * 4 + [_I] * 8 + [_P],
     "fused_trunc_draw_rng": [_P] * 3 + [_I] * 7 + [_U] * 3 + [_I, _P],
     "masked_blocksums": [_P] * 4 + [_I] * 5 + [_P],
-    "walk_trunc": [_P] * 6 + [_I] * 5 + [_P],
+    "walk_trunc": [_P] * 6 + [_I] * 6 + [_P],
 }
 
 
@@ -638,11 +645,31 @@ def masked_blocksums_torch(w, tau, W: int, nb: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def walk_trunc_layout(nb: int, W: int) -> str:
+    """The layout of K12 for draws from running rows of nb W-blocks:
+    ``"group"`` at every W in [8, 128] (it needs no shared memory)."""
+    runtime.check_w(W)
+    return "group"
+
+
 def walk_trunc(w, running, u, tau, rows, W: int) -> torch.Tensor:
     """(Bt,) int32 draws in [0, Kp) from masked running sums (K12): draw s
     uses row ``rows[s]``, reads only block jb of that row and masks it
     with ``tau[rows[s]]``.  rows must index valid rows (not checked)."""
+    return _walk_trunc(w, running, u, tau, rows, W)
+
+
+def _walk_trunc(w, running, u, tau, rows, W: int, layout=None) -> torch.Tensor:
+    """:func:`walk_trunc` in the layout ``layout`` (``"warp"`` or
+    ``"group"``, :data:`WALK_TRUNC_LAYOUTS`); None picks it with
+    :func:`walk_trunc_layout`.  Both give the same indices; forcing is for
+    holding and timing them against each other."""
     nb = running.shape[1]
+    if layout is None:
+        layout = walk_trunc_layout(nb, W)
+    elif layout not in WALK_TRUNC_LAYOUTS:
+        raise ValueError(f"layout must be one of {WALK_TRUNC_LAYOUTS} or None, "
+                         f"got {layout!r}")
     ncols = _check_weights(w, nb, W)
     _check_running(running, w)
     B = w.shape[0]
@@ -655,7 +682,7 @@ def walk_trunc(w, running, u, tau, rows, W: int) -> torch.Tensor:
     out = torch.empty((Bt,), dtype=torch.int32, device=w.device)
     _launch("walk_trunc", w.data_ptr(), running.data_ptr(), u.data_ptr(),
             tau.data_ptr(), rows.data_ptr(), out.data_ptr(), Bt, ncols, nb, W,
-            _DTYPES[w.dtype])
+            int(layout == "group"), _DTYPES[w.dtype])
     return out
 
 

@@ -39,6 +39,14 @@
 // memory, Fenwick table and one-lane descent cost it 37x its bound at the
 // chunk (109,568 draws, S = 4).
 //
+// K6 has the same group layout too, which its wrapper takes where K8's
+// fits: K8's group_block_sums and group_running into the group's shared
+// memory, then the scanned row written to the output.  The warp layout
+// reads 32 columns per step, one dependent L2 round trip per step (8 per
+// sample at the chunk); the group layout issues kGroupBatch blocks' loads
+// at once, 16 bytes a lane and factor.  Every add is the warp layout's,
+// so the running sums are equal bit for bit.
+//
 // Bound.  All three are memory-bound gathers: per sample K8 and K6 read two
 // K-wide rows (8K bytes in fp32) and do 2K flops; K7 reads one running row
 // (4 nb bytes) and two W-wide slices.  The design keeps the only other
@@ -143,6 +151,35 @@ __global__ void __launch_bounds__(kWarps * 32)
   warp_running(out, nb, lane);
 }
 
+// K6, group layout: sample s by the group of W / 4 lanes threadIdx.x / (W /
+// 4) of its block, its nb block sums scanned in smem + (that group) * nb
+// (lda_fused_group_kernel's pass A), then written to running[s, 0..nb).
+template <typename T, int W, bool VEC>
+__global__ void __launch_bounds__(kWarps * 32)
+    lda_blocksums_group_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
+                               const int* __restrict__ doc_ids,
+                               const int* __restrict__ words,
+                               float* __restrict__ running, int Bt, int ncols, int nb) {
+  extern __shared__ float smem[];
+  constexpr int G = W / 4;
+  constexpr int kDraws = kWarps * 32 / G;  // samples per block
+  const int base = blockIdx.x * kDraws;
+  if (base + (threadIdx.x & ~31) / G >= Bt) return;  // the whole warp is past Bt
+  const int q = threadIdx.x & (G - 1);
+  const int gi = threadIdx.x / G;
+  const int gid = base + gi;
+  // a group past Bt redoes the last sample, so every lane joins the shuffles
+  const int s = gid < Bt ? gid : Bt - 1;
+  const ProductRow4<T, VEC> row{theta + static_cast<size_t>(doc_ids[s]) * ncols,
+                                phi + static_cast<size_t>(words[s]) * ncols, ncols};
+  float* run = smem + gi * nb;
+  group_block_sums<W>(row, nb, run, q);
+  group_running<G>(run, nb, q);
+  if (gid >= Bt) return;
+  float* out = running + static_cast<size_t>(s) * nb;
+  for (int c = q; c < nb; c += G) out[c] = run[c];
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
     lda_walk_kernel(const T* __restrict__ theta, const T* __restrict__ phi,
@@ -243,6 +280,45 @@ int launch_group(const void* theta, const void* phi, const int* d, const int* w,
 }
 
 template <typename T, int W>
+int launch_blocksums_group_w(const T* theta, const T* phi, const int* d, const int* w,
+                             float* r, int Bt, int ncols, int nb, bool vec,
+                             cudaStream_t st) {
+  constexpr int kDraws = kWarps * 32 / (W / 4);
+  const unsigned grid = static_cast<unsigned>((Bt + kDraws - 1) / kDraws);
+  const size_t smem = sizeof(float) * kDraws * nb;
+  if (vec)
+    lda_blocksums_group_kernel<T, W, true><<<grid, kWarps * 32, smem, st>>>(
+        theta, phi, d, w, r, Bt, ncols, nb);
+  else
+    lda_blocksums_group_kernel<T, W, false><<<grid, kWarps * 32, smem, st>>>(
+        theta, phi, d, w, r, Bt, ncols, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_blocksums_group(const void* theta, const void* phi, const int* d,
+                           const int* w, float* r, int Bt, int ncols, int nb, int W,
+                           cudaStream_t st) {
+  const T* th = static_cast<const T*>(theta);
+  const T* ph = static_cast<const T*>(phi);
+  const bool vec = draw_tile::rows_aligned(th, ncols) && draw_tile::rows_aligned(ph, ncols);
+  switch (W) {
+    case 8:
+      return launch_blocksums_group_w<T, 8>(th, ph, d, w, r, Bt, ncols, nb, vec, st);
+    case 16:
+      return launch_blocksums_group_w<T, 16>(th, ph, d, w, r, Bt, ncols, nb, vec, st);
+    case 32:
+      return launch_blocksums_group_w<T, 32>(th, ph, d, w, r, Bt, ncols, nb, vec, st);
+    case 64:
+      return launch_blocksums_group_w<T, 64>(th, ph, d, w, r, Bt, ncols, nb, vec, st);
+    case 128:
+      return launch_blocksums_group_w<T, 128>(th, ph, d, w, r, Bt, ncols, nb, vec, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename T, int W>
 int launch_walk_group_w(const T* theta, const T* phi, const float* r, const float* u,
                         const int* rw, const int* d, const int* w, int* out, int Bt,
                         int ncols, int nb, bool vec, cudaStream_t st) {
@@ -317,14 +393,22 @@ int lda_fused_draw(const void* theta, const void* phi, const void* doc_ids,
   return static_cast<int>(cudaGetLastError());
 }
 
+// group: 0 for the warp layout, 1 for the group layout (W / 4 lanes per
+// sample, kWarps * 32 / (W / 4) * nb floats of shared memory a block).
 int lda_blocksums(const void* theta, const void* phi, const void* doc_ids,
                   const void* words, void* running, int Bt, int ncols, int nb,
-                  int W, int dtype, void* stream) {
+                  int W, int group, int dtype, void* stream) {
   if (Bt <= 0) return 0;
   auto st = static_cast<cudaStream_t>(stream);
   const int* d = static_cast<const int*>(doc_ids);
   const int* w = static_cast<const int*>(words);
   float* r = static_cast<float*>(running);
+  if (group) {
+    if (dtype == 1)
+      return launch_blocksums_group<__nv_bfloat16>(theta, phi, d, w, r, Bt, ncols, nb, W,
+                                                   st);
+    return launch_blocksums_group<float>(theta, phi, d, w, r, Bt, ncols, nb, W, st);
+  }
   if (dtype == 1)
     lda_blocksums_kernel<__nv_bfloat16><<<grid_for(Bt), kWarps * 32, 0, st>>>(
         static_cast<const __nv_bfloat16*>(theta),
@@ -370,8 +454,8 @@ int lda_walk(const void* theta, const void* phi, const void* running,
 }
 
 // Warps per block; the wrapper sizes the fused draw's shared memory from
-// it: kWarps * (nb * W + nb) floats in the warp layout (which picks the
-// fused or two-pass route), kWarps * 32 / (W / 4) * nb in the group layout.
+// it: kWarps * (nb * W + nb) floats in the warp layout, kWarps * 32 / (W /
+// 4) * nb in the group layout (K8's and K6's).
 int lda_warps_per_block(void) { return kWarps; }
 
 }  // extern "C"

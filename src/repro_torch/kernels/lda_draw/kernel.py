@@ -33,7 +33,11 @@ aligned).  :func:`lda_fused_layout` picks one from the shapes before the
 launch; the private ``_lda_fused_draw`` takes ``layout=`` to force one.
 K7 has the same two layouts, its group one walking a running row read
 from global memory (K8's ``group_walk``); :func:`lda_walk_layout` picks
-it, the private ``_lda_walk`` takes ``layout=``.
+it, the private ``_lda_walk`` takes ``layout=``.  K6 has them too, its
+group one K8's group pass A (block sums and their scan in the group's
+shared memory) writing the scanned row out; :func:`lda_blocksums_layout`
+picks it where it fits, the private ``_lda_blocksums`` takes ``layout=``.
+The running sums are the same bit for bit.
 """
 
 from __future__ import annotations
@@ -57,16 +61,17 @@ from repro_torch.kernels.butterfly_sample.kernel import (
 # launches per wrapper since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"lda_fused_draw": 0, "lda_blocksums": 0, "lda_walk": 0}
 
-# Fused / two-pass switch.  The fused kernel keeps one sample's product row
-# and block sums in shared memory, _WARPS_PER_BLOCK samples per block; it
-# runs while that fits the 48 KB of dynamic shared memory a block gets
-# without opting in (Kp + nb <= 3072 floats per sample), and the two-pass
-# route (K6 then K7, which need no more than W floats per sample) beyond.
+# Fused / two-pass switch.  The fused kernel keeps, per draw, the product
+# row and block sums in shared memory in its warp layout (_WARPS_PER_BLOCK
+# draws per block) or the nb block sums in its group layout; it runs while
+# either fits the 48 KB of dynamic shared memory a block gets without
+# opting in, and the two-pass route (K6 then K7) beyond.
 _WARPS_PER_BLOCK = 4
 _FUSED_SMEM_BYTES = 48 << 10
 
-# K8's and K7's layouts.  K8's group layout keeps nb floats per draw in
-# shared memory, 32 / (W / 4) draws per warp (group_fits); K7's keeps none.
+# K8's, K7's and K6's layouts.  The group layouts of K8 and K6 keep nb
+# floats per draw in shared memory, 32 / (W / 4) draws per warp
+# (group_fits); K7's keeps none.
 LAYOUTS = ("warp", "group")
 
 
@@ -77,12 +82,13 @@ def reset_launches() -> None:
 
 def fused_fits(nb: int, W: int) -> bool:
     """True when the fused kernel's shared memory fits one block in the
-    warp layout (the layout that decides the fused / two-pass route)."""
+    warp layout."""
     return 4 * _WARPS_PER_BLOCK * (nb * W + nb) <= _FUSED_SMEM_BYTES
 
 
 def group_fits(nb: int, W: int) -> bool:
-    """True when K8's group layout (nb floats per draw) fits one block."""
+    """True when K8's (or K6's) group layout, nb floats per draw, fits one
+    block."""
     return 4 * (_WARPS_PER_BLOCK * 32 // (W // 4)) * nb <= _FUSED_SMEM_BYTES
 
 
@@ -90,6 +96,13 @@ def lda_fused_layout(nb: int, W: int) -> str:
     """The layout of K8 for draws from rows of nb W-blocks: ``"group"``
     where its shared memory fits, else ``"warp"``."""
     return "group" if group_fits(nb, W) else "warp"
+
+
+def lda_blocksums_layout(nb: int, W: int) -> str:
+    """The layout of K6 for rows of nb W-blocks: K8's rule
+    (:func:`lda_fused_layout`), ``"group"`` where its shared memory fits,
+    else ``"warp"``."""
+    return lda_fused_layout(nb, W)
 
 
 def lda_walk_layout(nb: int, W: int) -> str:
@@ -116,7 +129,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGS = {
     "lda_fused_draw": [_P] * 6 + [_I] * 6 + [_P],
-    "lda_blocksums": [_P] * 5 + [_I] * 5 + [_P],
+    "lda_blocksums": [_P] * 5 + [_I] * 6 + [_P],
     "lda_walk": [_P] * 8 + [_I] * 6 + [_P],
 }
 
@@ -196,14 +209,28 @@ def lda_fused_draw_torch(theta, phi, doc_ids, words, u, W: int) -> torch.Tensor:
 def lda_blocksums(theta, phi, doc_ids, words, W: int, nb: int) -> torch.Tensor:
     """(Bt, nb) float32 running W-block sums of theta[doc_ids] *
     phi[words] (K6); the (Bt, K) product never exists."""
+    return _lda_blocksums(theta, phi, doc_ids, words, W, nb)
+
+
+def _lda_blocksums(theta, phi, doc_ids, words, W: int, nb: int,
+                   layout=None) -> torch.Tensor:
+    """:func:`lda_blocksums` in the layout ``layout`` (``"warp"`` or
+    ``"group"``); None picks it with :func:`lda_blocksums_layout`.  Both
+    give the same sums; forcing is for holding and timing them against
+    each other."""
+    layout = _resolve_layout(layout, lda_blocksums_layout(nb, W))
     ncols = _check_factors(theta, phi, nb, W)
     Bt = doc_ids.shape[0]
     _check_vec("doc_ids", doc_ids, torch.int32, Bt, theta)
     _check_vec("words", words, torch.int32, Bt, theta)
+    if layout == "group" and not group_fits(nb, W):
+        raise ValueError(f"block sums (group layout) need too much shared memory "
+                         f"at nb={nb}, W={W}")
     out = torch.empty((Bt, nb), dtype=torch.float32, device=theta.device)
     _launch(
         "lda_blocksums", theta.data_ptr(), phi.data_ptr(), doc_ids.data_ptr(),
-        words.data_ptr(), out.data_ptr(), Bt, ncols, nb, W, _DTYPES[theta.dtype],
+        words.data_ptr(), out.data_ptr(), Bt, ncols, nb, W, int(layout == "group"),
+        _DTYPES[theta.dtype],
     )
     return out
 
@@ -295,13 +322,13 @@ def lda_walk_torch(theta, phi, running, u, rows, doc_ids, words, W: int) -> torc
 def lda_draw_docs(theta, phi, doc_ids, words, u, W: int, impl: Optional[str] = None,
                   route: Optional[str] = None) -> torch.Tensor:
     """(B,) int32 draws in [0, K): one launch of K8, or K6 then K7 when
-    ``route="two_pass"`` or when the fused kernel's shared memory does not
-    fit in the warp layout (``route=None``).  Both routes return the same
+    ``route="two_pass"`` or when the fused kernel's shared memory fits in
+    neither layout (``route=None``).  Both routes return the same
     indices."""
     K = theta.shape[1]
     nb = num_blocks(K, W)
     if route is None:
-        route = "fused" if fused_fits(nb, W) else "two_pass"
+        route = "fused" if group_fits(nb, W) or fused_fits(nb, W) else "two_pass"
     if route not in ("fused", "two_pass"):
         raise ValueError(f"route must be 'fused' or 'two_pass', got {route!r}")
     if runtime.resolve_impl(impl, theta) == "torch":

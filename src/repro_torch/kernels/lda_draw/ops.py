@@ -49,7 +49,8 @@ def lda_draw_factored(theta, phi, doc_ids, words, u, W: int = 32,
                       impl: Optional[str] = None):
     """Fused factored draw: z[b] ~ Categorical(theta[doc_ids[b]] *
     phi[words[b]]).  On CUDA one launch of the fused kernel (K8) while its
-    shared memory fits, else pass A (K6) and pass B (K7)."""
+    shared memory fits in either layout, else pass A (K6) and pass B
+    (K7)."""
     runtime.check_w(W)
     return lda_draw_docs(
         theta.contiguous(), phi.contiguous(), _ids(doc_ids, theta),

@@ -15,6 +15,9 @@
 * :func:`walk_group_order_torch` — K7's group layout (a group of W / 4
   lanes per draw over a prebuilt running row), whose adds are
   ``lda_walk_torch``'s.
+* :func:`blocksums_warp_order_torch` and :func:`blocksums_group_order_torch`
+  — K6's two layouts (pass A alone): the running block sums as one warp per
+  sample and as a group of W / 4 lanes per sample form them, bit-equal.
 """
 
 from __future__ import annotations
@@ -139,3 +142,32 @@ def walk_group_order_torch(theta, phi, running, u, rows, doc_ids, words,
     run = torch.as_tensor(running, dtype=torch.float32)[torch.as_tensor(rows).long()]
     u = torch.as_tensor(u, dtype=torch.float32)
     return _bref.group_walk_order_torch(prod, run, u, torch.arange(prod.shape[0]), W)
+
+
+def blocksums_warp_order_torch(theta, phi, doc_ids, words, W: int) -> torch.Tensor:
+    """(Bt, nb) float32 running W-block sums of theta[doc_ids] * phi[words]
+    as K6's warp layout forms them: ``warp_block_sums`` (per 32-column piece
+    an xor tree over one column a lane, a block's pieces in order) and
+    ``warp_running``'s scan
+    (``butterfly_sample.ref.masked_blocksums_warp_order_torch`` with nothing
+    masked)."""
+    from repro_torch.kernels.butterfly_sample import ref as _bref
+
+    prod = _products(theta, phi, doc_ids, words, W)
+    Bt, Kp = prod.shape
+    return _bref.masked_blocksums_warp_order_torch(
+        prod, torch.full((Bt,), -float("inf")), W, Kp // W)
+
+
+def blocksums_group_order_torch(theta, phi, doc_ids, words, W: int) -> torch.Tensor:
+    """(Bt, nb) float32 running W-block sums as K6's group layout forms
+    them, G = W / 4 lanes per sample: ``group_block_sums`` (lane q adds
+    columns 4q..4q+3 as (e0 + e1) + (e2 + e3), an xor tree over each
+    32-column piece's lanes, a block's pieces in order:
+    ``butterfly_sample.ref.block_sums4_order_torch``) and
+    ``group_running``'s scan (``warp_running``'s adds:
+    ``warp_running_order_torch``)."""
+    from repro_torch.kernels.butterfly_sample import ref as _bref
+
+    prod = _products(theta, phi, doc_ids, words, W)
+    return _bref.warp_running_order_torch(_bref.block_sums4_order_torch(prod, W))

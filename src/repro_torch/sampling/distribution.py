@@ -53,6 +53,7 @@ from repro_torch.core import radix as _radix
 from repro_torch.kernels import runtime
 from repro_torch.kernels.butterfly_sample import ops as _kops
 from repro_torch.kernels.butterfly_table import ops as _tops
+from repro_torch.sampling.transforms import _is_weak_scalar
 
 VARIANTS = (
     "prefix", "fenwick", "butterfly", "two_level", "kernel", "gumbel",
@@ -333,10 +334,27 @@ def logits_to_weights(logits, temperature=1.0) -> torch.Tensor:
     logits = torch.as_tensor(logits)
     if not logits.is_floating_point():
         logits = logits.to(torch.float32)
-    t = torch.as_tensor(temperature, device=logits.device)
-    z = logits / (t[:, None] if t.dim() == 1 else t)
+    z = _scale_by_temperature(logits, temperature)
     z = z - z.max(dim=-1, keepdim=True).values
     return torch.exp(z)
+
+
+def _scale_by_temperature(logits: torch.Tensor, temperature) -> torch.Tensor:
+    """``logits / temperature`` with the reference's (JAX's) promotion: a
+    Python int or float is weakly typed, so it is cast to the logits'
+    dtype first (bf16 logits are divided by the bf16-rounded
+    temperature); a tensor or array, 0-d or (B,) (row by row), promotes
+    with the logits' dtype, so a float32 temperature gives float32 results
+    on bf16 logits.  Arrays that are not tensors come in as JAX takes them
+    without 64-bit mode: float64 as float32."""
+    if _is_weak_scalar(temperature):
+        return logits / torch.tensor(temperature, dtype=logits.dtype, device=logits.device)
+    t = torch.as_tensor(temperature, device=logits.device)
+    if t.dtype == torch.float64 and not isinstance(temperature, torch.Tensor):
+        t = t.to(torch.float32)
+    dt = torch.promote_types(logits.dtype, t.dtype)
+    t = t.to(dt)
+    return logits.to(dt) / (t[:, None] if t.dim() == 1 else t)
 
 
 # ---------------------------------------------------------------------------

@@ -259,8 +259,7 @@ def _unsharded_key(key) -> None:
 
 
 def _scale(logits: torch.Tensor, temperature) -> torch.Tensor:
-    t = torch.as_tensor(temperature, device=logits.device)
-    return logits / (t[:, None] if t.dim() == 1 else t)
+    return _dist._scale_by_temperature(torch.as_tensor(logits), temperature)
 
 
 def _normalize_shape(spec_or_shape, shape) -> Tuple[int, int]:

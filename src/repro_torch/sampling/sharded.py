@@ -305,8 +305,7 @@ def _shard_sample_logits(method: str, W: int, z: torch.Tensor, temperature, seed
     """One shard's softmax + build + draw on its logits; ``gumbel`` stays
     in logit space."""
     if method == "gumbel":
-        t = torch.as_tensor(temperature, device=z.device)
-        zt = z / (t[:, None] if t.dim() == 1 else t)
+        zt = _dist._scale_by_temperature(z, temperature)
         d = _local_dist(method, W, {"logw": zt.to(torch.float32)}, z.shape)
         return _local_draw(d, seed, row0, num_samples)
     return _shard_sample(method, W, _dist.logits_to_weights(z, temperature), seed, row0,
@@ -414,6 +413,10 @@ def sample_logits_sharded(plan, logits, key, temperature=1.0, num_samples: int =
     lay = _plan_layout(plan)
     B = plan.shape[0]
     z = _local_rows(lay, logits, B, "logits", shape=plan.shape)
+    # a float32 operand, as the reference passes it: bf16 logits give
+    # float32 weights
+    if not isinstance(temperature, torch.Tensor):
+        temperature = torch.as_tensor(temperature, dtype=torch.float32)
     t = _per_row(lay, temperature, B, "temperature")
     row0 = lay.index * (B // lay.shards)
     return _draws_out(lay, _shard_sample_logits(plan.table_method, plan.W, z, t,

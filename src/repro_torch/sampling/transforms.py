@@ -32,6 +32,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 SEARCH_ITERS = 32
@@ -223,12 +224,23 @@ def _is_one(v) -> bool:
 
 
 def temperature_of(transforms: Optional[Sequence], temperature: Any = 1.0):
-    """The ``temperature=`` argument times every Temperature in the chain."""
+    """The ``temperature=`` argument times every Temperature in the chain.
+    A product of Python scalars stays a Python scalar (weakly typed, as
+    the reference's is), taken in float32 as the reference takes it."""
     t = temperature
     for tr in transforms or ():
         if isinstance(tr, Temperature) and not _is_one(tr.t):
-            t = t * torch.as_tensor(tr.t)
+            if _is_weak_scalar(t) and _is_weak_scalar(tr.t):
+                t = float(np.float32(t) * np.float32(tr.t))
+            else:
+                t = t * torch.as_tensor(tr.t)
     return t
+
+
+def _is_weak_scalar(v) -> bool:
+    """A Python int or float, which JAX types weakly (numpy scalars are
+    typed, as in JAX)."""
+    return isinstance(v, (int, float)) and not isinstance(v, np.generic)
 
 
 def truncations_of(transforms: Optional[Sequence]) -> Tuple:

@@ -903,3 +903,103 @@ def test_lda_walk_layouts_launches_and_rule(dev):
         K._lda_walk(th, ph, run, u, rows, dd, ww, 32, layout=layout)
     assert K.LAUNCHES == {"lda_fused_draw": 0, "lda_blocksums": 0, "lda_walk": 2}
     assert all(K.lda_walk_layout(8, W) == "group" for W in GRID_W)
+
+
+# ---------------------------------------------------------------------------
+# K6's and K12's group layouts
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.butterfly_sample.ref import group_walk_order_torch  # noqa: E402
+from repro_torch.kernels.lda_draw.ref import blocksums_group_order_torch  # noqa: E402
+
+
+@pytest.mark.parametrize("W", GRID_W)
+@pytest.mark.parametrize("V,Kc", LDA_GROUP_VK)
+def test_lda_blocksums_group_equals_warp(dev, W, V, Kc):
+    """K6's group layout writes the warp layout's running sums bit for bit
+    (integer, Dirichlet and bf16 factors, all-zero theta rows, K % 4 != 0
+    and a misaligned phi: the four-load instantiation), equal to its
+    exact-order model, and on integer factors to ``lda_blocksums_torch``.
+    Where the group's sums do not fit its shared memory, forcing it
+    raises."""
+    nb = KB.num_blocks(Kc, W)
+    B = 4099
+    if not K.group_fits(nb, W):
+        th, ph, d, w, _ = _inputs(dev, W + Kc, B, V, Kc)
+        with pytest.raises(ValueError, match="shared memory"):
+            K._lda_blocksums(th, ph, d, w, W, nb, layout="group")
+        return
+    for kind, dtype in (("int", torch.float32), ("dirichlet", torch.float32),
+                        ("int", torch.bfloat16)):
+        th, ph, d, w, _ = _inputs(dev, W + Kc, B, V, Kc, kind, dtype)
+        th[::4] = 0
+        group = K._lda_blocksums(th, ph, d, w, W, nb, layout="group")
+        warp = K._lda_blocksums(th, ph, d, w, W, nb, layout="warp")
+        torch.cuda.synchronize()
+        assert torch.equal(group, warp), (kind, dtype)
+        assert torch.equal(K.lda_blocksums(th, ph, d, w, W, nb), group)
+        assert torch.equal(group.cpu(), blocksums_group_order_torch(
+            th.cpu(), ph.cpu(), d.cpu(), w.cpu(), W)), (kind, dtype)
+        if kind == "int":
+            assert torch.equal(group, K.lda_blocksums_torch(th, ph, d, w, W, nb))
+    th, ph, d, w, _ = _inputs(dev, Kc, B, V, Kc + 1, "dirichlet")
+    shifted = ph.reshape(-1)[1:1 + V * Kc].view(V, Kc)
+    th = th[:, :Kc].contiguous()
+    assert torch.equal(K._lda_blocksums(th, shifted, d, w, W, nb, layout="group"),
+                       K._lda_blocksums(th, shifted, d, w, W, nb, layout="warp"))
+
+
+def test_lda_blocksums_layouts_launches_and_rule(dev):
+    """One launch a call in either layout; the sweep's chunk (K = 240, W =
+    32) takes the group layout."""
+    th, ph, d, w, _ = _inputs(dev, 8, 1000, 300, 240, "dirichlet")
+    K.reset_launches()
+    for layout in K.LAYOUTS:
+        K._lda_blocksums(th, ph, d, w, 32, 8, layout=layout)
+    assert K.LAUNCHES == {"lda_fused_draw": 0, "lda_blocksums": 2, "lda_walk": 0}
+    assert K.lda_blocksums_layout(KB.num_blocks(240, 32), 32) == "group"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["int", "softmax"])
+@pytest.mark.parametrize("B,Kc", TRUNC_BK + [(16, 4099)])
+def test_walk_trunc_group_equals_warp(dev, B, Kc, kind, dtype):
+    """K12's group layout draws the warp layout's indices bit for bit
+    (S = 1 and 4; zero rows; Kc = 4,099: four loads a lane), equal to the
+    exact-order model on the masked rows; on integer weights both equal
+    ``walk_trunc_torch``."""
+    w, prm, _ = _trunc_inputs(dev, B + Kc, B, Kc, kind, dtype)
+    w[B // 2] = 0
+    W = runtime.default_w(Kc)
+    nb = KB.num_blocks(Kc, W)
+    tau = tr.thresholds_from_params(w, prm).contiguous()
+    run = KB.masked_blocksums(w, tau, W, nb)
+    for S in (1, 4):
+        u = torch.rand(S * B, device=dev)
+        rows = torch.arange(B, dtype=torch.int32, device=dev).repeat(S)
+        group = KB._walk_trunc(w, run, u, tau, rows, W, layout="group")
+        warp = KB._walk_trunc(w, run, u, tau, rows, W, layout="warp")
+        torch.cuda.synchronize()
+        assert torch.equal(group, warp), S
+        assert torch.equal(KB.walk_trunc(w, run, u, tau, rows, W), group)
+        masked = KB._mask(w.float(), tau).cpu()
+        assert torch.equal(group.cpu(), group_walk_order_torch(
+            masked, run.cpu(), u.cpu(), rows.cpu(), W)), S
+        if kind == "int":
+            assert torch.equal(group, KB.walk_trunc_torch(w, run, u, tau, rows, W)
+                               .to(torch.int32))
+
+
+def test_walk_trunc_layouts_launches_and_rule(dev):
+    """One launch a call in either layout; every W takes the group
+    layout."""
+    w, prm, u = _trunc_inputs(dev, 3, 8, 3000, "softmax")
+    tau = tr.thresholds_from_params(w, prm).contiguous()
+    run = KB.masked_blocksums(w, tau, 64, KB.num_blocks(3000, 64))
+    rows = torch.arange(8, dtype=torch.int32, device=dev)
+    KB.reset_launches()
+    for layout in KB.WALK_TRUNC_LAYOUTS:
+        KB._walk_trunc(w, run, u, tau, rows, 64, layout=layout)
+    assert KB.LAUNCHES["walk_trunc"] == 2
+    assert sum(KB.LAUNCHES.values()) == 2
+    assert all(KB.walk_trunc_layout(8, W) == "group" for W in GRID_W)

@@ -145,3 +145,74 @@ def test_walk_vector_loads_rule():
     assert not KB.walk_vector_loads(base.view(-1)[1:1 + 8 * 240].view(8, 240))
     assert KB.walk_vector_loads(torch.zeros((8, 240), dtype=torch.bfloat16))
     assert not KB.walk_vector_loads(torch.zeros((8, 242), dtype=torch.bfloat16))
+
+
+def _trunc_case(seed, B, K, W, kind, S):
+    """Weights, per-row tau, K11's plain running sums of the masked rows and
+    S draws per row: rows that tie at tau, rows with one survivor, all-zero
+    rows, and (K % W != 0) a last block that ends mid-block."""
+    g = np.random.default_rng(seed)
+    if kind == "int":
+        w = torch.as_tensor(g.integers(1, 50, size=(B, K)).astype(np.float32))
+    else:
+        w = torch.as_tensor(g.dirichlet(np.full(K, 0.3), size=B).astype(np.float32))
+    w[1] = w[1, 0]                      # every weight tied at tau
+    w[2, K // 2] = w[2].max() * 2       # one survivor of tau = its weight
+    w[3] = 0                            # all zero: draws the last block
+    tau = torch.quantile(w, 0.9, dim=1).to(torch.float32)
+    tau[0] = 0.0                        # nothing masked
+    tau[2] = w[2, K // 2]
+    tau[4] = w[4].max()                 # ties at the row max only
+    nb = KB.num_blocks(K, W)
+    run = KB.masked_blocksums_torch(w, tau, W, nb)
+    u = torch.as_tensor(_uniforms(seed + S, S * B))
+    rows = torch.arange(B, dtype=torch.int32).repeat(S)
+    return w, tau, run, u, rows
+
+
+@pytest.mark.parametrize("S", [1, 4])
+@pytest.mark.parametrize("W", GRID_W)
+def test_walk_trunc_group_model_equals_walk_trunc_torch(W, S):
+    """K12's group layout is K3's group walk on the masked rows
+    (``ref.group_walk_order_torch`` of w * [w >= tau]): equal to
+    ``walk_trunc_torch`` bit for bit on integer and Dirichlet weights,
+    bf16, tied and all-masked-but-one rows, zero rows and rows whose last
+    block ends mid-block (K % 4 != 0 included)."""
+    B = 24
+    for K in (240, 4 * W + 3, 1000, 2001):
+        for kind, dtype in (("int", torch.float32), ("dirichlet", torch.float32),
+                            ("int", torch.bfloat16)):
+            w, tau, run, u, rows = _trunc_case(K + W + S, B, K, W, kind, S)
+            w = w.to(dtype)
+            masked = KB._mask(w.float(), tau)
+            got = ref.group_walk_order_torch(masked, run, u, rows, W)
+            want = KB.walk_trunc_torch(w, run, u, tau, rows, W)
+            assert got.dtype == torch.int32
+            assert torch.equal(got, want.to(torch.int32)), (K, kind, dtype)
+            assert bool((got[3::B] == KB.num_blocks(K, W) * W - 1).all())
+            assert bool((got[2::B] == K // 2).all())
+
+
+@pytest.mark.parametrize("nb", [1, 8, 250, 2000])
+@pytest.mark.parametrize("W", GRID_W)
+def test_walk_trunc_layout_rule(nb, W):
+    """K12 takes its group layout at every W and nb: it needs no shared
+    memory."""
+    assert KB.walk_trunc_layout(nb, W) == "group"
+    assert KB.walk_trunc_layout(nb, W) in KB.WALK_TRUNC_LAYOUTS
+
+
+def test_private_walk_trunc_layout_argument_rejects_unknown_names():
+    w = torch.ones((4, 240))
+    run = torch.ones((4, 2))
+    tau = torch.zeros(4)
+    u = torch.full((4,), 0.5)
+    rows = torch.zeros((4,), dtype=torch.int32)
+    for bad in ("split", "warps", "", "Group"):
+        with pytest.raises(ValueError, match="layout"):
+            KB._walk_trunc(w, run, u, tau, rows, 128, layout=bad)
+    for layout in KB.WALK_TRUNC_LAYOUTS:  # a known layout gets past the name check
+        with pytest.raises(ValueError, match="CUDA"):
+            KB._walk_trunc(w, run, u, tau, rows, 128, layout=layout)
+    with pytest.raises(ValueError, match="power of two"):
+        KB.walk_trunc_layout(8, 4)

@@ -203,8 +203,8 @@ def test_private_layout_arguments_reject_unknown_names():
 
 def test_group_layout_checks_its_own_shared_memory():
     """The group layout fits rows that the warp layout does not (and the
-    other way round at W = 8), and the fused / two-pass route still
-    follows the warp layout's ``fused_fits``."""
+    other way round at W = 8); the fused / two-pass route takes K8 where
+    either fits (``test_lda_draw_docs_route_switch``)."""
     assert KL.group_fits(94, 32) and not KL.fused_fits(94, 32)
     assert KL.fused_fits(341, 8) and not KL.group_fits(341, 8)
     assert KL.fused_fits(8, 32) and KL.group_fits(8, 32)
@@ -285,3 +285,67 @@ def test_private_walk_layout_argument_rejects_unknown_names():
             KL._lda_walk(th, ph, run, u, ids, ids, ids, 32, layout=layout)
     with pytest.raises(ValueError, match="power of two"):
         KL.lda_walk_layout(8, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K", [240, 1000, 3000])
+@pytest.mark.parametrize("W", GRID_W)
+def test_blocksums_group_model_equals_warp_model(W, K, dtype):
+    """K6's group layout (four columns a lane, G = W / 4 lanes a sample)
+    forms the warp layout's running sums bit for bit on Dirichlet factors,
+    all-zero theta rows included; on integer factors both equal
+    ``lda_blocksums_torch``."""
+    for kind in ("dirichlet", "int"):
+        th, ph, d, w, _ = _factors(7 * W + K, K, kind, B=512)
+        tt, tp = (torch.as_tensor(x).to(dtype) for x in (th, ph))
+        td, tw = torch.as_tensor(d), torch.as_tensor(w)
+        warp = lref.blocksums_warp_order_torch(tt, tp, td, tw, W)
+        group = lref.blocksums_group_order_torch(tt, tp, td, tw, W)
+        assert group.dtype == torch.float32
+        assert group.shape == (512, KB.num_blocks(K, W))
+        assert torch.equal(group, warp), kind
+        if kind == "int":
+            plain = KL.lda_blocksums_torch(tt, tp, td, tw, W, KB.num_blocks(K, W))
+            assert torch.equal(group, plain)
+
+
+@pytest.mark.parametrize("nb,W", [(8, 32), (15, 16), (94, 32), (341, 8), (192, 8),
+                                  (24, 128), (375, 8)])
+def test_lda_blocksums_layout_rule(nb, W):
+    """K6 takes K8's rule: its group layout where the nb sums of every
+    sample of a block fit shared memory, else the warp layout."""
+    want = "group" if KL.group_fits(nb, W) else "warp"
+    assert KL.lda_blocksums_layout(nb, W) == want == KL.lda_fused_layout(nb, W)
+    assert want in KL.LAYOUTS
+
+
+def test_private_blocksums_layout_argument_rejects_unknown_names():
+    th = torch.ones((4, 240))
+    ph = torch.ones((9, 240))
+    ids = torch.zeros((4,), dtype=torch.int32)
+    for bad in ("split", "warps", "", "Group"):
+        with pytest.raises(ValueError, match="layout"):
+            KL._lda_blocksums(th, ph, ids, ids, 32, 8, layout=bad)
+    for layout in KL.LAYOUTS:  # a known layout gets past the name check
+        with pytest.raises(ValueError, match="CUDA"):
+            KL._lda_blocksums(th, ph, ids, ids, 32, 8, layout=layout)
+
+
+@pytest.mark.parametrize("K,W,route", [(240, 32, "fused"), (3000, 32, "fused"),
+                                       (3000, 8, "two_pass"), (2728, 8, "fused"),
+                                       (400000, 128, "two_pass")])
+def test_lda_draw_docs_route_switch(monkeypatch, K, W, route):
+    """``lda_draw_docs`` takes the fused kernel (K8) where it fits in
+    either layout, K6 + K7 beyond: K = 3,000 at W = 32 fits K8's group
+    layout only, K = 2,728 at W = 8 its warp layout only."""
+    nb = KB.num_blocks(K, W)
+    assert (route == "fused") == (KL.group_fits(nb, W) or KL.fused_fits(nb, W))
+    taken = []
+    monkeypatch.setattr(KL.runtime, "resolve_impl", lambda impl, like: "cuda")
+    monkeypatch.setattr(KL, "lda_fused_draw", lambda *a: taken.append("fused") or a[4])
+    monkeypatch.setattr(KL, "lda_blocksums", lambda *a: taken.append("two_pass"))
+    monkeypatch.setattr(KL, "lda_walk", lambda *a: a[3])
+    th = torch.ones((2, K))
+    ids = torch.zeros((3,), dtype=torch.int32)
+    KL.lda_draw_docs(th, th, ids, ids, torch.zeros(3), W)
+    assert taken == [route]
