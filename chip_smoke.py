@@ -49,9 +49,13 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    100,000; K11 equals ``masked_blocksums_warp_order_torch`` bit for bit
    there and at B = 1, 8, 64, W = 32, 64, 128.  The alias
    assembly (phase 2e):
-   K13 at phi (37,286 x 240) and (64, 4096), alias positions equal, prob
-   within ``alias_build.ref.prob_tolerance``, and the induced mass of the
-   device build.  Each kernel and its plain version are timed with CUDA
+   K13 at phi (37,286 x 240), (64, 4096) and (64, 256000), alias positions
+   equal, prob within ``alias_build.ref.prob_tolerance``, and the induced
+   mass of the device build; K13 in each layout that takes the shape
+   (block, group, split) equal to the block layout and to its exact-order
+   CPU model (``alias_build.ref.assemble_*_order_torch``) bit for bit
+   there and on edge rows (zero weights, all light, all pads) at Kp = 256
+   and 4,096.  Each kernel and its plain version are timed with CUDA
    events (and, where one PyTorch computation does the same work, its
    library yardstick); the truncated routes end to end at (64, 256000);
    K9's radix select against its bisection body there and, with its rows
@@ -83,9 +87,12 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    (64, 256000), the device times of K1 at the chunk, K6, K9, K10, K12
    and K13 at the main paths' shapes, K6 in both layouts beside its
    library call (the gathered product, ``view(Bt, nb, W).sum(-1).
-   cumsum(1)``) at the chunk and at K = 3,000, and K12 in both layouts at
+   cumsum(1)``) at the chunk and at K = 3,000, K12 in both layouts at
    (64, 256000), (64, 4096), (64, 32000) and (64, 128256) with S = 1 and
-   4, beside the device time of a 64-element ``add_``.
+   4, beside the device time of a 64-element ``add_``, and K13 in each
+   layout at phi and (64, 256000) and over a B x Kp grid, with the
+   ``alias_device`` build's steps (``_partition``, ``_merged_rank``, K13)
+   beside the whole build and its path.
 3. The main paths at the paper's Wikipedia scale (M=43,556 docs,
    V=37,286 words, K=240, ~3.07M tokens, Zipf word ids, made from --seed),
    each run with the launch counts set to 0 just before it and read just
@@ -140,6 +147,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -165,6 +173,7 @@ from repro_torch.kernels import rng  # noqa: E402
 from repro_torch.kernels import runtime  # noqa: E402
 from repro_torch.kernels.alias_build import kernel as KA  # noqa: E402
 from repro_torch.kernels.alias_build import ops as aops  # noqa: E402
+from repro_torch.kernels.alias_build import ref as alias_ref  # noqa: E402
 from repro_torch.kernels.alias_build.ref import prob_tolerance  # noqa: E402
 from repro_torch.kernels.butterfly_sample import kernel as KB  # noqa: E402
 from repro_torch.kernels.butterfly_sample import ops as bops  # noqa: E402
@@ -241,6 +250,8 @@ def path_layouts() -> dict:
         "lda_fused_draw": {chunk: KL.lda_fused_layout(KL.num_blocks(CONFIG.K, 32), 32)},
         "walk_trunc": {f"(64, {K})": KB.walk_trunc_layout(KB.num_blocks(K, 128), 128)
                        for K in DECODE_VOCABS},
+        "alias_assemble": {"phi": KA.alias_layout(CONFIG.V, aops._next_pow2(CONFIG.K)),
+                           dec: KA.alias_layout(64, aops._next_pow2(Vd))},
     }
 
 
@@ -1196,27 +1207,71 @@ def induced_mass_err(w, prob, alias) -> float:
     return float((mass - target).abs().max())
 
 
+def alias_inputs(w):
+    """The device build's assembly inputs for (B, K) weights: partitioned
+    scaled weights padded with s = 1 to the next power of two, light counts
+    and merged ranks."""
+    s_sorted, _order, _inv, nL = aops._partition(w)
+    K = w.shape[1]
+    Kp = aops._next_pow2(K)
+    sp = torch.nn.functional.pad(s_sorted, (0, Kp - K), value=1.0).contiguous()
+    return sp, nL, aops._merged_rank(sp, nL).contiguous()
+
+
+def alias_edge_inputs(K: int, g: torch.Generator, dev):
+    """K a power of two: a Dirichlet row, a zero-weight row, an all-light
+    row (uniform weights: nL = Kp) and an all-pad row (s = 1, nL = 0)."""
+    w = torch._standard_gamma(torch.full((3, K), 0.3, device=dev), generator=g)
+    w[1] = 0.0
+    w[2] = 1.0
+    sp, nL, rank = alias_inputs(w)
+    ones = torch.ones(1, K, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    return (torch.cat([sp, ones]).contiguous(), torch.cat([nL, zero]).contiguous(),
+            torch.cat([rank, aops._merged_rank(ones, zero)]).contiguous())
+
+
+def check_alias_layouts(tally, case, sp, nL, rank):
+    """K13 in each layout that takes the shape against the forced block
+    layout (the first port's kernel) and against its exact-order CPU model,
+    prob and apos bit for bit."""
+    B, Kp = sp.shape
+    want = KA._alias_assemble(sp, nL, rank, layout="block")
+    cpu = [t.cpu() for t in (sp, nL, rank)]
+    for lay in KA.fitting_layouts(B, Kp):
+        got = KA._alias_assemble(sp, nL, rank, layout=lay)
+        if lay != "block":
+            tally.same("alias_assemble", f"{case} {lay} prob vs block", got[0], want[0])
+            tally.same("alias_assemble", f"{case} {lay} apos vs block", got[1], want[1])
+        model = getattr(alias_ref, f"assemble_{lay}_order_torch")(*cpu)
+        tally.same("alias_assemble", f"{case} {lay} prob vs model", got[0].cpu(), model[0])
+        tally.same("alias_assemble", f"{case} {lay} apos vs model", got[1].cpu(), model[1])
+
+
 def phase_alias_kernels(dev, seed: int, tally, phi):
-    """K13 against its plain version at phi (V x K = 37,286 x 240, Kp = 256)
-    and at (64, 4096) peaked-softmax weights; the induced mass of the full
-    device build against the weights."""
+    """K13 (the rule's layout) against its plain version at phi (V x K =
+    37,286 x 240, Kp = 256) and at (64, 4096) and (64, 256000) (Kp =
+    262,144) peaked-softmax weights; each layout against the block layout
+    and its exact-order model there and on edge rows at Kp = 256 and 4,096;
+    the induced mass of the full device build against the weights."""
     g = torch.Generator(device=dev).manual_seed(seed + 6)
-    log("phase 2e: alias assembly (K13) vs plain")
-    for case, w in (("phi 37286x240", phi), ("(64,4096) softmax",
-                                            trunc_weights("softmax", 64, 4096, g, dev))):
-        s_sorted, _order, _inv, nL = aops._partition(w)
-        K = w.shape[1]
-        Kp = aops._next_pow2(K)
-        sp = torch.nn.functional.pad(s_sorted, (0, Kp - K), value=1.0).contiguous()
-        rank = aops._merged_rank(sp, nL).contiguous()
+    log("phase 2e: alias assembly (K13) vs plain, its layouts vs block and their models")
+    for case, w in (("phi 37286x240", phi),
+                    ("(64,4096) softmax", trunc_weights("softmax", 64, 4096, g, dev)),
+                    (f"(64,{gemma2_9b.VOCAB_SIZE}) softmax",
+                     trunc_weights("softmax", 64, gemma2_9b.VOCAB_SIZE, g, dev))):
+        sp, nL, rank = alias_inputs(w)
         got = KA.alias_assemble(sp, nL, rank)
         tally.assemble("alias_assemble", case, got, KA.alias_assemble_torch(sp, nL, rank),
-                       prob_tolerance(Kp))
+                       prob_tolerance(sp.shape[1]))
+        check_alias_layouts(tally, case, sp, nL, rank)
         t = aops.build_alias_tables_device(w)
         err = induced_mass_err(w, t.prob, t.alias)
         log(f"  alias_device {case}: induced mass max_abs_err={err:.3g}")
         if err > 5e-6:
             raise AssertionError(f"alias_device {case}: induced mass off by {err}")
+    for K in (256, 4096):
+        check_alias_layouts(tally, f"edge rows Kp={K}", *alias_edge_inputs(K, g, dev))
     return tally
 
 
@@ -1249,7 +1304,8 @@ def phase_new_timing(dev, seed, phi):
     """K9 (forced fused), K11 and K12 (S=1) at (64, 256000), W = default_w;
     K9's radix select against its bisection body there, K9 with its
     stages switched off one by one, and K9 with the row staged and read
-    from L2 at (64, 32000) and (64, 56000); K11 also at B = 8; K13 at phi (37,286 x 256); K1 at (128, 256000), W=128 (the
+    from L2 at (64, 32000) and (64, 56000); K11 also at B = 8; K13 at phi (37,286 x 256)
+    and at (64, 256000) (Kp = 262,144); K1 at (128, 256000), W=128 (the
     butterfly state of 64 rows, padded to a group of 128).  Library
     yardsticks: the sort-based truncated draw (several calls) for K9,
     where + view-sum + cumsum for K11."""
@@ -1325,16 +1381,7 @@ def phase_new_timing(dev, seed, phi):
                              lambda idx: trunc_bounds("masked_blocksums", w8, W, nb)),
     })["masked_blocksums"]
     # K13 at phi
-    s_sorted, _o, _i, nL = aops._partition(phi)
-    Kp = aops._next_pow2(phi.shape[1])
-    sp = torch.nn.functional.pad(s_sorted, (0, Kp - phi.shape[1]), value=1.0).contiguous()
-    rank = aops._merged_rank(sp, nL).contiguous()
-    nbytes = sp.numel() * 16 + nL.numel() * 4
-    out.update(time_kernels({
-        "alias_assemble": (lambda: KA.alias_assemble(sp, nL, rank),
-                           lambda: KA.alias_assemble_torch(sp, nL, rank), None,
-                           lambda _: (nbytes / HBM_BYTES_PER_S * 1e3, "bytes")),
-    }))
+    out.update(time_alias(*alias_inputs(phi)))
     # K1 at W=128 on the butterfly state's (128, 256000): the rule's pick
     # (the split), and each schedule forced
     wt = trunc_weights("softmax", 128, K, g, dev)
@@ -1352,6 +1399,30 @@ def phase_new_timing(dev, seed, phi):
         f"{_ms(t1['serial device_ms'])})  plain {t1['plain_ms']:.4f} ms  bound "
         f"{t1['bound_ms'] * 1e3:.2f} us (bytes)")
     out["butterfly_table_w128"] = t1
+    # K13 at the vocabulary's (64, 256000), Kp = 262,144
+    out["alias_assemble_vocab"] = time_alias(*alias_inputs(w))["alias_assemble"]
+    return out
+
+
+def alias_bound(sp, nL):
+    """K13's least time: the padded scaled weights and ranks read and prob
+    and alias positions written, 16 bytes a column, and the light counts."""
+    return (sp.numel() * 16 + nL.numel() * 4) / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def time_alias(sp, nL, rank):
+    """K13 (the rule's layout) beside its plain version and bound, and its
+    device time (the split's three kernels summed)."""
+    out = time_kernels({
+        "alias_assemble": (lambda: KA.alias_assemble(sp, nL, rank),
+                           lambda: KA.alias_assemble_torch(sp, nL, rank), None,
+                           lambda _: alias_bound(sp, nL)),
+    })
+    t = out["alias_assemble"]
+    t["device_ms"] = device_ms(lambda: KA.alias_assemble(sp, nL, rank))
+    t["layout"] = KA.alias_layout(*sp.shape)
+    t["shape"] = list(sp.shape)
+    log(f"  alias_assemble {tuple(sp.shape)} ({t['layout']}): device {_ms(t['device_ms'])}")
     return out
 
 
@@ -1788,10 +1859,7 @@ def _fence_timing(corpus, dev, g, chunk, d, w):
     run = KB.masked_blocksums(wv, tau, W, KB.num_blocks(Kv, W))
     rows = torch.arange(B, dtype=torch.int32, device=dev)
     s2, _ = _seed2(dev)
-    phi = factors("dirichlet", 1, V, K, g, dev)[1]
-    s_sorted, _o, _i, nL = aops._partition(phi)
-    sp = torch.nn.functional.pad(s_sorted, (0, aops._next_pow2(K) - K), value=1.0).contiguous()
-    rank = aops._merged_rank(sp, nL).contiguous()
+    sp, nL, rank = alias_inputs(factors("dirichlet", 1, V, K, g, dev)[1])
     calls = {"K1 chunk W=16": lambda: KT.butterfly_table_cuda(chunk, 16, "blocks"),
              "K6 chunk W=32": lambda: KL.lda_blocksums(th, ph, d, w, 32, KL.num_blocks(K, 32)),
              "K9": lambda: KB.fused_trunc_draw(wv, u, prm, W),
@@ -1811,7 +1879,8 @@ def phase_layout_timing(corpus, dev, seed):
     (``_walk_layout_timing``), K1 in each schedule (``_table_timing``), K11
     at (64, 256000) W = 128, the kernels of ``_fence_timing``, K6 in each
     layout (``_blocksums_layout_timing``) and K12 in each layout
-    (``_walk_trunc_layout_timing``), each
+    (``_walk_trunc_layout_timing``) and K13 in each layout
+    (``_alias_timing``), each
     beside its bound (each input read once, each
     output written once); at the main paths' shapes also the device time
     from torch.profiler, which leaves out the host's time per call, and
@@ -1899,6 +1968,7 @@ def phase_layout_timing(corpus, dev, seed):
     log(f"  K11 ({Bv},{Kv}) W={Wv}: {res['masked_blocksums']}")
     res["lda_blocksums"] = _blocksums_layout_timing(corpus, dev, g, C)
     res["walk_trunc"] = _walk_trunc_layout_timing(dev, g, wv, tau)
+    res["alias"] = _alias_timing(dev, g)
     return res
 
 
@@ -1965,6 +2035,85 @@ def _walk_trunc_layout_timing(dev, g, wv, tau):
             log("  K12 " + " ".join(f"{k}={v}" for k, v in row.items()))
             out["rows"].append(row)
     log(f"  device floor (64-element add_): {_ms(out['floor_device_ms'])}")
+    return out
+
+
+# K13's layout grid: rows tiled from (64, K) softmax inputs at vocabulary
+# widths (gemma2-9b's 256,000, llama-3's 128,256, the llama-2 tokenizer's
+# 32,000: Kp = 262,144, 131,072, 32,768) and at K = 16,000 and 4,096, B
+# around the layout rule's crossover
+ALIAS_GRID = ([(B, gemma2_9b.VOCAB_SIZE) for B in (1, 8, 64, 256, 1024, 4096)]
+              + [(B, 128256) for B in (64, 1024)]
+              + [(B, 32000) for B in (64, 1024, 8192, 32768)]
+              + [(B, 16000) for B in (64, 1024, 8192)]
+              + [(B, 4096) for B in (64, 1024, 8192, 37286)])
+
+
+def _alias_timing(dev, g):
+    """K13 in each layout (one "default" in a tree without them) at phi
+    (37,286 x 240, Kp = 256) and at (64, 256000) (Kp = 262,144), the main
+    paths' shapes, with the profiler's device ms and the host's time per
+    call; over ALIAS_GRID (rows tiled from the (64, K) inputs) CUDA-event
+    and device ms; and at both main shapes the device build's steps:
+    ``_partition``, ``_merged_rank``, the assembly, the whole
+    ``build_alias_tables_device`` and the path around it
+    (``sample_from_logits`` at (64, 256000), ``Categorical.from_weights``
+    and 16 draws a row at phi)."""
+    layouts = getattr(KA, "fitting_layouts", None)
+
+    def calls(sp, nL, rank):
+        if layouts is None:
+            return {"default": lambda: KA.alias_assemble(sp, nL, rank)}
+        return {lay: (lambda lay=lay: KA._alias_assemble(sp, nL, rank, layout=lay))
+                for lay in layouts(*sp.shape)}
+
+    V = gemma2_9b.VOCAB_SIZE
+    phi = factors("dirichlet", 1, CONFIG.V, CONFIG.K, g, dev)[1]
+    logits = 4.0 * torch.randn((DECODE_B, V), generator=g, device=dev)
+    wv = sampling.logits_to_weights(logits)
+    out = {"main": [], "grid": [], "build": []}
+    for name, w in (("phi", phi), (f"({DECODE_B}, {V})", wv)):
+        sp, nL, rank = alias_inputs(w)
+        row = {"shape": name, "B": sp.shape[0], "Kp": sp.shape[1],
+               "bound_ms": alias_bound(sp, nL)[0]}
+        if layouts is not None:
+            row["rule"] = KA.alias_layout(*sp.shape)
+        for lay, fn in calls(sp, nL, rank).items():
+            row[lay] = _timed(fn, True)
+            row[lay]["by_kernel"] = {re.search(r"(\w+)(?:<[^>]*>)?\(", k).group(1): v
+                                     for k, v in device_ms_by_kernel(fn).items()}
+        log("  K13 " + " ".join(f"{k}={v}" for k, v in row.items()))
+        out["main"].append(row)
+        if name == "phi":
+            path = ("Categorical + 16 draws", lambda: sampling.Categorical.from_weights(
+                phi, method="alias_device").draw(generator=g, num_samples=16))
+        else:
+            path = ("sample_from_logits", lambda: api.sample_from_logits(
+                logits, g, method="alias_device"))
+        steps = {"_partition": lambda: aops._partition(w),
+                 "_merged_rank": lambda: aops._merged_rank(sp, nL),
+                 "alias_assemble": lambda: KA.alias_assemble(sp, nL, rank),
+                 "build_alias_tables_device": lambda: aops.build_alias_tables_device(w),
+                 path[0]: path[1]}
+        build = {"shape": name}
+        for step, fn in steps.items():
+            build[step] = {"ms": cuda_ms(fn, reps=5, warmup=1), "device_ms": device_ms(fn, 5)}
+        log("  alias_device " + " ".join(f"{k}={v}" for k, v in build.items()))
+        out["build"].append(build)
+    base = {V: alias_inputs(wv)}
+    for B, K in ALIAS_GRID:
+        if K not in base:
+            base[K] = alias_inputs(trunc_weights("softmax", DECODE_B, K, g, dev))
+        idx = torch.arange(B, device=dev) % DECODE_B
+        sp, nL, rank = (t[idx].contiguous() for t in base[K])
+        row = {"B": B, "Kp": sp.shape[1], "bound_ms": alias_bound(sp, nL)[0]}
+        if layouts is not None:
+            row["rule"] = KA.alias_layout(*sp.shape)
+        for lay, fn in calls(sp, nL, rank).items():
+            row[lay] = {"ms": cuda_ms(fn), "device_ms": device_ms(fn)}
+        log("  K13 " + " ".join(f"{k}={v}" for k, v in row.items()))
+        out["grid"].append(row)
+        del sp, nL, rank
     return out
 
 
@@ -2267,6 +2416,11 @@ def main(argv=None) -> int:
             w128 = timing["butterfly_table_w128"]
             kernels[-1].update({f"{k}_w128": w128[k] for k in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "schedule")})
+        if name == "alias_assemble":  # the vocabulary's call beside phi's
+            vocab = timing["alias_assemble_vocab"]
+            kernels[-1].update({f"{k}_vocab": vocab[k] for k in (
+                "ms", "device_ms", "plain_ms", "bound_ms", "layout", "shape")})
+            kernels[-1]["device_ms"] = tm["device_ms"]
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({

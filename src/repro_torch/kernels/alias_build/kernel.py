@@ -11,10 +11,22 @@ The invariant behind it (the reference's DESIGN.md §11): during the pack
 sweep every completed bucket holds weight 1, so with lights then heavies
 in partitioned order and their merged sweep rank, each entry's
 (prob, alias position) is rank arithmetic on the inclusive prefix ``cs``
-and the light mass ``csL``.  The wrapper takes CUDA tensors only, checks
-device, dtype, shape and contiguity, allocates the outputs and the ``cs``
-scratch row with ``torch.empty``, launches on the current stream and
-counts the launch in :data:`LAUNCHES`.
+and the light mass ``csL``.
+
+K13 has three layouts (:data:`LAYOUTS`) that make the same fp32 adds in
+the same order, so they agree bit for bit (``ref.assemble_{block,group,
+split}_order_torch`` model them): ``"block"``, one block of 256 threads
+per row walking 1,024-column chunks with a ``cs`` scratch row; ``"group"``
+(Kp a power of two up to 1,024), Kp / 4 lanes per row, several rows per
+block, ``cs`` in shared memory; ``"split"`` (Kp a multiple of 1,024 above
+it), a row's eight warp slots walked by eight warps, the carries chained
+per row, the heavy entries rebuilt from them.  :func:`alias_layout`
+picks one from the shape; the private :func:`_alias_assemble` takes
+``layout=`` to force one.  The wrapper takes CUDA tensors only, checks
+device, dtype, shape and contiguity, allocates the outputs and the
+layout's scratch with ``torch.empty``, launches on the current stream and
+counts the launch in :data:`LAUNCHES` (a split call, three kernels back
+to back, counts once).
 """
 
 from __future__ import annotations
@@ -28,7 +40,17 @@ from repro_torch.kernels import _build
 
 # launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"alias_assemble": 0}
-_SIGS = {"alias_assemble": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+_SIGS = {"alias_assemble": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]}
+
+LAYOUTS = ("block", "group", "split")
+CHUNK = 1024            # columns a block-layout chunk (kThreads * kItems)
+GROUP_MAX_KP = CHUNK    # the group layout takes one chunk a row
+# the narrowest rows the split is taken for: on the H100 it beat the block
+# layout from 16 chunks a row (Kp = 16,384) at every B measured (64 to
+# 32,768 rows), and lost at 4 chunks (Kp = 4,096) at every B (PERF.md)
+SPLIT_MIN_KP = 16 * CHUNK
+_T_STRIDE = 16          # floats a chunk's carry terms take (kTStride)
+_WARPS = 8              # warp slots a row (kWarps)
 
 
 def reset_launches() -> None:
@@ -80,10 +102,49 @@ def _check(name: str, t: torch.Tensor, dtype, shape, like: torch.Tensor) -> None
         )
 
 
+def fitting_layouts(B: int, Kp: int) -> tuple:
+    """The layouts of :data:`LAYOUTS` that take B rows of Kp columns: block
+    any; group a power of two Kp from 4 to 1,024; split Kp a multiple of
+    1,024 above it and at most 65,535 rows (the grid's y limit)."""
+    group = 4 <= Kp <= GROUP_MAX_KP and Kp & (Kp - 1) == 0
+    split = Kp > CHUNK and Kp % CHUNK == 0 and B <= 65535
+    return tuple(lay for lay, ok in zip(LAYOUTS, (True, group, split)) if ok)
+
+
+def alias_layout(B: int, Kp: int) -> str:
+    """K13's layout for B rows of Kp columns: ``"group"`` where it fits,
+    ``"split"`` where it fits from SPLIT_MIN_KP on, else ``"block"``."""
+    fits = fitting_layouts(B, Kp)
+    if "group" in fits:
+        return "group"
+    if "split" in fits and Kp >= SPLIT_MIN_KP:
+        return "split"
+    return "block"
+
+
+def _split_work_floats(B: int, Kp: int) -> int:
+    """Floats of the split layout's scratch (alias_build.cu's SplitWork):
+    a shfl_up term per thread slot and chunk, the carry terms and the
+    carry per chunk, a light sum per warp slot."""
+    nc = Kp // CHUNK
+    return B * (Kp // 4 + (_T_STRIDE + 1) * nc + _WARPS)
+
+
 def alias_assemble(s_sorted, nL, rank) -> Tuple[torch.Tensor, torch.Tensor]:
     """K13: (B, Kp) float32 partitioned scaled weights, (B,) int32 light
     counts and (B, Kp) int32 merged ranks -> (prob (B, Kp) float32,
-    apos (B, Kp) int32).  Any Kp is taken."""
+    apos (B, Kp) int32), in the layout :func:`alias_layout` picks.  Any
+    Kp is taken."""
+    return _alias_assemble(s_sorted, nL, rank)
+
+
+def _alias_assemble(s_sorted, nL, rank, layout=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`alias_assemble` in the layout ``layout`` (one of
+    :data:`LAYOUTS`; None picks it with :func:`alias_layout`, and takes
+    ``"block"`` where s_sorted or rank is not 16-byte aligned).  Every
+    layout gives the same prob and apos bit for bit."""
+    if layout is not None and layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS} or None, got {layout!r}")
     if not s_sorted.is_cuda:
         raise ValueError(f"s_sorted must be a CUDA tensor, got {s_sorted.device}")
     if s_sorted.dim() != 2:
@@ -92,11 +153,24 @@ def alias_assemble(s_sorted, nL, rank) -> Tuple[torch.Tensor, torch.Tensor]:
     _check("s_sorted", s_sorted, torch.float32, (B, Kp), s_sorted)
     _check("nL", nL, torch.int32, (B,), s_sorted)
     _check("rank", rank, torch.int32, (B, Kp), s_sorted)
-    prob = torch.empty((B, Kp), dtype=torch.float32, device=s_sorted.device)
-    apos = torch.empty((B, Kp), dtype=torch.int32, device=s_sorted.device)
-    cs = torch.empty((B, Kp), dtype=torch.float32, device=s_sorted.device)
+    aligned = s_sorted.data_ptr() % 16 == 0 and rank.data_ptr() % 16 == 0
+    if layout is None:
+        layout = alias_layout(B, Kp) if aligned else "block"
+    elif layout != "block" and not aligned:
+        raise ValueError(f"the {layout} layout needs 16-byte aligned s_sorted and rank")
+    if layout not in fitting_layouts(B, Kp):
+        raise ValueError(f"the {layout} layout does not take ({B}, {Kp}) rows "
+                         f"(fitting_layouts: {fitting_layouts(B, Kp)})")
+    dev = s_sorted.device
+    prob = torch.empty((B, Kp), dtype=torch.float32, device=dev)
+    apos = torch.empty((B, Kp), dtype=torch.int32, device=dev)
+    work = None  # the group layout keeps cs in shared memory
+    if layout == "block":  # the cs scratch row
+        work = torch.empty((B, Kp), dtype=torch.float32, device=dev)
+    elif layout == "split":
+        work = torch.empty(_split_work_floats(B, Kp), dtype=torch.float32, device=dev)
     lib = _build.bind("alias_build", _SIGS)
     _build.launch(lib, "alias_assemble", LAUNCHES, s_sorted.data_ptr(), nL.data_ptr(),
-                  rank.data_ptr(), prob.data_ptr(), apos.data_ptr(), cs.data_ptr(),
-                  B, Kp)
+                  rank.data_ptr(), prob.data_ptr(), apos.data_ptr(),
+                  None if work is None else work.data_ptr(), B, Kp, LAYOUTS.index(layout))
     return prob, apos

@@ -9,8 +9,9 @@ XLA ops in the reference — and assembles (prob, alias position) with the
 Hopper kernel K13 for CUDA tensors or its plain version for CPU tensors
 (``runtime.resolve_impl``).  As in the reference's kernel route, the
 columns are padded to the next power of two Kp with s = 1
-pseudo-heavies, which leave every real rank unchanged; the port's kernel
-runs one block per row, so no rows are padded.
+pseudo-heavies, which leave every real rank unchanged; K13 takes any
+number of rows in each of its layouts (``kernel.alias_layout`` picks one
+from the shape), so no rows are padded.
 """
 
 from __future__ import annotations

@@ -249,6 +249,7 @@ from repro_torch import sampling  # noqa: E402
 from repro_torch.core import butterfly as bfly  # noqa: E402
 from repro_torch.kernels.alias_build import kernel as KA  # noqa: E402
 from repro_torch.kernels.alias_build import ops as aops  # noqa: E402
+from repro_torch.kernels.alias_build import ref as alias_ref  # noqa: E402
 from repro_torch.kernels.alias_build.ref import prob_tolerance, table_mass  # noqa: E402
 from repro_torch.kernels.butterfly_sample.ref import (  # noqa: E402
     cuda_sum_depth, masked_blocksums_warp_order_torch, trunc_boundary_ties)
@@ -455,6 +456,116 @@ def test_alias_assembly_equals_plain(dev, B, K):
     assert np.abs(mass - target).max() < 5e-6
     with pytest.raises(ValueError, match="rank"):
         KA.alias_assemble(sp, nL, rank.long())
+
+
+def _alias_inputs(w):
+    """The device build's assembly inputs: partitioned scaled weights padded
+    with s = 1 to the next power of two, light counts, merged ranks."""
+    s_sorted, _o, _i, nL = aops._partition(w)
+    K = w.shape[1]
+    Kp = aops._next_pow2(K)
+    sp = torch.nn.functional.pad(s_sorted, (0, Kp - K), value=1.0).contiguous()
+    return sp, nL, aops._merged_rank(sp, nL).contiguous()
+
+
+def _alias_case(dev, case):
+    """(B, K) Dirichlet-like weights (a zero row among them), the
+    vocabulary's softmax rows, or edge rows at a power of two K: a
+    Dirichlet row, a zero-weight row, an all-light row (uniform weights,
+    nL = Kp) and an all-pad row (s = 1, nL = 0)."""
+    kind, B, K = case
+    g = torch.Generator(device=dev).manual_seed(B + K)
+    if kind == "softmax":
+        return _alias_inputs(torch.softmax(4.0 * torch.randn((B, K), generator=g, device=dev),
+                                           dim=-1))
+    w = torch._standard_gamma(torch.full((B, K), 0.3, device=dev), generator=g)
+    w[1] = 0
+    if kind == "gamma":
+        return _alias_inputs(w)
+    w[2] = 1.0
+    sp, nL, rank = _alias_inputs(w[:3])
+    ones = torch.ones(1, K, device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    return (torch.cat([sp, ones]).contiguous(), torch.cat([nL, zero]).contiguous(),
+            torch.cat([rank, aops._merged_rank(ones, zero)]).contiguous())
+
+
+ALIAS_CASES = [("gamma", 37286, 240), ("gamma", 64, 4096), ("gamma", 4, 70000),
+               ("softmax", 64, 256000), ("edge", 4, 256), ("edge", 4, 4096), ("gamma", 9, 50)]
+ALIAS_MODELS = {"block": alias_ref.assemble_block_order_torch,
+                "group": alias_ref.assemble_group_order_torch,
+                "split": alias_ref.assemble_split_order_torch}
+
+
+@pytest.mark.parametrize("case", ALIAS_CASES)
+def test_alias_layouts_equal_block(dev, case):
+    """K13's group and split layouts (where they take the shape) against
+    the forced block layout, the first port's kernel: prob and apos equal
+    bit for bit."""
+    sp, nL, rank = _alias_case(dev, case)
+    want = KA._alias_assemble(sp, nL, rank, layout="block")
+    others = [lay for lay in KA.fitting_layouts(*sp.shape) if lay != "block"]
+    assert others
+    for lay in others:
+        got = KA._alias_assemble(sp, nL, rank, layout=lay)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), lay
+
+
+@pytest.mark.parametrize("case", ALIAS_CASES)
+def test_alias_layouts_equal_their_models(dev, case):
+    """Each layout's kernel against its exact-order CPU model, bit for
+    bit."""
+    sp, nL, rank = _alias_case(dev, case)
+    cpu = [t.cpu() for t in (sp, nL, rank)]
+    for lay in KA.fitting_layouts(*sp.shape):
+        got = KA._alias_assemble(sp, nL, rank, layout=lay)
+        want = ALIAS_MODELS[lay](*cpu)
+        assert torch.equal(got[0].cpu(), want[0]) and torch.equal(got[1].cpu(), want[1]), lay
+
+
+@pytest.mark.parametrize("case", ALIAS_CASES)
+def test_alias_rule_launches_once(dev, case):
+    """The rule's layout: one counted launch (the split's three kernels
+    count once), apos equal to the plain version's, prob within
+    prob_tolerance(Kp)."""
+    sp, nL, rank = _alias_case(dev, case)
+    KA.reset_launches()
+    prob, apos = KA.alias_assemble(sp, nL, rank)
+    assert KA.LAUNCHES == {"alias_assemble": 1}
+    pp, ap = KA.alias_assemble_torch(sp, nL, rank)
+    assert torch.equal(apos, ap)
+    torch.testing.assert_close(prob, pp, rtol=0, atol=prob_tolerance(sp.shape[1]))
+
+
+def test_alias_device_mass_at_vocabulary_width(dev):
+    """build_alias_tables_device at (64, 256000) (the split layout): the
+    induced mass equals the weights within the reference's 5e-6."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    w = torch.softmax(4.0 * torch.randn((64, 256000), generator=g, device=dev), dim=-1)
+    assert KA.alias_layout(64, 262144) == "split"
+    t = aops.build_alias_tables_device(w)
+    p = t.prob.double()
+    mass = p.clone().scatter_add_(1, t.alias.long(), 1.0 - p) / w.shape[1]
+    target = w.double() / w.double().sum(1, keepdim=True)
+    assert float((mass - target).abs().max()) < 5e-6
+
+
+def test_alias_forced_layouts_reject_what_they_do_not_take(dev):
+    sp, nL, rank = _alias_case(dev, ("gamma", 4, 4096))
+    with pytest.raises(ValueError, match="group layout does not take"):
+        KA._alias_assemble(sp, nL, rank, layout="group")
+    s2, n2, r2 = _alias_case(dev, ("gamma", 4, 240))
+    with pytest.raises(ValueError, match="split layout does not take"):
+        KA._alias_assemble(s2, n2, r2, layout="split")
+    off = torch.empty(s2.numel() + 1, device=dev)[1:].view(s2.shape)
+    off.copy_(s2)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        KA._alias_assemble(off, n2, r2, layout="group")
+    # the rule takes the block layout for rows it cannot load 16 bytes at a time
+    got = KA.alias_assemble(off, n2, r2)
+    want = KA._alias_assemble(s2, n2, r2, layout="block")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_categorical_butterfly_at_vocabulary_width(dev):
