@@ -147,6 +147,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1565,6 +1566,386 @@ def phase_gibbs_new(state, corpus):
 
 
 # ---------------------------------------------------------------------------
+# The defaults (method="auto") and the autotune grid
+# ---------------------------------------------------------------------------
+
+# the kernels one build + draw of a method launches on the untruncated paths
+AUTO_KERNELS = {"lda_kernel": ("lda_fused_draw",), "kernel": ("blocksums", "walk"),
+                "butterfly": ("butterfly_table",), "alias_device": ("alias_assemble",)}
+
+
+def auto_expect(method: str, n: int, S: int = 0) -> dict:
+    """The launches of ``n`` calls of a path resolved to ``method`` (``S``
+    > 0: a top-k/top-p decode with S tokens a row, where a ``kernel`` or
+    ``kernel_trunc`` plan runs K9, or K11 + K12)."""
+    if S and method in ("kernel", "kernel_trunc"):
+        names = ("fused_trunc_draw",) if S == 1 else ("masked_blocksums", "walk_trunc")
+    else:
+        names = AUTO_KERNELS.get("kernel" if method == "kernel_trunc" else method, ())
+    return {k: n for k in names}
+
+
+def resolution(B: int, K: int, **kw) -> dict:
+    """What ``auto`` resolves a card workload to (a hit on the plan's own
+    bucket: the source is the cache entry's)."""
+    from repro_torch import autotune
+
+    r = autotune.get_tuner().resolve_full(B, K, backend="cuda", **kw)
+    return {"method": r.method, "W": r.W, "tb": r.tb, "tk": r.tk, "source": r.source}
+
+
+def _same(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    if not torch.equal(got, want):
+        raise AssertionError(f"auto {name}: differs from its resolved method's draw "
+                             f"({int((got != want).sum())} of {got.numel()})")
+
+
+def _auto_path(name, res, counts, expect, seconds, explicit) -> dict:
+    check_path(f"auto {name} -> {res['method']}", counts, expect)
+    log(f"  auto {name}: {res}, {seconds}; explicit methods: {explicit}")
+    return {"resolved": res, "seconds": seconds, "launches": counts, "explicit": explicit}
+
+
+def phase_auto(state, corpus, dev, seed, main_res):
+    """The lifted defaults at full width, each with the launch counts read
+    around it and its draws equal to the explicit method it resolved to on
+    the same random stream: the sweep (``gibbs_step`` at its default, 3
+    sweeps, then one ``draw_z`` against the resolved method),
+    ``sample_from_logits`` and ``plan(..., transforms="kp")`` at (64,
+    256000) with one and four tokens a row, ``Categorical.from_weights(phi)``
+    and 16 draws through ``sample_categorical(phi, g, dist_key="phi",
+    draws=16)``, then phi changed in place and drawn again under the same
+    key: the draw must come from a rebuilt table (the same with an explicit
+    ``alias_device``, whose build launches K13 once a miss)."""
+    from repro_torch import autotune
+
+    K, M, chunk = CONFIG.K, corpus.docs.shape[0], 256
+    maxN = corpus.docs.shape[1]
+    nchunks = -(-M // chunk)
+    res, launches = {}, {}
+    decode, methods, alias_phi = main_res["api"]
+    # the sweep: 3 sweeps at the default, then draw_z against the resolved method
+    rz = resolution(chunk * maxN, K, has_key=False, factored=True)
+    reset_counts()
+    state, times = sweep_seconds(state, corpus, "auto", None, 3)
+    counts = read_counts()
+    explicit = {"lda_kernel (W=32)": main_res["sweep_s"],
+                **{m: main_res["table_paths"][m]["sweep_s"] for m in ("butterfly", "kernel")}}
+    res["gibbs_step"] = _auto_path("gibbs_step", rz, counts,
+                                   auto_expect(rz["method"], 3 * nchunks), times, explicit)
+    add_counts(launches, counts)
+    check_state(state, K)
+    g0 = state.key.get_state()
+    za = gibbs.draw_z(state, corpus.docs)
+    state.key.set_state(g0)
+    _same("draw_z", za, gibbs.draw_z(state, corpus.docs, method=rz["method"], W=rz["W"]))
+    # decode width: sample_from_logits and the truncated plan
+    B, V = DECODE_B, gemma2_9b.VOCAB_SIZE
+    g = torch.Generator(device=dev).manual_seed(seed + 14)
+    logits = 4.0 * torch.randn((B, V), generator=g, device=dev)
+    rl = resolution(B, V, has_key=True)
+    g.manual_seed(seed + 15)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    tok = api.sample_from_logits(logits, g)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    counts = read_counts()
+    g.manual_seed(seed + 15)
+    _same("sample_from_logits", tok,
+          api.sample_from_logits(logits, g, method=rl["method"], W=rl["W"]))
+    res["sample_from_logits"] = _auto_path(
+        f"sample_from_logits ({B},{V})", rl, counts, auto_expect(rl["method"], 1), t,
+        {m: r["seconds"] for m, r in methods.items()
+         if isinstance(r, dict) and r.get("shape") == [B, V]})
+    add_counts(launches, counts)
+    spec = gemma2_9b.SAMPLER
+    chain = (sampling.TopK(spec.top_k), sampling.TopP(spec.top_p))
+    rt = resolution(B, V, has_key=True, transforms="kp")
+    p = sampling.plan((B, V), transforms="kp")
+    pe = sampling.plan((B, V), method=rt["method"], W=rt["W"], transforms="kp")
+    for S in (1, 4):
+        toks = []
+        g.manual_seed(seed + 16)
+        reset_counts()
+        t = step_seconds(lambda: toks.append(p.sample_logits(
+            logits, g, num_samples=S, transforms=chain)), 20)
+        counts = read_counts()
+        g.manual_seed(seed + 16)
+        _same(f"plan kp S={S}", toks[0], pe.sample_logits(logits, g, num_samples=S,
+                                                           transforms=chain))
+        dec = decode.get(f"{V} uniform" + (" S=4" if S == 4 else ""), {})
+        res[f"plan_kp_S{S}"] = _auto_path(
+            f"plan((64, {V}), transforms='kp') S={S}", rt, counts,
+            auto_expect(rt["method"], 20, S=S), t, {"kernel": dec.get("step_s")})
+        add_counts(launches, counts)
+    # phi: from_weights at the default, then 16 draws under dist_key
+    phi = state.phi.clone()
+    rp = resolution(*phi.shape, has_key=True)
+    g.manual_seed(seed + 17)
+    reset_counts()
+    t0 = time.perf_counter()
+    d = sampling.Categorical.from_weights(phi)
+    za = d.draw(generator=g)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    counts = read_counts()
+    g.manual_seed(seed + 17)
+    _same("Categorical.from_weights(phi)", za, sampling.Categorical.from_weights(
+        phi, method=rp["method"], W=rp["W"]).draw(generator=g))
+    res["from_weights_phi"] = _auto_path(
+        f"Categorical.from_weights(phi {tuple(phi.shape)})", rp, counts,
+        auto_expect(rp["method"], 1), t,
+        {"alias_device (build + 16 draws)": alias_phi["seconds"]})
+    add_counts(launches, counts)
+    rk = resolution(*phi.shape, has_key=True, draws=16)
+    for name, kw in (("auto", {}), ("alias_device", {"method": "alias_device"})):
+        counts, res[f"dist_key_phi {name}"] = _dist_key_phi(state.phi.clone(), g, seed, rk
+                                                            if not kw else None, **kw)
+        add_counts(launches, counts)
+    return state, launches, res
+
+
+def _dist_key_phi(phi, g, seed, res, method="auto"):
+    """16 draws through ``sample_categorical(phi, g, method=method,
+    dist_key=..., draws=16)`` (a cached-table method builds once and hits
+    15 times), equal to 16 draws from one fresh build; then ``phi``
+    changed in place and one more draw under the same key, which must
+    rebuild (a miss, the method's build launches again) and equal a fresh
+    build's draw on the new weights."""
+    from repro_torch import autotune
+
+    m = res["method"] if method == "auto" else method
+    W = res["W"] if method == "auto" else runtime.default_w(phi.shape[1])
+    key = f"phi/{method}"
+    cache = autotune.get_table_cache()
+    cache.clear()
+    cached = m in api._CACHED_KINDS
+    g.manual_seed(seed + 18)
+    reset_counts()
+    t0 = time.perf_counter()
+    z = torch.stack([api.sample_categorical(phi, g, method=method, dist_key=key, draws=16)
+                     for _ in range(16)])
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t0
+    counts = read_counts()
+    stats = cache.stats()
+    if cached and (stats["misses"], stats["hits"]) != (1, 15):
+        raise AssertionError(f"dist_key={key!r}: expected 1 build and 15 hits, got {stats}")
+    g.manual_seed(seed + 18)
+    fresh = sampling.Categorical.from_weights(phi, method=m, W=W)
+    _same(f"dist_key {method}", z, torch.stack([fresh.draw(generator=g) for _ in range(16)]))
+    out = _auto_path(f"sample_categorical(phi, method={method!r}, dist_key, draws=16)",
+                     res or {"method": m, "W": W}, counts,
+                     auto_expect(m, 1 if cached else 16), t, {})
+    phi[:, : phi.shape[1] // 2].mul_(2.0)
+    g.manual_seed(seed + 19)
+    reset_counts()
+    got = api.sample_categorical(phi, g, method=method, dist_key=key, draws=16)
+    after_counts = read_counts()
+    after = cache.stats()
+    g.manual_seed(seed + 19)
+    _same(f"dist_key {method} after an in-place change", got,
+          sampling.Categorical.from_weights(phi, method=m, W=W).draw(generator=g))
+    if cached and after["misses"] != stats["misses"] + 1:
+        raise AssertionError(f"dist_key={key!r} after phi.mul_: no rebuild ({after})")
+    check_path(f"dist_key {method} after phi.mul_", after_counts, auto_expect(m, 1))
+    log(f"  dist_key={key!r} ({m}) after phi.mul_ in place: table cache {after}, "
+        + ("a rebuild" if cached else f"{m} caches no table: built per call")
+        + ", draws equal to a fresh build's")
+    add_counts(counts, after_counts)
+    out["rebuild"] = {"cache": after, "launches": after_counts}
+    return counts, out
+
+
+def auto_sharded(mesh, corpus, dev, seed):
+    """``make_sharded_gibbs(mesh, 240, V)`` at its default on the world of
+    one: one sweep, its launches, and its z and phi equal to the sweep of
+    the method it resolved to."""
+    from repro_torch.lda.distributed import make_sharded_gibbs
+
+    K = CONFIG.K
+    M, N = corpus.docs.shape
+    r = resolution(M * N, K, has_key=False, factored=True)   # one shard: every document
+    outs = []
+    for kw in ({}, {"method": r["method"], "W": r["W"]}):
+        place, step = make_sharded_gibbs(mesh, K, corpus.vocab_size, **kw)
+        st, docs, mask = place(gibbs.init_state(seed, corpus, K, device=dev),
+                               corpus.docs, corpus.mask)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        with _AllReduceCount() as c:
+            st = step(st, docs, mask)
+        torch.cuda.synchronize()
+        outs.append((st, time.perf_counter() - t0, read_counts(), c.n))
+    (sa, ta, counts, na), (se, te, _, _) = outs
+    _same("make_sharded_gibbs z", sa.z.to_local(), se.z.to_local())
+    _same("make_sharded_gibbs phi", sa.phi.to_local(), se.phi.to_local())
+    if na != 1:
+        raise AssertionError(f"auto distributed sweep: {na} all_reduce calls")
+    return counts, _auto_path("make_sharded_gibbs(mesh, 240, V)", r, counts,
+                              auto_expect(r["method"], 1), [ta],
+                              {r["method"]: [te]})
+
+
+GRID_BS = (64, 1024, 27392)
+GRID_KS = (16, 64, 240, 1024, 4096, 32000, 256000)
+GRID_MAX_BYTES = 512 * 2**20          # cells with B * K * 4 bytes up to this
+GRID_TRUNC_MIN_K = 4096               # truncated ("kp") buckets from this K
+# the PyTorch Vose build pairs K entries a row one step at a time
+# (core/alias.py): above this K it would take minutes, so alias is left out
+ALIAS_MAX_K = 4096
+# one draws=64 bucket for each cached-table method: (method, B, K, has_key)
+GRID_REUSE = (("alias", 1024, 1024, True), ("fenwick", 1024, 4096, False),
+              ("alias_device", 64, 32000, True), ("radix_forest", 27392, 240, False))
+MODEL_TARGET = 1.25                   # the model's pick within this of the winner
+# the median of this many synchronised calls per candidate: a host-bound
+# call's time varies up to 2x between runs on the H100 (PERF.md §6); alias,
+# whose calls take 0.3-2.4 s (K sequential steps), is timed once
+GRID_ITERS = 9
+
+
+def grid_buckets():
+    out = []
+    for B in GRID_BS:
+        for K in GRID_KS:
+            if B * K * 4 > GRID_MAX_BYTES:
+                continue
+            out += [{"B": B, "K": K, "has_key": False}, {"B": B, "K": K, "has_key": True},
+                    {"B": B, "K": K, "has_key": False, "factored": True}]
+            if K >= GRID_TRUNC_MIN_K:
+                out.append({"B": B, "K": K, "has_key": True, "transforms": "kp"})
+    out += [{"B": B, "K": K, "has_key": hk, "draws": 64, "for": m}
+            for m, B, K, hk in GRID_REUSE]
+    return out
+
+
+def _fit_nonneg(cols, t):
+    """Coefficients >= 0 of the columns ``cols`` (each a value per point)
+    that minimize the relative error sum(((cols . c) / t - 1) ** 2): the
+    best least-squares fit over every subset of free coefficients."""
+    A = np.stack([np.asarray(c, float) / t for c in cols], 1)
+    best, n = None, A.shape[1]
+    for mask in range(1, 1 << n):
+        idx = [i for i in range(n) if mask >> i & 1]
+        c, *_ = np.linalg.lstsq(A[:, idx], np.ones_like(t), rcond=None)
+        if (c < 0).any():
+            continue
+        full = np.zeros(n)
+        full[idx] = c
+        err = float(((A @ full - 1) ** 2).sum())
+        if best is None or err < best[0]:
+            best = (err, full)
+    return [float(v) for v in best[1]]
+
+
+def fit_cuda(rows) -> dict:
+    """The ``"cuda"`` entry's ``call_us``, ``eq_scale`` and ``row_ns``
+    fitted from the grid's draws=1 timings at each method's model W: per
+    method, its host time a call, a scale on its modelled bytes and its
+    time per category of a row, over its own workload (plain, or the
+    factored / truncated one where it serves only that); then the extra
+    host time of its factored (``m|fac``) and truncated (``m|tr``) forms,
+    the other terms held."""
+    from repro_torch.autotune import cost_model as cm
+
+    bp = cm.BACKENDS["cuda"]
+    pts = {}
+    for r in rows:
+        if r["draws"] != 1:
+            continue
+        B, K, fac, tr = r["B"], r["K"], r["factored"], bool(r["transforms"])
+        W = cm.default_w(K)
+        for name, us in r["timed"].items():
+            m, w = name.split("@")
+            if int(w) != W or us is None:
+                continue
+            eq = cm.method_cost_eq(m, K, W=W, backend="cuda", factored=fac, truncated=tr)
+            form = ("tr" if tr and m not in cm.TRUNCATED_METHODS else
+                    "fac" if fac and m not in cm.FACTORED_METHODS else "")
+            pts.setdefault(m, {}).setdefault(form, []).append(
+                (B * eq / (bp.bandwidth_gbps * 1e3), K / 1e3, us - bp.launch_us))
+    call, scale, row = {}, {}, {}
+    for m, forms in sorted(pts.items()):
+        base = forms.get("") or forms.get("fac") or forms.get("tr")
+        x, k, t = (np.array(v, float) for v in zip(*base))
+        call[m], scale[m], row[m] = _fit_nonneg([np.ones_like(t), x, k], t)
+        for form in ("fac", "tr"):
+            if form in forms and forms[form] is not base:
+                x, k, t = (np.array(v, float) for v in zip(*forms[form]))
+                rest = call[m] + scale[m] * x + row[m] * k
+                e = float(((1 - rest / t) / t).sum() / (1 / t ** 2).sum())
+                call[f"{m}|{form}"] = max(e, 0.0)
+    return {"call_us": {k: round(v, 1) for k, v in call.items()},
+            "eq_scale": {k: round(v, 3) for k, v in scale.items()},
+            "row_ns": {k: round(v, 3) for k, v in row.items()}}
+
+
+def phase_grid():
+    """Phase 5b: every candidate timed per bucket of the grid
+    (``measure_candidates``, the timing of measure mode: the host clock
+    around each call, synchronised; the median of ``GRID_ITERS`` calls),
+    the measured winner against the cost model's pick with the committed
+    ``"cuda"`` constants, the ratio of the pick's measured time to the
+    winner's, and :func:`fit_cuda`'s refit from this run."""
+    from repro_torch.autotune import cost_model as cm
+    from repro_torch.autotune import tuner as tu
+    from repro_torch.autotune.cache import bucket_key
+
+    t_all = time.perf_counter()
+    rows, misses = [], []
+    log(f"phase 5b: autotune grid, B in {GRID_BS} x K in {GRID_KS} (B*K*4 <= "
+        f"{GRID_MAX_BYTES} bytes), plain / keyed / factored, 'kp' from K = "
+        f"{GRID_TRUNC_MIN_K}, draws=64 buckets {GRID_REUSE}; alias left out above "
+        f"K = {ALIAS_MAX_K} (resolve_full(candidates=...)): its PyTorch Vose build "
+        "takes K sequential steps a row")
+    for b in grid_buckets():
+        B, K, hk = b["B"], b["K"], b["has_key"]
+        fac, sig, d = b.get("factored", False), b.get("transforms", ""), b.get("draws", 1)
+        cands = tu.candidate_methods(B, K, "cuda", hk, factored=fac, transforms=sig)
+        left_out = [c for c in cands if c == "alias" and K > ALIAS_MAX_K]
+        cands = tuple(c for c in cands if c not in left_out)
+        t0 = time.perf_counter()
+        timed = {}
+        for group, iters in ((tuple(c for c in cands if c != "alias"), GRID_ITERS),
+                             (tuple(c for c in cands if c == "alias"), 1)):
+            timed.update(tu.measure_candidates(group, B, K, factored=fac,
+                                               truncated=bool(sig), device="cuda",
+                                               iters=iters))
+        timed = {k: timed[k] for c in cands for k in timed if k[0] == c}  # candidate order
+        wm, wW, wus = tu.measured_winner(timed, K, draws=d, backend="cuda")
+        pm, pW, pred = cm.choose(cands, B, K, draws=d, backend="cuda", factored=fac,
+                                 truncated=bool(sig))
+        raw = timed.get((pm, pW))
+        pick = (float("inf") if raw is None
+                else tu.amortized_us(raw, pm, K, pW, draws=d, backend="cuda"))
+        ratio = pick / wus
+        key = bucket_key("cuda", B, K, d, "float32", has_key=hk, factored=fac,
+                         transforms=sig)
+        row = {"bucket": key, "B": B, "K": K, "draws": d, "has_key": hk, "factored": fac,
+               "transforms": sig, "winner": [wm, wW, wus], "pick": [pm, pW, pick],
+               "predicted_us": pred, "ratio": ratio, "left_out": left_out,
+               "seconds": time.perf_counter() - t0,
+               "timed": {f"{m}@{W}": us for (m, W), us in timed.items()}}
+        rows.append(row)
+        flag = "" if ratio <= MODEL_TARGET else f"   MISS (> {MODEL_TARGET}x)"
+        log(f"  grid {key}: winner {wm} W={wW} {wus:.1f} us; model {pm} W={pW} "
+            f"measured {pick:.1f} us (predicted {pred:.1f}); ratio {ratio:.3f}{flag}")
+        if ratio > MODEL_TARGET:
+            misses.append(key)
+    secs = time.perf_counter() - t_all
+    log(f"  grid: {len(rows)} buckets in {secs:.1f} s; model pick within "
+        f"{MODEL_TARGET}x of the winner in {len(rows) - len(misses)}; misses {misses}")
+    fit = fit_cuda(rows)
+    log(f"  grid: the committed 'cuda' constants {cm.BACKENDS['cuda']}")
+    log(f"  grid: refit from this run {json.dumps(fit)}")
+    return {"rows": rows, "misses": misses, "seconds": secs,
+            "constants": repr(cm.BACKENDS["cuda"]), "refit": fit}
+
+
+# ---------------------------------------------------------------------------
 # The seeded draws (K5, K10) and the sharded paths
 # ---------------------------------------------------------------------------
 
@@ -2301,6 +2682,8 @@ def phase_sharded(corpus, dev, seed, steps: int = 20, B: int = DECODE_B,
                                  "lda_draw_factored_rng on the whole batch")
         res["distributed_sweep"] = {"sweep_s": times, "all_reduce": reduces,
                                     "perplexity": ppl, "launches": counts}
+        counts, res["distributed_auto"] = auto_sharded(mesh, corpus, dev, seed)
+        add_counts(launches, counts)
         # the planted corpus: 30 sweeps bring perplexity below 0.6x its start
         pc = corpus_mod.synthesize_corpus(seed=0, M=M_planted, V=120, K=8, avg_len=40,
                                           max_len=80)
@@ -2339,6 +2722,12 @@ def main(argv=None) -> int:
               "kernels run only on the card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    # the defaults resolve from the committed cost model, on a cache file of
+    # this run inside the checkout
+    cache = ROOT / "build" / "autotune.json"
+    cache.unlink(missing_ok=True)
+    os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(cache)
+    os.environ["REPRO_AUTOTUNE"] = "model"
     smi = nvidia_smi()
     log(smi)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -2388,6 +2777,10 @@ def main(argv=None) -> int:
         main_res.setdefault("api", []).append(res)
         add_counts(launches, counts)
     state, main_res["gibbs_new"] = phase_gibbs_new(state, dev_corpus)
+    log("phase 5a: the defaults (method='auto') on the card")
+    state, counts, main_res["auto"] = phase_auto(state, dev_corpus, dev, args.seed, main_res)
+    add_counts(launches, counts)
+    main_res["grid"] = phase_grid()
     main_res["profile"] = {}
     for method, W in (("lda_kernel", 32), ("butterfly", None), ("kernel", None)):
         state, main_res["profile"][method] = phase_profile(state, dev_corpus, method, W)

@@ -12,8 +12,9 @@ class SamplerSpec:
     by ``repro_torch.sampling.plan``.
 
     ``method``: auto | two_level | fenwick | butterfly | kernel | prefix |
-    gumbel | alias | alias_device | radix_forest (``auto`` comes with
-    slice 9).  ``W = 0`` means ``runtime.default_w(K)``.  ``draws`` is the
+    gumbel | alias | alias_device | radix_forest (``auto``: the autotune
+    tuner's pick).  ``W = 0`` means the tuned W under ``auto``, else
+    ``runtime.default_w(K)``.  ``draws`` is the
     expected uses per distribution (1 for decode).  ``top_k`` / ``top_p``
     / ``min_p`` are the model's default truncation, disabled at
     0 / 1.0 / 0."""

@@ -4,11 +4,13 @@ counterpart of ``repro.lda.distributed``.
 
 A sweep on each rank:
 
-* **z-draw.**  The rank draws its own word positions from its theta rows
-  and the replicated phi: ``lda_draw_factored_rng`` (K8 on the card) with
-  global row counters, ``row_offset = linear index * C_loc * N``, so the
-  draws are the same at any rank count and the draw issues no
-  collective.  Another u-driven method builds the factored plan's
+* **z-draw.**  The rank resolves the factored plan of its own (C_loc * N,
+  K) workload (``method="auto"``, the default: the tuner's ``|devN``
+  bucket for the per-shard shape) and draws its word positions from its
+  theta rows and the replicated phi: ``lda_draw_factored_rng`` (K8 on
+  the card) with global row counters, ``row_offset = linear index *
+  C_loc * N``, so the draws are the same at any rank count and the draw
+  issues no collective.  Another u-driven method builds the plan's
   distribution per rank and draws from the same counters.
 * **Counts.**  Doc-topic counts stay local.  The word-topic counts are
   the one quantity AD-LDA synchronises: exactly one
@@ -33,9 +35,8 @@ two 32-bit words (so every rank builds its state from the same seed, e.g.
 A derived pair (s0, s1) seeds a ``torch.Generator`` with ``s0 << 32 |
 s1``.  The reference splits the sweep's JAX key four ways instead.
 
-Not ported yet: ``method="auto"`` (ROADMAP queue 1, slice 9) and
-``sparse=True`` (the MH-alias sweep, slice 10); both raise
-``NotImplementedError``.
+Not ported yet: ``sparse=True`` (the MH-alias sweep, ROADMAP queue 1,
+slice 10) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,7 +48,6 @@ import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, distribute_tensor
 
 from repro_torch.kernels import rng as _rng
-from repro_torch.kernels import runtime
 from repro_torch.kernels.lda_draw import lda_draw_factored_rng
 from repro_torch.lda.gibbs import LDAState, _counts, _update_phi, _update_theta
 from repro_torch import sampling
@@ -84,24 +84,19 @@ def make_sharded_gibbs(mesh, K: int, V: int, alpha: float = 0.1, beta: float = 0
     state, sharded alike.  ``step`` also takes plain tensors holding the
     whole arrays on every rank, of which each rank takes its documents.
 
-    ``method`` is explicit (a u-driven variant; ``lda_kernel`` draws
-    straight from the factors); ``"auto"`` waits for slice 9."""
-    if method == "auto":
-        raise NotImplementedError(
-            "make_sharded_gibbs(method='auto') is not ported yet: ROADMAP queue 1, "
-            "slice 9 (candidates and autotune); pass an explicit method"
-        )
+    ``method`` is ``"auto"`` (resolved per shard over the factored
+    u-driven set) or a u-driven variant (``lda_kernel`` draws straight
+    from the factors)."""
     if sparse:
         raise NotImplementedError(
             "make_sharded_gibbs(sparse=True) (the MH-alias sweep) is not ported yet: "
             "ROADMAP queue 1, slice 10 (sparse LDA)"
         )
-    if method not in _dist.U_VARIANTS:
+    if method != "auto" and method not in _dist.U_VARIANTS:
         raise ValueError(
-            f"the distributed z-draw takes counter uniforms: method must be one of "
-            f"{_dist.U_VARIANTS}, got {method!r}"
+            f"the distributed z-draw takes counter uniforms: method must be 'auto' or "
+            f"one of {_dist.U_VARIANTS}, got {method!r}"
         )
-    Wr = int(W or runtime.default_w(K))
     rows = _sharded.row_spec(mesh)
     rep = tuple(Replicate() for _ in rows)
     lay = _sharded._layout(mesh)
@@ -135,12 +130,12 @@ def make_sharded_gibbs(mesh, K: int, V: int, alpha: float = 0.1, beta: float = 0
         row0 = lay.index * B                  # first global word position
         words = docs_l.reshape(-1)
         doc_ids = torch.arange(B, dtype=torch.int32, device=dev) // N
-        if method in _dist.FACTORED_VARIANTS:
+        p = sampling.plan((B, K), method=method, W=W, dtype=theta.dtype, has_key=False,
+                          factored=True, devices=lay.shards, backend=dev.type)
+        if p.method in _dist.FACTORED_VARIANTS:
             idx = lda_draw_factored_rng(theta, phi, doc_ids, words, seed_z,
-                                        row_offset=row0, W=Wr)
+                                        row_offset=row0, W=p.W)
         else:
-            p = sampling.plan((B, K), method=method, W=Wr, dtype=theta.dtype,
-                              has_key=False, factored=True, devices=lay.shards)
             d = p.build_from_factors(theta, phi, words, doc_ids)
             sd = _rng.fold(seed_z, _rng.TAG_U, 0).to(dev)
             idx = p.draw(d, u=_rng.row_uniforms(sd, row0, B))

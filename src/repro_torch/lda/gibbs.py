@@ -3,9 +3,12 @@
 One sweep =
   1. DRAW Z  — for every word position (m, i), draw a topic from the K
      relative probabilities ``theta[m,k] * phi[w[m,i],k]``: the paper's hot
-     loop.  ``method="lda_kernel"`` (the default here) draws straight from
-     the factors — on CUDA the fused Hopper kernel, one launch per chunk
-     of documents — and the (chunk*maxN, K) weight tensor never exists.
+     loop.  ``method="auto"`` (the default) resolves once per sweep, through
+     ``repro_torch.autotune`` over the *factored* u-driven candidate set,
+     for the chunk's (chunk*maxN, K) workload on the state's device.
+     ``method="lda_kernel"`` draws straight from the factors — on CUDA the
+     fused Hopper kernel, one launch per chunk of documents — and the
+     (chunk*maxN, K) weight tensor never exists.
      ``prefix`` / ``butterfly`` / ``fenwick`` / ``two_level`` / ``kernel``
      form one chunk's weights at a time and draw through their tables.
      On CUDA, ``butterfly`` builds the paper's Alg. 8 table with the
@@ -33,8 +36,8 @@ distribution across sweeps and refreshes it from the new theta and phi
 (``refresh_from_factors`` for ``lda_kernel``, ``refreshed`` otherwise);
 on the same uniforms it draws what the fresh build draws.
 
-Not ported yet (each raises ``NotImplementedError`` naming the ROADMAP
-queue-1 slice that brings it): ``method="auto"`` and ``sparse=``.
+Not ported yet: ``sparse=`` (raises ``NotImplementedError`` naming ROADMAP
+queue 1, slice 10).
 """
 
 from __future__ import annotations
@@ -44,15 +47,13 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sampling
 from repro_torch.kernels import runtime
 from repro_torch.lda.corpus import Corpus
 from repro_torch.sampling import distribution as _dist
 
-METHODS = ("lda_kernel", "prefix", "butterfly", "fenwick", "two_level", "kernel",
-           "gumbel", "alias", "alias_device", "radix_forest")
-_LATER = {
-    "auto": "slice 9 (candidates and autotune)",
-}
+METHODS = ("auto", "lda_kernel", "prefix", "butterfly", "fenwick", "two_level",
+           "kernel", "gumbel", "alias", "alias_device", "radix_forest")
 
 
 class LDAState(NamedTuple):
@@ -64,12 +65,19 @@ class LDAState(NamedTuple):
 
 
 def _check_method(method: str) -> None:
-    if method in _LATER:
-        raise NotImplementedError(
-            f"method={method!r} is not ported yet: ROADMAP queue 1, {_LATER[method]}"
-        )
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; options: {METHODS}")
+
+
+def _chunk_plan(B: int, K: int, method: str, W: Optional[int], dtype,
+                backend: str) -> sampling.SamplerPlan:
+    """The plan of a (B, K) chunk draw over the *factored* candidate set:
+    the sweep's weights always arrive as a theta-phi product, so ``auto``
+    may pick ``lda_kernel``.  Only ``gumbel`` and ``alias`` resolve as
+    keyed; ``auto`` resolves over the u-driven set."""
+    return sampling.plan((B, K), method=method, W=W, dtype=dtype,
+                         has_key=method in ("gumbel", "alias"), factored=True,
+                         backend=backend)
 
 
 def _generator(key, device: torch.device) -> torch.Generator:
@@ -173,20 +181,23 @@ def _draw_chunk(theta_c, phi, docs_c, u, method: str, W: Optional[int],
     return _dist.draw(dist, generator=generator, u=u).view(C, N)
 
 
-def draw_z(state: LDAState, docs, method: str = "lda_kernel", W: Optional[int] = None,
+def draw_z(state: LDAState, docs, method: str = "auto", W: Optional[int] = None,
            chunk: int = 256, dists: Optional[Dict[int, _dist.Categorical]] = None,
            out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Chunked z-draw over all documents: (M, maxN) int32.  Uniforms come
-    from ``state.key``, one (chunk*maxN,) vector per chunk (``gumbel`` and
-    the alias methods draw from ``state.key`` directly).  ``dists`` holds
-    each chunk's ``Categorical`` across calls (see the module note).
+    """Chunked z-draw over all documents: (M, maxN) int32.  ``method`` is
+    resolved once for the chunk's workload (:func:`_chunk_plan`).  Uniforms
+    come from ``state.key``, one (chunk*maxN,) vector per chunk (``gumbel``
+    and the alias methods draw from ``state.key`` directly).  ``dists``
+    holds each chunk's ``Categorical`` across calls (see the module note).
     ``out`` receives the topics in place when given."""
     _check_method(method)
     dev = state.theta.device
     docs = torch.as_tensor(docs, device=dev)
     M, maxN = docs.shape
     K = state.theta.shape[-1]
-    Wr = W or runtime.default_w(K)
+    rows = (min(chunk, M) if M else chunk) * maxN
+    p = _chunk_plan(rows, K, method, W, state.theta.dtype, dev.type)
+    method, Wr = p.method, p.W
     keyed = method in _dist.KEY_VARIANTS
     z = torch.empty((M, maxN), dtype=torch.int32, device=dev) if out is None else out
     for start, end, theta_c, docs_c in _chunks(state.theta, docs, chunk):
@@ -248,14 +259,15 @@ def _update_phi(g: torch.Generator, word_topic, beta):
 
 
 def gibbs_step(state: LDAState, corpus: Corpus, alpha: float = 0.1, beta: float = 0.05,
-               method: str = "lda_kernel", W: Optional[int] = None, chunk: int = 256,
+               method: str = "auto", W: Optional[int] = None, chunk: int = 256,
                dists: Optional[Dict[int, _dist.Categorical]] = None,
                sparse=False) -> LDAState:
     """One full uncollapsed Gibbs sweep; returns the next state.  The new
     topics are written into ``state.z`` (see the module note).  Pass the
     same dict as ``dists=`` on every call to hold the per-chunk
     distributions across sweeps.  The corpus arrays may be numpy or
-    tensors already on the state's device."""
+    tensors already on the state's device.  ``sparse=`` (True or
+    ``"auto"``) raises until ROADMAP queue 1, slice 10."""
     _check_method(method)
     if sparse:
         raise NotImplementedError(

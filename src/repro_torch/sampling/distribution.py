@@ -191,15 +191,18 @@ class Categorical:
     @classmethod
     def from_weights(cls, weights, method: str = "auto", W: Optional[int] = None,
                      draws: int = 1, device=None) -> "Categorical":
-        """Build from (B, K) non-negative weights.  ``W=None`` picks
-        ``runtime.default_w(K)``; ``method="auto"`` is not ported yet."""
+        """Build from (B, K) non-negative weights.  ``method="auto"``
+        resolves through a memoized plan for the weights' device (draws
+        with a generator, so the keyed methods compete); ``W=None`` picks
+        the tuned W under ``auto``, else ``runtime.default_w(K)``."""
         weights = as_tensor(weights, device)
         if weights.dim() != 2:
             raise ValueError(f"weights must be (B, K), got shape {tuple(weights.shape)}")
         from repro_torch.sampling.plan import plan
 
         p = plan(tuple(weights.shape), method=method, W=W, dtype=weights.dtype,
-                 draws=draws, has_key=method in KEY_VARIANTS or method == "auto")
+                 draws=draws, has_key=method in KEY_VARIANTS or method == "auto",
+                 backend=weights.device.type)
         return cls._build(weights, p.table_method, p.W)
 
     @classmethod
@@ -224,7 +227,8 @@ class Categorical:
         """A factored distribution: sample s draws from
         ``theta[doc_ids[s]] * phi[words[s]]``; the ``lda_kernel`` state is
         built straight from the factors.  Another method forms the (B, K)
-        product once and builds its flat table."""
+        product once and builds its flat table.  ``method="auto"``
+        resolves over the factored candidate set (u-driven draws)."""
         theta = torch.as_tensor(theta)
         phi = torch.as_tensor(phi, device=theta.device)
         words = torch.as_tensor(words, device=theta.device).to(torch.int32)
@@ -240,7 +244,7 @@ class Categorical:
         from repro_torch.sampling.plan import plan
 
         p = plan((B, K), method=method, W=W, dtype=theta.dtype, has_key=False,
-                 factored=True)
+                 factored=True, backend=theta.device.type)
         if p.method not in FACTORED_VARIANTS:
             flat = theta[doc_ids.long()] * phi[words.long()]
             return cls._build(flat, p.table_method, p.W, tb or p.tb)

@@ -1,14 +1,20 @@
 """``SamplerPlan`` — a resolved sampling strategy for one (B, K) workload,
 the counterpart of ``repro.sampling.plan``.
 
-``plan(spec_or_shape, method=...)`` resolves the strategy once and returns
-a frozen, hashable :class:`SamplerPlan` whose ``build`` / ``draw`` /
-``sample`` / ``sample_logits`` route through :mod:`.distribution`.  Plans
-are memoized per (shape, dtype, method, W, draws, has_key, backend,
-factored, devices, mesh signature, transforms signature): re-planning a
-workload is a dictionary hit (:func:`plan_stats`), and two topologies
-never share a plan.  ``W=None`` resolves to ``runtime.default_w(K)`` and
-the tiles to ``runtime.default_tb`` / ``default_tk``.
+``plan(spec_or_shape, method="auto", ...)`` resolves the strategy once
+(``method="auto"``, the default: :mod:`repro_torch.autotune`, tuning cache
+first, cost model on a miss) and returns a frozen, hashable
+:class:`SamplerPlan` whose ``build`` / ``draw`` / ``sample`` /
+``sample_logits`` route through :mod:`.distribution`.  Plans are memoized
+per (shape, dtype, method, W, draws, has_key, backend, factored, devices,
+mesh signature, transforms signature): re-planning a workload is a
+dictionary hit, and the ``autotune_resolves`` counter of
+:func:`plan_stats` stays at one per distinct workload.  ``W=None``
+resolves to the tuned W under ``auto``, else ``runtime.default_w(K)``.
+
+The backend is the device type of the workload: a tensor's own, or the
+caller's ``backend=``; a bare shape takes ``cuda`` when a card is present,
+else ``cpu``.  A CPU workload and a card workload resolve apart.
 
 ``mesh=`` (a ``DeviceMesh`` with ``mesh_dim_names``) makes the plan
 sharded: (B, K) is the global workload, rows shard over the mesh's data
@@ -17,16 +23,15 @@ axes (``spec=`` overrides them), and ``build`` / ``draw`` / ``sample`` /
 number from the counter RNG: pass ``key=`` (a raw (2,) uint32 pair or an
 int); ``u=`` and ``generator=`` raise there.
 
-Not ported yet: ``method="auto"`` (raises ``NotImplementedError`` naming
-ROADMAP queue 1, slice 9, autotune).
-
 The decode hot path::
 
     p = plan((64, 256000), method="kernel", transforms="kp")
     tok = p.sample_logits(logits, generator, transforms=(TopK(64), TopP(0.95)))
 
 runs the truncated draw of ``kernels.butterfly_sample`` (K9, or K11 and
-K12) — no sort, no (B, V) sorted copy.
+K12) — no sort, no (B, V) sorted copy; ``plan((64, 256000),
+transforms="kp")`` resolves to ``kernel_trunc`` on the card, the same
+route.
 """
 
 from __future__ import annotations
@@ -47,7 +52,6 @@ _PLAN_LOCK = threading.Lock()
 _STATS = {"autotune_resolves": 0, "plan_hits": 0, "plan_misses": 0}
 
 METHODS = _dist.VARIANTS + ("kernel_trunc",)
-AUTO_SLICE = "ROADMAP queue 1, slice 9 (candidates and autotune)"
 
 
 def plan_stats() -> dict:
@@ -288,17 +292,23 @@ def plan(spec_or_shape, method: Optional[str] = None, *, shape=None,
          ) -> SamplerPlan:
     """Resolve a sampling strategy for a (B, K) workload, once.
 
-    ``spec_or_shape`` is a (B, K) tuple, a tensor (shape and dtype taken
-    from it), or a ``configs.base.SamplerSpec`` (method, W and draws taken
-    from it; the workload via ``shape=``).  ``W`` falsy picks
+    ``spec_or_shape`` is a (B, K) tuple, a tensor (shape, dtype and
+    backend taken from it), or a ``configs.base.SamplerSpec`` (method, W
+    and draws taken from it; the workload via ``shape=``).
+    ``method="auto"`` (the default) consults the autotune tuner once per
+    distinct workload for ``backend`` (the device type of the workload's
+    tensors).  ``W`` falsy picks the tuned W under ``auto``, else
     ``runtime.default_w(K)``.  ``transforms`` (a chain or its signature,
-    e.g. ``"kp"``) joins the memo key; parameter values stay out of it.
+    e.g. ``"kp"``) joins the memo key and the tuner's ``|tr:`` bucket
+    (``kernel_trunc`` becomes a candidate on the card); parameter values
+    stay out of it.
 
     ``mesh=`` makes the plan sharded: (B, K) is the global workload, rows
     shard over the mesh's data axes (``spec=`` overrides them), the tiles
     are resolved for the per-shard (B / shards, K) workload, and the mesh
-    signature joins the memo key.  ``devices=`` without a mesh tags a
-    caller that is already per shard (the shape is not divided)."""
+    signature joins the memo key and the tuner's ``|devN`` bucket.
+    ``devices=`` without a mesh tags a caller that is already per shard
+    (the shape is not divided)."""
     if hasattr(spec_or_shape, "method") and hasattr(spec_or_shape, "W"):
         sspec = spec_or_shape
         method = method if method not in (None, "auto") else sspec.method
@@ -307,11 +317,11 @@ def plan(spec_or_shape, method: Optional[str] = None, *, shape=None,
         spec_or_shape = None
     if hasattr(spec_or_shape, "dtype") and hasattr(spec_or_shape, "shape"):
         dtype = spec_or_shape.dtype
+    if backend is None and isinstance(spec_or_shape, torch.Tensor):
+        backend = spec_or_shape.device.type
     method = method or "auto"
-    if method == "auto":
-        raise NotImplementedError(f"method='auto' is not ported yet: {AUTO_SLICE}")
-    if method not in METHODS:
-        raise ValueError(f"unknown method {method!r}; options: {METHODS}")
+    if method != "auto" and method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; options: ('auto',) + {METHODS}")
     B, K = _normalize_shape(spec_or_shape, shape)
     dtype_name = _dtype_name(dtype)
     if transforms and not isinstance(transforms, str):
@@ -320,7 +330,9 @@ def plan(spec_or_shape, method: Optional[str] = None, *, shape=None,
         transforms = _tr.signature(transforms)
     transforms = transforms or ""
     if backend is None:
-        backend = "cuda" if torch.cuda.is_available() else "cpu"
+        from repro_torch.autotune.tuner import default_backend
+
+        backend = default_backend()
     mesh_sig: Tuple = ()
     if mesh is not None:
         nd = _sharded.data_size(mesh, spec)   # validates spec's axes too
@@ -345,12 +357,23 @@ def plan(spec_or_shape, method: Optional[str] = None, *, shape=None,
             _STATS["plan_hits"] += 1
             return hit
         _STATS["plan_misses"] += 1
-    Wr = int(W or runtime.default_w(K))
-    p = SamplerPlan(method=method, W=Wr, shape=(B, K), dtype=dtype_name,
+    resolved, Wr, tb, tk = method, W, 0, 0
+    if method == "auto":
+        from repro_torch import autotune
+
+        with _PLAN_LOCK:
+            _STATS["autotune_resolves"] += 1
+        res = autotune.get_tuner().resolve_full(
+            B_res, K, draws=draws, dtype_name=dtype_name, has_key=has_key,
+            factored=factored, devices=devices, transforms=transforms, backend=backend)
+        resolved, Wr, tb, tk = res.method, W or res.W, res.tb, res.tk
+    Wr = int(Wr or runtime.default_w(K))
+    if not (tb and tk):
+        tb, tk = runtime.default_tb(B_res), runtime.default_tk(K, Wr)
+    p = SamplerPlan(method=resolved, W=Wr, shape=(B, K), dtype=dtype_name,
                     draws=int(draws), has_key=bool(has_key), backend=backend,
-                    tb=runtime.default_tb(B_res), tk=runtime.default_tk(K, Wr),
-                    factored=bool(factored), mesh=mesh, spec=spec, devices=devices,
-                    transforms=transforms)
+                    tb=int(tb), tk=int(tk), factored=bool(factored), mesh=mesh, spec=spec,
+                    devices=devices, transforms=transforms)
     with _PLAN_LOCK:
         _PLAN_CACHE.setdefault(key, p)
         return _PLAN_CACHE[key]

@@ -1114,3 +1114,104 @@ def test_walk_trunc_layouts_launches_and_rule(dev):
     assert KB.LAUNCHES["walk_trunc"] == 2
     assert sum(KB.LAUNCHES.values()) == 2
     assert all(KB.walk_trunc_layout(8, W) == "group" for W in GRID_W)
+
+
+# ---------------------------------------------------------------------------
+# method="auto" on the card: the backend is the call's device
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def port_autotune(tmp_path, monkeypatch):
+    from repro_torch import autotune
+
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    monkeypatch.setenv("REPRO_AUTOTUNE", "model")
+    autotune.reset()
+    yield autotune
+    autotune.reset()
+
+
+def test_auto_cpu_and_card_calls_land_in_different_buckets(dev, port_autotune):
+    """One process, one shape: the CPU call resolves in a ``cpu|`` bucket
+    over the CPU's candidates, the card call in a ``cuda|`` bucket whose
+    candidates include the CUDA kernels; both draw."""
+    from repro_torch import sampling
+    from repro_torch.core import api
+
+    w = torch.rand((64, 4096), generator=torch.Generator().manual_seed(0)) + 0.1
+    u = torch.rand(64, generator=torch.Generator().manual_seed(1))
+    a = api.sample_categorical(w, u=u)
+    b = api.sample_categorical(w.to(dev), u=u.to(dev))
+    assert a.device.type == "cpu" and b.device.type == "cuda"
+    keys = [k for k, _ in port_autotune.get_tuner().cache.items()]
+    assert keys == ["cpu|B64|K4096|d1|float32|nokey", "cuda|B64|K4096|d1|float32|nokey"]
+    p_cpu = sampling.plan(w, has_key=False)
+    p_card = sampling.plan(w.to(dev), has_key=False)
+    assert (p_cpu.backend, p_card.backend) == ("cpu", "cuda")
+    assert "kernel" in port_autotune.candidate_methods(64, 4096, "cuda", False)
+    assert "kernel" not in port_autotune.candidate_methods(64, 4096, "cpu", False)
+
+
+@pytest.mark.parametrize("B,Kc", [(64, 4096), (27392, 240), (64, 32000)])
+def test_auto_draws_equal_resolved_method_on_card(dev, port_autotune, B, Kc):
+    """Each default draws what the method it resolved to draws, on the
+    same uniforms or the same generator."""
+    from repro_torch import sampling
+    from repro_torch.core import api
+
+    g = torch.Generator(device=dev).manual_seed(B + Kc)
+    w = torch.rand((B, Kc), generator=g, device=dev) + 0.05
+    u = torch.rand(B, generator=g, device=dev)
+    p = sampling.plan(w, has_key=False)
+    assert torch.equal(api.sample_categorical(w, u=u),
+                       api.sample_categorical(w, u=u, method=p.method, W=p.W))
+    x = torch.log(w)
+    pk = sampling.plan(x, has_key=True)
+    g.manual_seed(7)
+    a = api.sample_from_logits(x, g)
+    g.manual_seed(7)
+    assert torch.equal(a, api.sample_from_logits(x, g, method=pk.method, W=pk.W))
+    chain = (sampling.TopK(64), sampling.TopP(0.95))
+    pt = sampling.plan(x, transforms="kp")
+    pe = sampling.plan(x, method=pt.method, W=pt.W, transforms="kp")
+    for S in (1, 4):
+        g.manual_seed(S)
+        a = pt.sample_logits(x, g, num_samples=S, transforms=chain)
+        g.manual_seed(S)
+        assert torch.equal(a, pe.sample_logits(x, g, num_samples=S, transforms=chain))
+
+
+def test_measure_mode_on_card(dev, port_autotune):
+    """Measure mode times the card's candidates (the host clock around a
+    synchronised call) and persists a measured winner in the cuda bucket."""
+    t = port_autotune.Tuner(mode="measure", backend="cuda")
+    r = t.resolve_full(64, 4096, transforms="kp")
+    assert r.source == "measured"
+    assert r.method in port_autotune.candidate_methods(64, 4096, "cuda", True,
+                                                       transforms="kp")
+    us = port_autotune.measure_method("kernel_trunc", 64, 4096, 64, truncated=True,
+                                      device="cuda")
+    assert us is not None and us > 0
+
+
+def test_dist_key_on_card_rebuilds_after_in_place_change(dev, port_autotune):
+    from repro_torch import sampling
+    from repro_torch.core import api
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    phi = torch.rand((500, 240), generator=g, device=dev) + 0.01
+    cache = port_autotune.get_table_cache()
+    for method in ("alias_device", "fenwick", "radix_forest"):
+        cache.clear()
+        g.manual_seed(4)
+        a = api.sample_categorical(phi, g, method=method, dist_key="phi")
+        b = api.sample_categorical(phi, g, method=method, dist_key="phi")
+        assert cache.stats() == {"entries": 1, "hits": 1, "misses": 1}
+        phi[:, :100].mul_(3.0)
+        g.manual_seed(5)
+        c = api.sample_categorical(phi, g, method=method, dist_key="phi")
+        g.manual_seed(5)
+        d = sampling.Categorical.from_weights(phi.clone(), method=method).draw(generator=g)
+        assert cache.stats()["misses"] == 2 and torch.equal(c, d)
+        assert a.shape == b.shape == (500,)

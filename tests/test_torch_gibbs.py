@@ -16,12 +16,22 @@ import torch
 
 import repro.lda.gibbs as jg
 from repro.lda import synthesize_corpus as j_synth
+from repro_torch import autotune
 from repro_torch.lda import corpus as tcorpus
 from repro_torch.lda import gibbs as tg
 from repro_torch.lda.metrics import topic_recovery_score
 from repro_torch.kernels.lda_draw.ref import boundary_ties
 
 CPU = "cpu"
+
+
+@pytest.fixture
+def port_autotune(tmp_path, monkeypatch):
+    """The port's tuner on a throwaway cache file."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    autotune.reset()
+    yield
+    autotune.reset()
 
 
 @pytest.fixture(scope="module")
@@ -169,14 +179,26 @@ def test_table_sweeps_lower_perplexity(method):
     assert 0 <= int(state.z.min()) and int(state.z.max()) < 6
 
 
-def test_unported_options_raise(small_corpus):
+def test_unported_options_raise(small_corpus, port_autotune):
+    """``sparse=`` names slice 10 and an unknown method raises; the default
+    ``method="auto"`` resolves through the factored chunk plan and draws
+    what the method it resolved to draws, on the same generator."""
     state = tg.init_state(0, small_corpus, 8, device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tg.gibbs_step(state, small_corpus, method="auto")
     with pytest.raises(NotImplementedError, match="slice 10"):
         tg.gibbs_step(state, small_corpus, sparse=True)
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        tg.gibbs_step(state, small_corpus, sparse="auto")
     with pytest.raises(ValueError):
         tg.gibbs_step(state, small_corpus, method="nope")
+    M, N = small_corpus.docs.shape
+    p = tg._chunk_plan(min(256, M) * N, 8, "auto", None, torch.float32, CPU)
+    assert p.method in tg.METHODS and p.method != "auto" and p.factored
+    a = tg.draw_z(tg.init_state(0, small_corpus, 8, device=CPU), small_corpus.docs)
+    b = tg.draw_z(tg.init_state(0, small_corpus, 8, device=CPU), small_corpus.docs,
+                  method=p.method, W=p.W)
+    assert torch.equal(a, b)
+    nxt = tg.gibbs_step(tg.init_state(0, small_corpus, 8, device=CPU), small_corpus)
+    assert nxt.step == 1 and 0 <= int(nxt.z.min()) and int(nxt.z.max()) < 8
 
 
 @pytest.mark.parametrize("method", ["gumbel", "alias", "alias_device", "radix_forest"])

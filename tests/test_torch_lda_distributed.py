@@ -26,6 +26,7 @@ from torch.distributed.device_mesh import init_device_mesh
 
 from repro.kernels.lda_draw import lda_draw_factored_rng as j_draw_rng
 from repro.lda.gibbs import _counts as j_counts
+from repro_torch import autotune
 from repro_torch.kernels import rng as trng
 from repro_torch.kernels.lda_draw.ref import boundary_ties
 from repro_torch.lda import corpus as tcorpus
@@ -34,6 +35,15 @@ from repro_torch.lda.distributed import make_sharded_gibbs
 from test_torch_sharded import count_collectives, run_ranks
 
 K, W, SEED, SWEEPS = 4, 8, 3, 8
+
+
+@pytest.fixture
+def port_autotune(tmp_path, monkeypatch):
+    """The port's tuner on a throwaway cache file."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    autotune.reset()
+    yield
+    autotune.reset()
 
 
 def _corpus():
@@ -169,17 +179,27 @@ def mesh1(tmp_path_factory):
         dist.destroy_process_group()
 
 
-def test_later_slices_raise_and_inputs(mesh1):
-    """``method="auto"`` names slice 9 and ``sparse=True`` slice 10; a
-    key-driven method is refused; plain tensors holding the whole arrays
-    give the sweep that placed DTensors give."""
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        make_sharded_gibbs(mesh1, K, 40)
+def test_later_slices_raise_and_inputs(mesh1, port_autotune):
+    """``sparse=True`` names slice 10; a key-driven method is refused; the
+    default ``method="auto"`` resolves for the per-shard workload and
+    sweeps as the method it resolved to; plain tensors holding the whole
+    arrays give the sweep that placed DTensors give."""
     with pytest.raises(NotImplementedError, match="slice 10"):
         make_sharded_gibbs(mesh1, K, 40, method="lda_kernel", sparse=True)
+    with pytest.raises(NotImplementedError, match="slice 10"):
+        make_sharded_gibbs(mesh1, K, 40, sparse=True)
     with pytest.raises(ValueError, match="counter uniforms"):
         make_sharded_gibbs(mesh1, K, 40, method="gumbel")
     corpus = _corpus()
+    M, N = corpus.docs.shape
+    res = autotune.get_tuner().resolve_full(M * N, K, has_key=False, factored=True,
+                                            backend="cpu")
+    sweeps = []
+    for kw in ({}, {"method": res.method, "W": res.W}):
+        place, step = make_sharded_gibbs(mesh1, K, corpus.vocab_size, **kw)
+        sweeps.append(step(*place(_state(corpus), corpus.docs, corpus.mask)))
+    assert torch.equal(sweeps[0].z.to_local(), sweeps[1].z.to_local())
+    assert torch.equal(sweeps[0].phi.to_local(), sweeps[1].phi.to_local())
     place, step = make_sharded_gibbs(mesh1, K, corpus.vocab_size, method="lda_kernel", W=W)
     a = step(_state(corpus), torch.as_tensor(corpus.docs), torch.as_tensor(corpus.mask))
     b = step(*place(_state(corpus), corpus.docs, corpus.mask))

@@ -20,6 +20,7 @@ from repro.configs import base as jbase
 from repro.configs import gemma2_9b as jgemma
 from repro.core import api as japi
 from repro.sampling import transforms as jtr
+from repro_torch import autotune
 from repro_torch import sampling
 from repro_torch.configs import base as tbase
 from repro_torch.configs import gemma2_9b as tgemma
@@ -30,6 +31,15 @@ from repro_torch.sampling import transforms as ttr
 
 U_FLAT = ["prefix", "fenwick", "butterfly", "two_level", "kernel", "radix_forest"]
 KEYED = ["gumbel", "alias", "alias_device"]
+
+
+@pytest.fixture
+def port_autotune(tmp_path, monkeypatch):
+    """The port's tuner on a throwaway cache file."""
+    monkeypatch.setenv("REPRO_TORCH_AUTOTUNE_CACHE", str(tmp_path / "autotune.json"))
+    autotune.reset()
+    yield
+    autotune.reset()
 
 
 def chi2_crit_999(dof: int) -> float:
@@ -247,18 +257,25 @@ def test_keyed_one_shot_entry_points(method):
                                        method=method)) == int(w[0].argmax())
 
 
-def test_unported_options_name_their_slices(monkeypatch):
-    w = torch.ones(4, 10)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        sampling.plan((4, 10))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        sampling.Categorical.from_weights(w)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tapi.sample_categorical(w, u=torch.rand(4))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tapi.sample_categorical(w, u=torch.rand(4), method="fenwick", dist_key="phi")
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        tapi.sample_from_logits(w, torch.Generator())
+def test_unported_options_name_their_slices(monkeypatch, port_autotune):
+    """The defaults resolve through autotune (``method="auto"``) and draw
+    what the method they resolved to draws; ``dist_key=`` goes through the
+    table cache; the other options keep their checks."""
+    w = torch.as_tensor(_weights(3, 4, 10))
+    u = torch.as_tensor(_u(4, (4,)))
+    p = sampling.plan((4, 10))
+    assert p.method in sampling.VARIANTS and p.backend == "cpu"
+    pu = sampling.plan((4, 10), has_key=False, backend="cpu")
+    assert torch.equal(tapi.sample_categorical(w, u=u),
+                       tapi.sample_categorical(w, u=u, method=pu.method, W=pu.W))
+    d = sampling.Categorical.from_weights(w)
+    assert (d.method, d.W) == (p.method, p.W)
+    assert torch.equal(tapi.sample_categorical(w, u=u, method="fenwick", dist_key="phi"),
+                       tapi.sample_categorical(w, u=u, method="fenwick"))
+    assert autotune.get_table_cache().stats()["entries"] == 1
+    g1, g2 = torch.Generator().manual_seed(5), torch.Generator().manual_seed(5)
+    assert torch.equal(tapi.sample_from_logits(torch.log(w), g1),
+                       tapi.sample_from_logits(torch.log(w), g2, method=p.method, W=p.W))
     # mesh= is ported (tests/test_torch_sharded.py): it takes a DeviceMesh,
     # and spec= only with it
     with pytest.raises(TypeError, match="DeviceMesh"):
