@@ -134,11 +134,30 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``make_sharded_gibbs(mesh, 240, V, method="lda_kernel", W=32)`` with
    exactly one ``all_reduce`` per sweep and the first sweep's z equal to
    ``lda_draw_factored_rng`` on the whole batch; 30 sweeps of the planted
-   corpus below 0.6x its start.
+   corpus below 0.6x its start; 3 sweeps of ``make_sharded_gibbs(mesh,
+   240, V, sparse=True)`` (S1 once and one ``all_reduce`` a sweep), each
+   sweep's z equal to ``draw_z_sparse`` on its incoming state (cdf
+   tables, the same cap and seed).  Phase 5b's grid (the autotune
+   buckets) times ``sparse_mh`` in its factored buckets (``|sp``) and in
+   two buckets of 2**21 tokens (K = 240, 2,048) where only ``lda_kernel``
+   and ``sparse_mh`` run, and ``fit_cuda`` fits its terms too.
+7. Sparse LDA at the Wikipedia corpus: S1 (the MH sweep kernel) against
+   its plain version bit for bit (z, both accept counts, the proposal
+   count) with cdf, alias and alias_device tables, 1 and 4 steps, cap 8
+   (truncating) and 64, then documents masked out, row counters that
+   wrap at 2**32 and K = 2,048 (8,192 documents), and S1's times beside
+   its plain version and bound; at K = 240, 1,024 and 2,048, 3
+   ``gibbs_step(sparse=True)`` sweeps each with cdf, alias_device and
+   auto tables (S1 once a sweep, K13 once a sweep with alias_device
+   tables), one ``sparse="auto"`` sweep (its resolution printed) and 3
+   sweeps of the dense default, each path's launches read around it; one
+   profiled sparse sweep; 2 sweeps of ``StreamingSparseLDA`` over
+   ``zipf_shard_source`` (50,000 documents in 4 shards, the corpus's
+   vocabulary) with tokens/s.
 
-The last two lines are the ``{"kernels": [...]}`` record (13 kernels; a
-kernel with several layouts also gives the one its rule picks at each
-main-path shape) and
+The last two lines are the ``{"kernels": [...]}`` record (the 13 TPU
+kernels and S1; a kernel with several layouts also gives the one its
+rule picks at each main-path shape) and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script exits 1 before printing a result.
 """
@@ -186,8 +205,11 @@ from repro_torch.kernels.butterfly_table import ref as KTR  # noqa: E402
 from repro_torch.kernels.lda_draw import kernel as KL  # noqa: E402
 from repro_torch.kernels.lda_draw import ops  # noqa: E402
 from repro_torch.kernels.lda_draw.ref import boundary_ties  # noqa: E402
+from repro_torch.kernels.sparse_mh import kernel as KS  # noqa: E402
+from repro_torch.kernels.sparse_mh import ref as sparse_ref  # noqa: E402
 from repro_torch.lda import corpus as corpus_mod  # noqa: E402
 from repro_torch.lda import gibbs  # noqa: E402
+from repro_torch.lda import sparse as lsp  # noqa: E402
 from repro_torch.sampling import reference as sref  # noqa: E402
 from repro_torch.sampling import transforms as tr  # noqa: E402
 
@@ -222,6 +244,9 @@ KERNELS = {  # wrapper name -> (kernel-table id, source, TPU kernel it replaces,
     "walk_trunc": ("K12", _TRUNC_SRC, _TPU.format("butterfly_sample", 522), KB.LAUNCHES),
     "alias_assemble": ("K13", _CSRC.format("alias_build"), _TPU.format("alias_build", 115),
                        KA.LAUNCHES),
+    # S1 replaces no pallas_call: the reference's MH sweep is XLA
+    "sparse_mh": ("S1", _CSRC.format("sparse_mh"), "src/repro/lda/sparse.py:192",
+                  KS.LAUNCHES),
 }
 # decode widths: gemma2-9b's vocabulary (top-k 64, top-p 0.95), whose
 # rows K9 reads from L2, and the 32,000-token vocabulary of the repo's
@@ -257,7 +282,7 @@ def path_layouts() -> dict:
 
 
 def reset_counts() -> None:
-    for mod in (KT, KB, KL, KA):
+    for mod in (KT, KB, KL, KA, KS):
         mod.reset_launches()
 
 
@@ -989,16 +1014,17 @@ def phase_table_paths(state, corpus, dev, seed):
     return state, launches, res
 
 
-def phase_profile(state, corpus, method, W):
+def phase_profile(state, corpus, method, W, label=None, **kw):
     """One more sweep of ``method`` under torch.profiler (after the
-    counted runs): device time by kernel and the device's busy share."""
+    counted runs): device time by kernel and the device's busy share.
+    ``kw`` goes to ``gibbs_step`` (the sparse sweep's options)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state = gibbs.gibbs_step(state, corpus, method=method, W=W, chunk=256)
+        state = gibbs.gibbs_step(state, corpus, method=method, W=W, chunk=256, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     # kernels only: an aten op's row repeats the device time of its kernels
@@ -1006,7 +1032,7 @@ def phase_profile(state, corpus, method, W):
                    for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
                   reverse=True)
     busy = sum(r[0] for r in rows) / 1e6
-    log(f"phase 3c: profiled {method} sweep wall {wall:.4f} s, device busy "
+    log(f"phase 3c: profiled {label or method} sweep wall {wall:.4f} s, device busy "
         f"{busy:.4f} s ({100 * busy / wall:.1f}%)")
     for us, n, key in rows[:10]:
         log(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
@@ -1800,6 +1826,12 @@ ALIAS_MAX_K = 4096
 # one draws=64 bucket for each cached-table method: (method, B, K, has_key)
 GRID_REUSE = (("alias", 1024, 1024, True), ("fenwick", 1024, 4096, False),
               ("alias_device", 64, 32000, True), ("radix_forest", 27392, 240, False))
+# the sparse sweep's buckets at a corpus's token count (2**21 tokens, as a
+# sweep of the paper's corpus draws 3.07 M): only the two candidates that
+# form no (B, K) tensor are timed there; they anchor sparse_mh's byte term,
+# which the small buckets (host-bound) leave to noise
+GRID_SPARSE = ((2**21, 240), (2**21, 2048))
+GRID_SPARSE_ONLY = ("lda_kernel", "sparse_mh")
 MODEL_TARGET = 1.25                   # the model's pick within this of the winner
 # the median of this many synchronised calls per candidate: a host-bound
 # call's time varies up to 2x between runs on the H100 (PERF.md §6); alias,
@@ -1819,6 +1851,8 @@ def grid_buckets():
                 out.append({"B": B, "K": K, "has_key": True, "transforms": "kp"})
     out += [{"B": B, "K": K, "has_key": hk, "draws": 64, "for": m}
             for m, B, K, hk in GRID_REUSE]
+    out += [{"B": B, "K": K, "has_key": False, "factored": True, "only": GRID_SPARSE_ONLY}
+            for B, K in GRID_SPARSE]
     return out
 
 
@@ -1857,14 +1891,17 @@ def fit_cuda(rows) -> dict:
         if r["draws"] != 1:
             continue
         B, K, fac, tr = r["B"], r["K"], r["factored"], bool(r["transforms"])
+        sp = r.get("sparse", False)
         W = cm.default_w(K)
         for name, us in r["timed"].items():
             m, w = name.split("@")
             if int(w) != W or us is None:
                 continue
-            eq = cm.method_cost_eq(m, K, W=W, backend="cuda", factored=fac, truncated=tr)
+            eq = cm.method_cost_eq(m, K, W=W, backend="cuda", factored=fac, truncated=tr,
+                                   sparse=sp)
+            native = cm.FACTORED_METHODS + cm.SPARSE_METHODS
             form = ("tr" if tr and m not in cm.TRUNCATED_METHODS else
-                    "fac" if fac and m not in cm.FACTORED_METHODS else "")
+                    "fac" if fac and m not in native else "")
             pts.setdefault(m, {}).setdefault(form, []).append(
                 (B * eq / (bp.bandwidth_gbps * 1e3), K / 1e3, us - bp.launch_us))
     call, scale, row = {}, {}, {}
@@ -1897,35 +1934,40 @@ def phase_grid():
     t_all = time.perf_counter()
     rows, misses = [], []
     log(f"phase 5b: autotune grid, B in {GRID_BS} x K in {GRID_KS} (B*K*4 <= "
-        f"{GRID_MAX_BYTES} bytes), plain / keyed / factored, 'kp' from K = "
-        f"{GRID_TRUNC_MIN_K}, draws=64 buckets {GRID_REUSE}; alias left out above "
+        f"{GRID_MAX_BYTES} bytes), plain / keyed / factored (with sparse_mh: |sp), "
+        f"'kp' from K = {GRID_TRUNC_MIN_K}, draws=64 buckets {GRID_REUSE}, sparse "
+        f"buckets {GRID_SPARSE} ({GRID_SPARSE_ONLY} only); alias left out above "
         f"K = {ALIAS_MAX_K} (resolve_full(candidates=...)): its PyTorch Vose build "
         "takes K sequential steps a row")
     for b in grid_buckets():
         B, K, hk = b["B"], b["K"], b["has_key"]
         fac, sig, d = b.get("factored", False), b.get("transforms", ""), b.get("draws", 1)
-        cands = tu.candidate_methods(B, K, "cuda", hk, factored=fac, transforms=sig)
-        left_out = [c for c in cands if c == "alias" and K > ALIAS_MAX_K]
+        # the factored buckets are the LDA z-draw's: sparse_mh competes (|sp)
+        sp = fac
+        cands = tu.candidate_methods(B, K, "cuda", hk, factored=fac, transforms=sig,
+                                     sparse=sp)
+        left_out = [c for c in cands if (c == "alias" and K > ALIAS_MAX_K)
+                    or c not in b.get("only", cands)]
         cands = tuple(c for c in cands if c not in left_out)
         t0 = time.perf_counter()
         timed = {}
         for group, iters in ((tuple(c for c in cands if c != "alias"), GRID_ITERS),
                              (tuple(c for c in cands if c == "alias"), 1)):
             timed.update(tu.measure_candidates(group, B, K, factored=fac,
-                                               truncated=bool(sig), device="cuda",
-                                               iters=iters))
+                                               truncated=bool(sig), sparse=sp,
+                                               device="cuda", iters=iters))
         timed = {k: timed[k] for c in cands for k in timed if k[0] == c}  # candidate order
         wm, wW, wus = tu.measured_winner(timed, K, draws=d, backend="cuda")
         pm, pW, pred = cm.choose(cands, B, K, draws=d, backend="cuda", factored=fac,
-                                 truncated=bool(sig))
+                                 truncated=bool(sig), sparse=sp)
         raw = timed.get((pm, pW))
         pick = (float("inf") if raw is None
                 else tu.amortized_us(raw, pm, K, pW, draws=d, backend="cuda"))
         ratio = pick / wus
         key = bucket_key("cuda", B, K, d, "float32", has_key=hk, factored=fac,
-                         transforms=sig)
+                         transforms=sig, sparse=sp)
         row = {"bucket": key, "B": B, "K": K, "draws": d, "has_key": hk, "factored": fac,
-               "transforms": sig, "winner": [wm, wW, wus], "pick": [pm, pW, pick],
+               "transforms": sig, "sparse": sp, "winner": [wm, wW, wus], "pick": [pm, pW, pick],
                "predicted_us": pred, "ratio": ratio, "left_out": left_out,
                "seconds": time.perf_counter() - t0,
                "timed": {f"{m}@{W}": us for (m, W), us in timed.items()}}
@@ -2563,6 +2605,53 @@ class _AllReduceCount:
         dist.all_reduce = self._orig
 
 
+def sparse_sharded(mesh, corpus, dev, seed, sweeps: int = 3, cap: int = 32):
+    """``make_sharded_gibbs(mesh, 240, V, sparse=True)`` at paper scale:
+    S1 once and one ``all_reduce`` a sweep; each sweep's z equal to the
+    single-device sparse draw (``draw_z_sparse``, cdf tables, the same
+    cap and seed) from that sweep's incoming state."""
+    from repro_torch.lda.distributed import make_sharded_gibbs
+
+    K = CONFIG.K
+    place, step = make_sharded_gibbs(mesh, K, corpus.vocab_size, sparse=True, cap=cap)
+    st, docs, mask = place(gibbs.init_state(seed, corpus, K, device=dev), corpus.docs,
+                           corpus.mask)
+    ins, outs, times, reduces = [], [], [], []
+    torch.cuda.synchronize()
+    reset_counts()
+    for _ in range(sweeps):
+        ins.append(gibbs.LDAState(theta=st.theta.to_local(), phi=st.phi.to_local(),
+                                  z=st.z.to_local(), key=st.key, step=st.step))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _AllReduceCount() as c:
+            st = step(st, docs, mask)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        reduces.append(c.n)
+        outs.append(st.z.to_local())
+    counts = read_counts()
+    check_path("distributed sparse sweep", counts, {"sparse_mh": sweeps})
+    if reduces != [1] * sweeps:
+        raise AssertionError(f"distributed sparse sweep: all_reduce calls {reduces}")
+    for i, (s_in, z) in enumerate(zip(ins, outs)):
+        want = lsp.draw_z_sparse(s_in, docs.to_local(), mask.to_local(), mh_steps=1,
+                                 word_proposal="cdf",
+                                 cache=lsp.SparseSweepCache(cap_min=cap, cap_max=cap))
+        if not torch.equal(z, want):
+            raise AssertionError(f"distributed sparse sweep {i}: z differs from "
+                                 "draw_z_sparse on its incoming state")
+    full = gibbs.LDAState(theta=st.theta.to_local(), phi=st.phi.to_local(),
+                          z=st.z.to_local(), key=st.key, step=st.step)
+    check_state(full, K)
+    ppl = gibbs.perplexity(full, corpus)
+    log(f"  distributed sparse sweep (cdf, cap {cap}, 1 step, 1 rank): seconds per sweep "
+        f"{times}, all_reduce calls {reduces}, z equal to draw_z_sparse's, perplexity "
+        f"{ppl:.2f}")
+    return counts, {"sweep_s": times, "all_reduce": reduces, "perplexity": ppl,
+                    "launches": counts}
+
+
 def phase_sharded(corpus, dev, seed, steps: int = 20, B: int = DECODE_B,
                   V: int = gemma2_9b.VOCAB_SIZE, M_planted: int = 96):
     """Phase 6, the sharded paths, on a one-rank NCCL group (an in-memory
@@ -2682,6 +2771,8 @@ def phase_sharded(corpus, dev, seed, steps: int = 20, B: int = DECODE_B,
                                  "lda_draw_factored_rng on the whole batch")
         res["distributed_sweep"] = {"sweep_s": times, "all_reduce": reduces,
                                     "perplexity": ppl, "launches": counts}
+        counts, res["distributed_sparse"] = sparse_sharded(mesh, corpus, dev, seed)
+        add_counts(launches, counts)
         counts, res["distributed_auto"] = auto_sharded(mesh, corpus, dev, seed)
         add_counts(launches, counts)
         # the planted corpus: 30 sweeps bring perplexity below 0.6x its start
@@ -2702,6 +2793,274 @@ def phase_sharded(corpus, dev, seed, steps: int = 20, B: int = DECODE_B,
     finally:
         dist.destroy_process_group()
     return launches, res
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: sparse LDA (the MH-alias sweep, S1)
+# ---------------------------------------------------------------------------
+
+SPARSE_KS = (240, 1024, 2048)          # the sparse / dense crossover's topic counts
+SPARSE_MODES = ("cdf", "alias", "alias_device")
+# documents per step of the plain version's loop on the card: the result
+# does not depend on it (ref.mh_sweep_torch), and 2,048 keeps its
+# (chunk, L, cap) temporaries near 1 GB with 22 steps over the corpus
+SPARSE_PLAIN_CHUNK = 2048
+SPARSE_STEPS = 2                       # gibbs_step's mh_steps default
+THREEFRY_OPS = 82                      # integer operations of one uniform (sparse_mh.cu)
+STREAM_DOCS, STREAM_SHARD_DOCS = 50000, 12500
+
+
+def sparse_inputs(corpus, dev, g, K: int, cap: int, M: int = None):
+    """The MH sweep's inputs over the first ``M`` documents (all by
+    default): Dirichlet(0.3) theta rows, a Dirichlet phi, uniform z, the
+    corpus positions, and the sparse counts of z at ``cap``."""
+    docs = torch.as_tensor(corpus.docs[:M], device=dev)
+    mask = torch.as_tensor(corpus.mask[:M], device=dev)
+    Md = docs.shape[0]
+    theta = _normalised_gamma(g, (Md, K), 0.3, 1, dev)
+    phi = factors("dirichlet", 1, corpus.vocab_size, K, g, dev)[1].contiguous()
+    z = torch.randint(0, K, tuple(docs.shape), generator=g, device=dev, dtype=torch.int32)
+    doc_topic, _ = lsp._counts_scatter(z, docs, mask, K, corpus.vocab_size)
+    sp = lsp.sparse_counts(doc_topic, cap)
+    return [z, docs, mask, theta, phi, sp.ids, sp.cnt]
+
+
+def _normalised_gamma(g, shape, conc, dim, dev):
+    x = torch._standard_gamma(torch.full(shape, conc, device=dev), generator=g)
+    return (x / x.sum(dim, keepdim=True)).contiguous()
+
+
+def sparse_tables(phi, mode: str):
+    """(tbl_a, tbl_b) of a word-proposal mode, built once outside the
+    kernels' comparison (``alias``: Vose on the host; ``alias_device``:
+    the device build, K13)."""
+    from repro_torch.core.alias import build_alias_tables_host
+
+    if mode == "cdf":
+        return lsp._phi_cdf(phi), torch.zeros((1, 1), dtype=torch.int32, device=phi.device)
+    t = (build_alias_tables_host(phi) if mode == "alias"
+         else aops.build_alias_tables_device(phi))
+    return t.prob.contiguous(), t.alias.contiguous()
+
+
+def check_s1(tally, case, inp, tables, seed2, row0, steps, mode):
+    """S1 against its plain version on one input: z, both accept counts
+    and the proposal count bit for bit."""
+    z, docs, mask, theta, phi, ids, cnt = inp
+    args = (z, docs, mask, theta, phi, ids, cnt, *tables, seed2, row0, 0.1)
+    zk, wa, da, nk = KS.mh_sweep(*args, steps=steps, mode=mode)
+    zp, wp, dp, props = sparse_ref.mh_sweep_torch(*args, steps=steps, cap=ids.shape[1],
+                                                  mode=mode, chunk=SPARSE_PLAIN_CHUNK)
+    tally.same("sparse_mh", case, zk, zp)
+    tally.same("sparse_mh", case + " counts", torch.stack([wa, da, nk * steps]).long(),
+               torch.stack([wp, dp, props]).long())
+    return {"word_accepts": int(wa), "doc_accepts": int(da), "proposals": int(props),
+            "changed": int((zk != z).sum())}
+
+
+def s1_bound(inp, z_out, tables, steps, mode):
+    """Least time of one S1 call on this run's data -> (ms, by): the
+    position arrays read and z written (13 bytes a position), the retained
+    lists, and of the gathered inputs at least the elements this run must
+    touch: theta and phi at each live token's topic before and after the
+    sweep, and a live word's table entries (cdf: a descent's ceil(log2 K)
+    + 1; alias: a column's prob and alias); operations: five Threefry
+    uniforms a live token and cycle, counted at the fp32 rate (the int32
+    rate is lower, so this stays a bound)."""
+    z, docs, mask, theta, phi, ids, cnt = inp
+    K, V = theta.shape[1], phi.shape[0]
+    live = mask.reshape(-1)
+    d = (torch.arange(docs.shape[0], device=z.device)[:, None].expand_as(docs)
+         .reshape(-1)[live])
+    w = docs.reshape(-1)[live].long()
+    zz = torch.cat([z.reshape(-1)[live], z_out.reshape(-1)[live]]).long()
+    dd, ww = d.repeat(2), w.repeat(2)
+    th_el = torch.unique(dd * K + zz).numel()
+    ph_el = torch.unique(ww * K + zz).numel()
+    words = torch.unique(w).numel()
+    per_word = sparse_ref.ceil_log2(K) + 1 if mode == "cdf" else 2
+    nbytes = (z.numel() * 13 + ids.numel() * 8 + (th_el + ph_el) * 4
+              + words * per_word * 4)
+    ops_ = int(live.sum()) * steps * 5 * THREEFRY_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops_ / FP32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_sparse_kernel(corpus, dev, seed, tally):
+    """Phase 7a: S1 against its plain version at the full corpus, K = 240,
+    in each word-proposal mode, steps 1 and 4, cap 8 (truncating) and 64;
+    then edge inputs (documents masked out, K = 2,048, row counters that
+    wrap at 2**32); then S1's times at the sweep's default (cdf, 2 steps,
+    cap 64) beside its plain version and its bound."""
+    K = CONFIG.K
+    g = torch.Generator(device=dev).manual_seed(seed + 70)
+    log(f"phase 7a: sparse MH sweep (S1) vs plain at M={corpus.docs.shape[0]} x "
+        f"L={corpus.docs.shape[1]}, K={K}, V={corpus.vocab_size}")
+    seed2 = rng.fold(rng.seed_from_key([seed, 70]), rng.TAG_SPARSE_MH)
+    res = {}
+    inp64 = sparse_inputs(corpus, dev, g, K, 64)
+    inp8 = inp64[:5] + list(lsp.sparse_counts(
+        lsp._counts_scatter(*inp64[:3], K, corpus.vocab_size)[0], 8))
+    support = (lsp._counts_scatter(*inp64[:3], K, corpus.vocab_size)[0] > 0).sum(1)
+    log(f"  documents whose support exceeds cap: {int((support > 8).sum())} (cap 8), "
+        f"{int((support > 64).sum())} (cap 64)")
+    for mode in SPARSE_MODES:
+        tables = sparse_tables(inp64[4], mode)
+        for steps in (1, 4):
+            for cap, inp in ((8, inp8), (64, inp64)):
+                case = f"{mode} steps={steps} cap={cap}"
+                res[case] = check_s1(tally, case, inp, tables, seed2, 0, steps, mode)
+    # edge inputs: documents masked out, counters near 2**32, K = 2,048
+    masked = [x.clone() for x in inp64]
+    masked[2][::7] = False
+    res["masked rows"] = check_s1(tally, "cdf masked rows", masked,
+                                  sparse_tables(masked[4], "cdf"), seed2, 0, 2, "cdf")
+    res["wrap"] = check_s1(tally, "alias row0 wraps 2**32", inp64,
+                           sparse_tables(inp64[4], "alias"), seed2, 2**32 - 9000, 2,
+                           "alias")
+    inp_k = sparse_inputs(corpus, dev, g, 2048, 64, M=8192)
+    for mode in ("cdf", "alias_device"):
+        res[f"K=2048 {mode}"] = check_s1(tally, f"K=2048 M=8192 {mode}", inp_k,
+                                         sparse_tables(inp_k[4], mode), seed2, 0, 2, mode)
+    del inp_k
+    # times at the sweep's default: cdf tables, 2 steps, cap 64
+    tables = sparse_tables(inp64[4], "cdf")
+    args = (*inp64, *tables, seed2, 0, 0.1)
+    zk = KS.mh_sweep(*args, steps=SPARSE_STEPS, mode="cdf")[0]
+    bms, by = s1_bound(inp64, zk, tables, SPARSE_STEPS, "cdf")
+    ms = cuda_ms(lambda: KS.mh_sweep(*args, steps=SPARSE_STEPS, mode="cdf"))
+    pms = cuda_ms(lambda: sparse_ref.mh_sweep_torch(
+        *args, steps=SPARSE_STEPS, cap=64, mode="cdf", chunk=SPARSE_PLAIN_CHUNK),
+        reps=3, warmup=1)
+    ms2 = cuda_ms(lambda: KS.mh_sweep(*args, steps=SPARSE_STEPS, mode="cdf"))
+    dms = device_ms(lambda: KS.mh_sweep(*args, steps=SPARSE_STEPS, mode="cdf"))
+    alias_t = sparse_tables(inp64[4], "alias_device")
+    ams = cuda_ms(lambda: KS.mh_sweep(*inp64, *alias_t, seed2, 0, 0.1,
+                                      steps=SPARSE_STEPS, mode="alias_device"))
+    timing = {"ms": min(ms, ms2), "device_ms": dms, "plain_ms": pms, "bound_ms": bms,
+              "bound_by": by, "library_ms": None, "alias_ms": ams,
+              "shape": [*inp64[0].shape, K, 64], "steps": SPARSE_STEPS}
+    log(f"  sparse_mh (cdf, steps={SPARSE_STEPS}, cap 64) kernel {ms:.4f}/{ms2:.4f} ms "
+        f"(device {_ms(dms)}), alias_device tables {ams:.4f} ms, plain {pms:.4f} ms, "
+        f"bound {bms * 1e3:.2f} us ({by}); library: none (no PyTorch call runs an MH "
+        "sweep)")
+    return res, timing
+
+
+def sparse_sweeps(corpus, dev, seed, K, n, **kw):
+    """``n`` ``gibbs_step(sparse=True, ...)`` sweeps from a fresh state and
+    cache, timed: (state, seconds, cache)."""
+    state = gibbs.init_state(seed, corpus, K, device=dev)
+    cache = lsp.SparseSweepCache()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = gibbs.gibbs_step(state, corpus, sparse=True, sparse_cache=cache, **kw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return state, times, cache
+
+
+def phase_sparse(corpus, dev, seed):
+    """Phase 7b: at K = 240, 1,024 and 2,048, 3 ``gibbs_step(sparse=True)``
+    sweeps each with ``word_proposal`` cdf, alias_device and auto (S1 once a
+    sweep; K13 once a sweep where the tables are alias_device), one
+    ``sparse="auto"`` sweep (the tuner's pick), and 3 sweeps of the dense
+    default beside them, each path's launches read around it; then one
+    profiled sparse sweep (cdf, K = 240)."""
+    from repro_torch import autotune
+
+    M, maxN = corpus.docs.shape
+    V, tokens = corpus.vocab_size, corpus.total_words
+    nchunks = -(-M // 256)
+    res, launches = {}, {}
+    for K in SPARSE_KS:
+        log(f"phase 7b: sparse sweeps at K={K} (M={M}, V={V}, {tokens} tokens)")
+        r = res[K] = {}
+        for wp in ("cdf", "alias_device", "auto"):
+            mode = lsp.resolve_word_proposal(wp, K, V, tokens * SPARSE_STEPS, dev.type)
+            # each path starts from the same state: its tables are built anew
+            autotune.get_table_cache().clear()
+            torch.cuda.synchronize()
+            reset_counts()
+            state, times, cache = sparse_sweeps(corpus, dev, seed, K, 3, word_proposal=wp)
+            counts = read_counts()
+            expect = {"sparse_mh": 3, **({"alias_assemble": 3}
+                                         if mode == "alias_device" else {})}
+            check_path(f"sparse sweep K={K} {wp} ({mode})", counts, expect)
+            check_state(state, K)
+            ppl = gibbs.perplexity(state, corpus)
+            if not np.isfinite(ppl):
+                raise AssertionError(f"sparse sweep K={K} {wp}: perplexity not finite")
+            log(f"  sparse {wp:12s} -> {mode:12s} seconds per sweep {times}; accept "
+                f"rates {cache.last_stats}; caps {cache.caps_history}; perplexity "
+                f"{ppl:.2f}")
+            r[wp] = {"tables": mode, "sweep_s": times, "stats": cache.last_stats,
+                     "caps": cache.caps_history, "perplexity": ppl, "launches": counts}
+            add_counts(launches, counts)
+        # sparse="auto": the tuner arbitrates dense against sparse
+        ra = resolution(tokens, K, factored=True, sparse=True)
+        dense_auto = resolution(256 * maxN, K, has_key=False, factored=True)
+        state = gibbs.init_state(seed, corpus, K, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        t = step_seconds(lambda: gibbs.gibbs_step(state, corpus, sparse="auto"), 1)
+        counts = read_counts()
+        expect = ({"sparse_mh": 1} if ra["method"] in autotune.SPARSE_METHODS
+                  else auto_expect(dense_auto["method"], nchunks))
+        check_path(f"sparse='auto' K={K} -> {ra['method']}", counts, expect)
+        log(f"  sparse='auto' resolves to {ra}: {t} s")
+        r["sparse_auto"] = {"resolved": ra, "sweep_s": t, "launches": counts}
+        add_counts(launches, counts)
+        # the dense default beside them
+        state = gibbs.init_state(seed, corpus, K, device=dev)
+        torch.cuda.synchronize()
+        reset_counts()
+        state, times = sweep_seconds(state, corpus, "auto", None, 3)
+        counts = read_counts()
+        check_path(f"dense default K={K} -> {dense_auto['method']}", counts,
+                   auto_expect(dense_auto["method"], 3 * nchunks))
+        check_state(state, K)
+        log(f"  dense default ({dense_auto['method']} W={dense_auto['W']}) seconds per "
+            f"sweep {times}")
+        r["dense_default"] = {"resolved": dense_auto, "sweep_s": times, "launches": counts}
+        add_counts(launches, counts)
+        del state
+        autotune.get_table_cache().clear()
+    state = gibbs.init_state(seed, corpus, CONFIG.K, device=dev)
+    cache = lsp.SparseSweepCache()
+    state = gibbs.gibbs_step(state, corpus, sparse=True, sparse_cache=cache)
+    res["profile"] = phase_profile(state, corpus, "auto", None, label="sparse (cdf)",
+                                   sparse=True, sparse_cache=cache)[1]
+    n_s1 = sum(t["count"] for t in res["profile"]["top"] if "sparse_mh" in t["name"])
+    log(f"  the trace holds S1 x{n_s1} (one launch a sweep)")
+    return launches, res
+
+
+def phase_streaming(dev, seed):
+    """Phase 7c: ``StreamingSparseLDA`` over ``zipf_shard_source`` (the
+    Wikipedia corpus's vocabulary, length mean and cap; K = 240), 2 sweeps,
+    S1 once a shard."""
+    src = corpus_mod.zipf_shard_source(seed, num_docs=STREAM_DOCS, V=CONFIG.V, K=CONFIG.K,
+                                       shard_docs=STREAM_SHARD_DOCS, avg_len=70.5,
+                                       max_len=307)
+    eng = lsp.StreamingSparseLDA(seed, src, K=CONFIG.K, mh_steps=SPARSE_STEPS, cap=64,
+                                 device=dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    stats = [eng.sweep() for _ in range(2)]
+    counts = read_counts()
+    check_path(f"streaming sparse ({src.num_shards} shards x {STREAM_SHARD_DOCS} docs)",
+               counts, {"sparse_mh": 2 * src.num_shards})
+    for s in stats:
+        if not (np.isfinite(s["perplexity"]) and 0 < s["doc_accept_rate"] <= 1):
+            raise AssertionError(f"streaming sparse sweep: {s}")
+    log(f"phase 7c: streaming sparse LDA, {STREAM_DOCS} docs in {src.num_shards} shards of "
+        f"{STREAM_SHARD_DOCS}, V={CONFIG.V}, K={CONFIG.K}: {stats}")
+    return counts, {"num_docs": STREAM_DOCS, "shards": src.num_shards, "sweeps": stats,
+                    "launches": counts}
 
 
 def main(argv=None) -> int:
@@ -2790,6 +3149,13 @@ def main(argv=None) -> int:
     log("phase 6: the sharded paths (one-rank NCCL group, mesh ('data',))")
     counts, main_res["sharded"] = phase_sharded(dev_corpus, dev, args.seed)
     add_counts(launches, counts)
+    log("phase 7: sparse LDA (the MH-alias sweep, S1)")
+    main_res["sparse_kernel"], timing["sparse_mh"] = phase_sparse_kernel(
+        corpus, dev, args.seed, tally)
+    counts, main_res["sparse"] = phase_sparse(dev_corpus, dev, args.seed)
+    add_counts(launches, counts)
+    counts, main_res["streaming"] = phase_streaming(dev, args.seed)
+    add_counts(launches, counts)
 
     kernels = []
     layouts = path_layouts()
@@ -2814,6 +3180,9 @@ def main(argv=None) -> int:
             kernels[-1].update({f"{k}_vocab": vocab[k] for k in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "layout", "shape")})
             kernels[-1]["device_ms"] = tm["device_ms"]
+        if name == "sparse_mh":
+            kernels[-1].update({k: tm[k] for k in ("device_ms", "alias_ms", "shape",
+                                                    "steps")})
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({

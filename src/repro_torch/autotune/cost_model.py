@@ -75,7 +75,8 @@ BACKENDS: Dict[str, BackendParams] = {
                          has_kernels=True),
     # fitted on NVIDIA H100 80GB HBM3, 700.00 W by chip_smoke.fit_cuda from
     # one run of chip_smoke.py's phase 5b grid (PERF.md §6): host us a
-    # call, scales on the effective bytes, ns per category of a row
+    # call, scales on the effective bytes, ns per category of a row;
+    # sparse_mh's three terms from a later run's grid, the others kept
     "cuda": BackendParams(
         "cuda", bandwidth_gbps=3350.0, launch_us=10.0, seq_penalty=24.0,
         has_kernels=True,
@@ -88,19 +89,20 @@ BACKENDS: Dict[str, BackendParams] = {
             ("kernel|tr", 16217.1), ("lda_kernel", 60.2), ("prefix", 150.5),
             ("prefix|fac", 47.7), ("prefix|tr", 13237.7), ("radix_forest", 1458.1),
             ("radix_forest|fac", 0.0), ("radix_forest|tr", 11129.3),
-            ("two_level", 568.6), ("two_level|fac", 0.0), ("two_level|tr", 13097.6),
+            ("sparse_mh", 105.1), ("two_level", 568.6), ("two_level|fac", 0.0),
+            ("two_level|tr", 13097.6),
         ),
         eq_scale=(
             ("alias", 59.237), ("alias_device", 117.840), ("butterfly", 3.593),
             ("fenwick", 5.929), ("gumbel", 4.006), ("kernel", 0.640),
             ("kernel_trunc", 23.479), ("lda_kernel", 0.615), ("prefix", 1.169),
-            ("radix_forest", 5.378), ("two_level", 0.646),
+            ("radix_forest", 5.378), ("sparse_mh", 0.516), ("two_level", 0.646),
         ),
         row_ns=(
             ("alias", 635871.053), ("alias_device", 0.000), ("butterfly", 3.414),
             ("fenwick", 1.653), ("gumbel", 0.000), ("kernel", 0.000),
             ("kernel_trunc", 1.529), ("lda_kernel", 1.611), ("prefix", 0.987),
-            ("radix_forest", 2.710), ("two_level", 0.000),
+            ("radix_forest", 2.710), ("sparse_mh", 0.278), ("two_level", 0.000),
         ),
     ),
 }

@@ -6,7 +6,9 @@ same distributions are drawn from again and again (a fixed phi inside one
 LDA sweep, a static unigram table), rebuilding them every call wastes the
 O(K) build.  This module memoizes built :class:`Categorical` objects for
 the ``dist_key=`` path of ``sample_categorical``, for the kinds whose
-state that path reuses (``cost_model.CACHED_TABLE_METHODS``).
+state that path reuses (``cost_model.CACHED_TABLE_METHODS``), and raw
+alias tables (:meth:`TableCache.get_or_build`) for the sparse LDA sweep's
+word proposals.
 
 Staleness: entries are keyed by a **content digest** of the weights
 (shape, dtype, device and two exact checksums over their bytes, see
@@ -88,9 +90,24 @@ def content_digest(weights) -> Optional[str]:
     return digest
 
 
+# the raw table kinds of TableCache.get_or_build
+TABLE_KINDS = ("alias_host", "alias_device")
+
+
+def _build_table(kind: str, weights):
+    if kind == "alias_host":
+        from repro_torch.core.alias import build_alias_tables_host
+
+        return build_alias_tables_host(weights)
+    from repro_torch.kernels.alias_build import build_alias_tables_device
+
+    return build_alias_tables_device(weights)
+
+
 class TableCache:
     """LRU memo of built :class:`Categorical` objects, keyed by (dist_key,
-    method, W, content digest of the weights)."""
+    method, W, content digest of the weights), and of raw alias tables
+    (:meth:`get_or_build`)."""
 
     def __init__(self, max_entries: int = 16):
         self.max_entries = max_entries
@@ -114,6 +131,24 @@ class TableCache:
             while len(self._entries) > self.max_entries:
                 self._entries.popitem(last=False)
         return value
+
+    def get_or_build(self, dist_key: str, kind: str, weights):
+        """The cached raw table of ``kind`` for ``dist_key``, built on a
+        miss: ``"alias_host"`` (``core.alias.build_alias_tables_host``,
+        Vose's build on the host) or ``"alias_device"``
+        (``kernels.alias_build.build_alias_tables_device``: K13 on the
+        card).  The sparse LDA sweep's per-word tables come through here.
+        The same digest contract as :meth:`get_or_build_dist`."""
+        if kind not in TABLE_KINDS:
+            raise ValueError(f"unknown table kind {kind!r}; options: {TABLE_KINDS}")
+        digest = content_digest(weights)
+        if digest is None:
+            return _build_table(kind, weights)
+        key = (str(dist_key), f"table:{kind}", None, digest)
+        hit = self._lookup(key)
+        if hit is not None:
+            return hit
+        return self._store(key, _build_table(kind, weights))
 
     def get_or_build_dist(self, dist_key: str, plan, weights):
         """The cached :class:`Categorical` for ``dist_key`` under ``plan``

@@ -120,19 +120,24 @@ def candidate_methods(
 
 
 def _workload(method: str, B: int, K: int, W: int, dtype: torch.dtype, seed: int,
-              factored: bool, truncated: bool, device: torch.device):
+              factored: bool, truncated: bool, device: torch.device,
+              sparse: bool = False):
     """The call ``measure_method`` times, on synthetic inputs made on
     ``device`` from ``seed``; ``None`` when the method does not serve the
     workload."""
     from repro_torch.core import api as _api
     from repro_torch.sampling import transforms as _tr
 
+    if method == "sparse_mh":
+        if not sparse:
+            return None
+        from repro_torch.lda import sparse as _sparse
+
+        return _sparse._mh_workload(B, K, device, seed=seed)
     g = torch.Generator(device=device).manual_seed(seed)
     w = (0.1 + 0.9 * torch.rand((B, K), generator=g, device=device)).to(dtype)
     u = torch.rand((B,), generator=g, device=device)
     keyed = method in KEY_METHODS
-    if method == "sparse_mh":
-        return None  # the MH sweep comes with ROADMAP queue 1, slice 10
     if truncated:
         chain = _tr.chain(top_k=max(K // 8, 1), top_p=0.9)
         if method == "kernel_trunc":
@@ -195,9 +200,11 @@ def measure_method(
     sides: the call's launches and checks count, as a caller pays them.
 
     ``factored=True`` times the LDA workload (flat methods include the
-    gather and the product); ``truncated=True`` times a top-k/top-p
-    workload at (max(K // 8, 1), 0.9) (``kernel_trunc`` its fused draw,
-    every other method the threshold search and masking first).
+    gather and the product); ``sparse=True`` admits ``sparse_mh``, timed as
+    a B-token MH draw (``lda.sparse._mh_workload``); ``truncated=True``
+    times a top-k/top-p workload at (max(K // 8, 1), 0.9) (``kernel_trunc``
+    its fused draw, every other method the threshold search and masking
+    first).
 
     ``None`` only where the method deliberately does not run: it does not
     serve the workload, it refuses the shape with ``ValueError``, or the
@@ -207,7 +214,7 @@ def measure_method(
     dt = dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype or "float32"))
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
     try:
-        fn = _workload(method, B, K, W, dt, seed, factored, truncated, dev)
+        fn = _workload(method, B, K, W, dt, seed, factored, truncated, dev, sparse)
         if fn is None:
             return None
         for _ in range(max(warmup, 1)):

@@ -90,9 +90,9 @@ _REGISTRY: Tuple[KernelCandidate, ...] = (
     KernelCandidate(
         method="sparse_mh",
         module="repro_torch.lda.sparse",
-        # not available until repro_torch.lda.sparse exists: the MH-alias
-        # sweep comes with ROADMAP queue 1, slice 10 (sparse LDA)
-        available=lambda B, K, backend: False,
+        # viable everywhere: the Hopper kernel S1 on the card, its plain
+        # version on the CPU; sublinear per-token cost in K
+        available=lambda B, K, backend: K >= 2,
         description=(
             "sparsity-aware MH-alias Gibbs sweep (WarpLDA proposals over "
             "fixed-width sparse doc-topic counts; no (B, K) weights)"

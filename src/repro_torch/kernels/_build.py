@@ -41,6 +41,7 @@ SOURCES: Dict[str, str] = {
     "butterfly_trunc": "butterfly_sample/csrc/butterfly_trunc.cu",
     "lda_draw": "lda_draw/csrc/lda_draw.cu",
     "alias_build": "alias_build/csrc/alias_build.cu",
+    "sparse_mh": "sparse_mh/csrc/sparse_mh.cu",
 }
 _INCLUDES = ("csrc",)
 

@@ -42,6 +42,7 @@ TAG_SPARSE_MH = 5  # sparse LDA MH-alias sweep: per-(token, use) uniforms
 TAG_LDA_Z = 6      # the z-draw's seed of a sweep
 TAG_LDA_THETA = 7  # the theta resample of a sweep, folded again by rank
 TAG_LDA_PHI = 8    # the phi resample of a sweep, the same on every rank
+TAG_STREAM_Z0 = 9  # the streaming sparse sweep's first topics, per shard
 
 # Philox-4x32-10 constants (Salmon et al. 2011; Random123's philox4x32)
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
@@ -92,6 +93,21 @@ def seed_from_key(key) -> torch.Tensor:
     if arr.shape[0] == 1:
         arr = torch.cat([torch.zeros_like(arr), arr])
     return arr[-2:]
+
+
+def generator_seed(g: torch.Generator) -> torch.Tensor:
+    """The (2,) host seed of a ``torch.Generator``: its initial seed as two
+    32-bit words (what the port's LDA sweeps derive their streams from,
+    where the reference splits a JAX key)."""
+    s = int(g.initial_seed()) & 0xFFFFFFFFFFFFFFFF
+    return seed_from_key([s >> 32, s & _MASK])
+
+
+def seeded_generator(seed: torch.Tensor, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with a (2,) seed (s0, s1)
+    as ``s0 << 32 | s1``."""
+    s0, s1 = seed_words(seed)
+    return torch.Generator(device=device).manual_seed((s0 << 32) | s1)
 
 
 def fold(seed: torch.Tensor, a, b=0) -> torch.Tensor:

@@ -18,6 +18,13 @@ from repro_torch.lda.gibbs import (
     state_to_numpy,
 )
 from repro_torch.lda.metrics import topic_recovery_score
+from repro_torch.lda.sparse import (
+    SparseSweepCache,
+    StreamingSparseLDA,
+    draw_z_sparse,
+    gibbs_step_sparse,
+    sparse_counts,
+)
 
 __all__ = [
     "Corpus",
@@ -33,4 +40,9 @@ __all__ = [
     "state_from_numpy",
     "state_to_numpy",
     "topic_recovery_score",
+    "SparseSweepCache",
+    "StreamingSparseLDA",
+    "draw_z_sparse",
+    "gibbs_step_sparse",
+    "sparse_counts",
 ]

@@ -36,8 +36,9 @@ distribution across sweeps and refreshes it from the new theta and phi
 (``refresh_from_factors`` for ``lda_kernel``, ``refreshed`` otherwise);
 on the same uniforms it draws what the fresh build draws.
 
-Not ported yet: ``sparse=`` (raises ``NotImplementedError`` naming ROADMAP
-queue 1, slice 10).
+``sparse=True`` (or ``"auto"``, arbitrated by the tuner) runs the sweep
+through ``repro_torch.lda.sparse``: the MH-alias z-draw over sparse
+doc-topic counts (the Hopper kernel S1 on the card).
 """
 
 from __future__ import annotations
@@ -261,20 +262,37 @@ def _update_phi(g: torch.Generator, word_topic, beta):
 def gibbs_step(state: LDAState, corpus: Corpus, alpha: float = 0.1, beta: float = 0.05,
                method: str = "auto", W: Optional[int] = None, chunk: int = 256,
                dists: Optional[Dict[int, _dist.Categorical]] = None,
-               sparse=False) -> LDAState:
+               sparse=False, sparse_cache=None, mh_steps: int = 2,
+               word_proposal: str = "cdf") -> LDAState:
     """One full uncollapsed Gibbs sweep; returns the next state.  The new
     topics are written into ``state.z`` (see the module note).  Pass the
     same dict as ``dists=`` on every call to hold the per-chunk
     distributions across sweeps.  The corpus arrays may be numpy or
-    tensors already on the state's device.  ``sparse=`` (True or
-    ``"auto"``) raises until ROADMAP queue 1, slice 10."""
+    tensors already on the state's device.
+
+    ``sparse=True`` routes the sweep through ``repro_torch.lda.sparse``
+    (the MH-alias z-draw, the same state in and out); ``sparse="auto"``
+    asks the tuner to arbitrate dense against sparse for this (tokens, K)
+    bucket on the state's device.  Pass the same ``sparse_cache=`` (a
+    ``sparse.SparseSweepCache``) on every call to carry the sparse counts
+    across sweeps; ``mh_steps`` / ``word_proposal`` tune the chain
+    (``sparse.gibbs_step_sparse``)."""
     _check_method(method)
-    if sparse:
-        raise NotImplementedError(
-            "sparse= (the MH-alias sweep) is not ported yet: ROADMAP queue 1, "
-            "slice 10 (sparse LDA)"
-        )
     dev = state.theta.device
+    if sparse:
+        from repro_torch.lda import sparse as _sparse
+
+        use_sparse = True
+        if sparse == "auto":
+            from repro_torch import autotune
+
+            meth, _ = autotune.resolve(int(corpus.total_words), state.theta.shape[-1],
+                                       factored=True, sparse=True, backend=dev.type)
+            use_sparse = meth in autotune.SPARSE_METHODS
+        if use_sparse:
+            return _sparse.gibbs_step_sparse(
+                state, corpus, alpha=alpha, beta=beta, mh_steps=mh_steps,
+                word_proposal=word_proposal, cache=sparse_cache, chunk=chunk)
     docs = torch.as_tensor(corpus.docs, device=dev)
     mask = torch.as_tensor(corpus.mask, device=dev)
     K = state.theta.shape[-1]

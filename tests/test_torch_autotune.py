@@ -327,9 +327,8 @@ def test_candidates_and_bucket_keys_equal_reference():
         port_backend = "cuda" if backend == "tpu" else backend
         for fac, tr, sp in itertools.product((False, True), repeat=3):
             assert kernels.candidates(B, K, port_backend, factored=fac, truncated=tr,
-                                      sparse=sp) == tuple(
-                m for m in jkernels.candidates(B, K, backend, factored=fac, truncated=tr,
-                                               sparse=sp) if m != "sparse_mh")
+                                      sparse=sp) == jkernels.candidates(
+                B, K, backend, factored=fac, truncated=tr, sparse=sp)
         for args in itertools.product((1, 3, 64), ("float32", "bfloat16"), (True, False),
                                       (False, True), (1, 2, 6), ("", "kp", "kpm"),
                                       (False, True)):
@@ -337,13 +336,20 @@ def test_candidates_and_bucket_keys_equal_reference():
 
 
 def test_sparse_mh_listed_but_unavailable():
-    """The registry lists sparse_mh under the module slice 10 brings; it is
-    offered on no backend until then, and measure mode skips it."""
+    """The registry lists sparse_mh under repro_torch.lda.sparse (slice 10):
+    offered on both backends for sparse-capable workloads only, as in the
+    reference, and measure mode times its MH draw (only when the workload
+    is sparse)."""
     (c,) = [c for c in kernels.registry() if c.method == "sparse_mh"]
     assert c.module == "repro_torch.lda.sparse" and c.factored and c.sparse
     for b in ("cpu", "cuda"):
-        assert "sparse_mh" not in kernels.candidates(64, 240, b, factored=True, sparse=True)
-    assert autotune.measure_method("sparse_mh", 8, 16, 8, sparse=True, factored=True,
+        assert "sparse_mh" in kernels.candidates(64, 240, b, factored=True, sparse=True)
+        assert "sparse_mh" not in kernels.candidates(64, 240, b, factored=True)
+        assert "sparse_mh" not in kernels.candidates(64, 1, b, factored=True, sparse=True)
+    us = autotune.measure_method("sparse_mh", 64, 16, 8, sparse=True, factored=True,
+                                 device="cpu")
+    assert us is not None and us > 0
+    assert autotune.measure_method("sparse_mh", 64, 16, 8, factored=True,
                                    device="cpu") is None
     assert [m.method for m in kernels.registry()] == [m.method for m in jkernels.registry()]
 

@@ -1215,3 +1215,95 @@ def test_dist_key_on_card_rebuilds_after_in_place_change(dev, port_autotune):
         d = sampling.Categorical.from_weights(phi.clone(), method=method).draw(generator=g)
         assert cache.stats()["misses"] == 2 and torch.equal(c, d)
         assert a.shape == b.shape == (500,)
+
+
+# ---------------------------------------------------------------------------
+# S1: the sparse LDA MH sweep
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.alias import build_alias_tables_host  # noqa: E402
+from repro_torch.kernels.sparse_mh import kernel as KS  # noqa: E402
+from repro_torch.kernels.sparse_mh import ops as sops  # noqa: E402
+from repro_torch.kernels.sparse_mh.ref import mh_sweep_torch  # noqa: E402
+from repro_torch.lda import corpus as lcorpus  # noqa: E402
+from repro_torch.lda import gibbs as lgibbs  # noqa: E402
+from repro_torch.lda import sparse as lsp  # noqa: E402
+
+
+def _mh_inputs(dev, seed, M, L, K, V, cap):
+    g = np.random.default_rng(seed)
+    theta = g.dirichlet(np.full(K, 0.3), size=M).astype(np.float32)
+    phi = np.ascontiguousarray(g.dirichlet(np.full(V, 0.3), size=K).T).astype(np.float32)
+    docs = g.integers(0, V, size=(M, L)).astype(np.int32)
+    mask = np.arange(L)[None] < g.integers(0, L + 1, size=M)[:, None]
+    z = g.integers(0, K, size=(M, L)).astype(np.int32)
+    t = [torch.as_tensor(x, device=dev) for x in (z, docs, mask, theta, phi)]
+    dt, _ = lsp._counts_scatter(t[0], t[1], t[2], K, V)
+    sp = lsp.sparse_counts(dt, cap)
+    return t + [sp.ids, sp.cnt]
+
+
+def _mh_tables(phi, mode):
+    if mode == "cdf":
+        return lsp._phi_cdf(phi), torch.zeros((1, 1), dtype=torch.int32, device=phi.device)
+    t = (build_alias_tables_host(phi) if mode == "alias"
+         else aops.build_alias_tables_device(phi))
+    return t.prob, t.alias
+
+
+def _mh_equal(inp, mode, steps, row0, seed2):
+    tables = _mh_tables(inp[4], mode)
+    args = (*inp, *tables, seed2, row0, 0.1)
+    z, wa, da, n = KS.mh_sweep(*args, steps=steps, mode=mode)
+    zp, wp, dp, props = mh_sweep_torch(*args, steps=steps, cap=inp[5].shape[1],
+                                       mode=mode, chunk=64)
+    torch.cuda.synchronize()
+    assert torch.equal(z, zp)
+    assert (int(wa), int(da), int(n) * steps) == (int(wp), int(dp), int(props))
+    return z
+
+
+@pytest.mark.parametrize("cap", [8, 64])
+@pytest.mark.parametrize("steps", [1, 2, 4])
+@pytest.mark.parametrize("mode", ["cdf", "alias", "alias_device"])
+def test_sparse_mh_equals_plain(dev, mode, steps, cap):
+    """S1's z and accept counts equal its plain version's bit for bit, on
+    ragged (and empty) documents, truncating and wide caps, K = 240 and a
+    row offset whose counters wrap at 2**32."""
+    inp = _mh_inputs(dev, steps * 100 + cap, 300, 96, 240, 500, cap)
+    seed2 = rng.fold(rng.seed_from_key([steps, cap]), rng.TAG_SPARSE_MH)
+    for row0 in (0, 2**32 - 5000):
+        _mh_equal(inp, mode, steps, row0, seed2)
+
+
+@pytest.mark.parametrize("K,cap", [(2, 2), (7, 4), (2048, 64), (300, 300)])
+def test_sparse_mh_edge_shapes(dev, K, cap):
+    inp = _mh_inputs(dev, K, 64, 40, K, 50, cap)
+    seed2 = rng.fold(rng.seed_from_key([K, 1]), rng.TAG_SPARSE_MH)
+    for mode in ("cdf", "alias_device"):
+        _mh_equal(inp, mode, 3, 17, seed2)
+
+
+def test_sparse_sweeps_launch_s1_and_k13_once_a_sweep(dev, port_autotune):
+    """On the card the sparse sweep launches S1 once a sweep, and K13 once
+    a sweep with alias_device tables (phi changes every sweep); the plain
+    version never runs for CUDA tensors."""
+    corpus = lcorpus.synthesize_corpus(seed=0, M=200, V=300, K=8, avg_len=40, max_len=80)
+    for wp, k13 in (("cdf", 0), ("alias_device", 3)):
+        state = lgibbs.init_state(0, corpus, 64, device=dev)
+        cache = lsp.SparseSweepCache()
+        KS.reset_launches()
+        KA.reset_launches()
+        for _ in range(3):
+            state = lgibbs.gibbs_step(state, corpus, sparse=True, sparse_cache=cache,
+                                      word_proposal=wp)
+        torch.cuda.synchronize()
+        assert KS.LAUNCHES["sparse_mh"] == 3 and KA.LAUNCHES["alias_assemble"] == k13, wp
+        assert state.z.is_cuda and 0.05 < cache.last_stats["doc_accept_rate"] <= 1
+    cpu = [x.cpu() for x in _mh_inputs(dev, 1, 8, 8, 16, 20, 8)]
+    tables = _mh_tables(cpu[4], "cdf")
+    with pytest.raises(ValueError):
+        KS.mh_sweep(*cpu, *tables, [1, 2], 0, 0.1, steps=1, mode="cdf")
+    with pytest.raises(ValueError):
+        sops.mh_sweep(*cpu, *tables, [1, 2], 0, 0.1, steps=1, cap=8, mode="cdf",
+                      impl="cuda")

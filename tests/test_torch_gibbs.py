@@ -180,14 +180,17 @@ def test_table_sweeps_lower_perplexity(method):
 
 
 def test_unported_options_raise(small_corpus, port_autotune):
-    """``sparse=`` names slice 10 and an unknown method raises; the default
-    ``method="auto"`` resolves through the factored chunk plan and draws
-    what the method it resolved to draws, on the same generator."""
+    """``sparse=True`` and ``sparse="auto"`` run (slice 10: the MH-alias
+    sweep, the same state in and out) and an unknown method raises; the
+    default ``method="auto"`` resolves through the factored chunk plan and
+    draws what the method it resolved to draws, on the same generator."""
     state = tg.init_state(0, small_corpus, 8, device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tg.gibbs_step(state, small_corpus, sparse=True)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tg.gibbs_step(state, small_corpus, sparse="auto")
+    for sparse in (True, "auto"):
+        out = tg.gibbs_step(state, small_corpus, sparse=sparse)
+        assert out.step == 1 and out.z.shape == state.z.shape
+        assert 0 <= int(out.z.min()) and int(out.z.max()) < 8
+        assert torch.allclose(out.theta.sum(dim=1), torch.ones(out.theta.shape[0]),
+                              atol=1e-5)
     with pytest.raises(ValueError):
         tg.gibbs_step(state, small_corpus, method="nope")
     M, N = small_corpus.docs.shape
@@ -246,7 +249,7 @@ def test_port_imports_no_jax():
     src = Path(__file__).resolve().parents[1] / "src"
     code = (
         "import importlib, json, pkgutil, sys\n"
-        "import repro_torch\n"
+        "import repro_torch, repro_torch.lda.sparse, repro_torch.kernels.sparse_mh\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"

@@ -180,17 +180,19 @@ def mesh1(tmp_path_factory):
 
 
 def test_later_slices_raise_and_inputs(mesh1, port_autotune):
-    """``sparse=True`` names slice 10; a key-driven method is refused; the
+    """``sparse=True`` runs (slice 10: the MH-alias z-draw, one sweep
+    returning the same sharded state); a key-driven method is refused; the
     default ``method="auto"`` resolves for the per-shard workload and
     sweeps as the method it resolved to; plain tensors holding the whole
     arrays give the sweep that placed DTensors give."""
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        make_sharded_gibbs(mesh1, K, 40, method="lda_kernel", sparse=True)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        make_sharded_gibbs(mesh1, K, 40, sparse=True)
+    corpus = _corpus()
+    for kw in ({"method": "lda_kernel"}, {}):
+        place, step = make_sharded_gibbs(mesh1, K, corpus.vocab_size, sparse=True, **kw)
+        out = step(*place(_state(corpus), corpus.docs, corpus.mask))
+        assert out.step == 1 and out.z.to_local().shape == tuple(corpus.docs.shape)
+        assert 0 <= int(out.z.to_local().min()) and int(out.z.to_local().max()) < K
     with pytest.raises(ValueError, match="counter uniforms"):
         make_sharded_gibbs(mesh1, K, 40, method="gumbel")
-    corpus = _corpus()
     M, N = corpus.docs.shape
     res = autotune.get_tuner().resolve_full(M * N, K, has_key=False, factored=True,
                                             backend="cpu")
@@ -206,3 +208,83 @@ def test_later_slices_raise_and_inputs(mesh1, port_autotune):
     for x, y in ((a.z, b.z), (a.theta, b.theta), (a.phi, b.phi)):
         assert torch.equal(x.to_local(), y.to_local())
     assert a.step == 1
+
+
+# ---------------------------------------------------------------------------
+# The sparse sweep (make_sharded_gibbs(sparse=True)) on 1 and 2 ranks
+# ---------------------------------------------------------------------------
+
+SPARSE_K, SPARSE_CAP, SPARSE_STEPS = 6, 4, 2
+
+
+def _sparse_run(mesh):
+    """3 sparse sweeps: per sweep the incoming state (whole arrays), the
+    new z and the collectives counted around the step."""
+    corpus = _corpus()
+    place, step = make_sharded_gibbs(mesh, SPARSE_K, corpus.vocab_size, sparse=True,
+                                     cap=SPARSE_CAP, mh_steps=SPARSE_STEPS)
+    st, docs, mask = place(gibbs.init_state(SEED, corpus, SPARSE_K, device="cpu"),
+                           corpus.docs, corpus.mask)
+    out = []
+    for _ in range(3):
+        incoming = {"theta": st.theta.full_tensor().numpy(),
+                    "phi": st.phi.to_local().numpy(), "z": st.z.full_tensor().numpy(),
+                    "step": st.step}
+        with count_collectives() as counts:
+            st = step(st, docs, mask)
+        out.append({"in": incoming, "z": st.z.full_tensor().numpy(), "counts": counts})
+    return out
+
+
+def _sparse_worker(rank, world, out_dir):
+    mesh = init_device_mesh("cpu", (world,), mesh_dim_names=("data",))
+    torch.save(_sparse_run(mesh), os.path.join(out_dir, f"sparse{rank}.pt"))
+
+
+def _single_device_draw(incoming):
+    """The single-device sparse z-draw from a sweep's incoming state at the
+    same seed (the generator's) and cap, cdf tables."""
+    from repro_torch.lda import sparse as ts
+
+    corpus = _corpus()
+    state = gibbs.LDAState(theta=torch.as_tensor(incoming["theta"]),
+                           phi=torch.as_tensor(incoming["phi"]),
+                           z=torch.as_tensor(incoming["z"]),
+                           key=torch.Generator().manual_seed(SEED), step=incoming["step"])
+    return ts.draw_z_sparse(state, corpus.docs, corpus.mask, mh_steps=SPARSE_STEPS,
+                            word_proposal="cdf",
+                            cache=ts.SparseSweepCache(cap_min=SPARSE_CAP,
+                                                      cap_max=SPARSE_CAP)).numpy()
+
+
+def test_sparse_sweep_one_rank_equals_single_device(mesh1):
+    """On one gloo rank every sweep's z equals the single-device sparse
+    draw from its incoming state, the first equals ``gibbs_step_sparse``'s,
+    and each sweep makes exactly one all_reduce."""
+    from repro_torch.lda import sparse as ts
+
+    run = _sparse_run(mesh1)
+    for sw in run:
+        np.testing.assert_array_equal(sw["z"], _single_device_draw(sw["in"]))
+        c = sw["counts"]
+        assert c["all_reduce"] == 1 and sum(c.values()) == 2, c
+    corpus = _corpus()
+    first = ts.gibbs_step_sparse(gibbs.init_state(SEED, corpus, SPARSE_K, device="cpu"),
+                                 corpus, mh_steps=SPARSE_STEPS,
+                                 cache=ts.SparseSweepCache(cap_min=SPARSE_CAP,
+                                                           cap_max=SPARSE_CAP))
+    np.testing.assert_array_equal(run[0]["z"], first.z.numpy())
+
+
+def test_sparse_sweep_two_ranks_equals_single_device(tmp_path):
+    """Two gloo ranks, each drawing its own documents with global offsets:
+    every sweep's z equals the single-device sparse draw from its incoming
+    state, on both ranks, with one all_reduce a sweep."""
+    run_ranks(_sparse_worker, tmp_path, world=2)
+    runs = [torch.load(tmp_path / f"sparse{r}.pt", weights_only=False) for r in range(2)]
+    for sw0, sw1 in zip(*runs):
+        np.testing.assert_array_equal(sw0["z"], sw1["z"])
+        np.testing.assert_array_equal(sw0["z"], _single_device_draw(sw0["in"]))
+        for sw in (sw0, sw1):
+            c = sw["counts"]
+            assert c["all_reduce"] == 1 and sum(c.values()) == 2, c
