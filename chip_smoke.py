@@ -141,17 +141,24 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    buckets) times ``sparse_mh`` in its factored buckets (``|sp``) and in
    two buckets of 2**21 tokens (K = 240, 2,048) where only ``lda_kernel``
    and ``sparse_mh`` run, and ``fit_cuda`` fits its terms too.
-7. Sparse LDA at the Wikipedia corpus: S1 (the MH sweep kernel) against
-   its plain version bit for bit (z, both accept counts, the proposal
-   count) with cdf, alias and alias_device tables, 1 and 4 steps, cap 8
-   (truncating) and 64, then documents masked out, row counters that
-   wrap at 2**32 and K = 2,048 (8,192 documents), and S1's times beside
-   its plain version and bound; at K = 240, 1,024 and 2,048, 3
-   ``gibbs_step(sparse=True)`` sweeps each with cdf, alias_device and
-   auto tables (S1 once a sweep, K13 once a sweep with alias_device
-   tables), one ``sparse="auto"`` sweep (its resolution printed) and 3
-   sweeps of the dense default, each path's launches read around it; one
-   profiled sparse sweep; 2 sweeps of ``StreamingSparseLDA`` over
+7. Sparse LDA at the Wikipedia corpus: S1 (the MH sweep kernel) in both
+   layouts ("doc", the rule's pick, and "position", the first port's
+   body) against its plain version and each other bit for bit (z, both
+   accept counts, the proposal count) with cdf, alias and alias_device
+   tables, 1 and 4 steps, cap 8 (truncating) and 64, then documents
+   masked out, row counters that wrap at 2**32, K = 2,048 (8,192
+   documents), every document masked, cap 1 and cap = K, doc proposals
+   exactly at K alpha and on a cc value, documents of 307 positions, and
+   K = 16,384 (where the rule takes "position"); at K = 240, 1,024 and
+   2,048, 3 ``gibbs_step(sparse=True)`` sweeps each with cdf,
+   alias_device and auto tables (S1 once a sweep, K13 once a sweep with
+   alias_device tables), one ``sparse="auto"`` sweep (its resolution
+   printed) and 3 sweeps of the dense default, each path's launches read
+   around it; in a fresh process (this script with ``--sparse-profile``,
+   whose traces hold every launch), S1's event and device times in both
+   layouts at K = 240, 1,024 and 2,048 (cdf and alias_device tables)
+   beside its plain version and bound, and the sparse sweep profiled,
+   S1's count in its trace; 2 sweeps of ``StreamingSparseLDA`` over
    ``zipf_shard_source`` (50,000 documents in 4 shards, the corpus's
    vocabulary) with tokens/s.
 
@@ -256,11 +263,12 @@ DECODE_B = 64
 DECODE_VOCABS = (gemma2_9b.VOCAB_SIZE, 32000)
 
 
-def path_layouts() -> dict:
+def path_layouts(L: int) -> dict:
     """The layout (K1: schedule) each kernel's rule picks at the shapes the
     main paths give it: the chunk (27,392 draws, K = 240; W = 16 for the
-    given weights, 32 for the factors) and the decode widths (W = 128);
-    kernels with one layout are absent."""
+    given weights, 32 for the factors), the decode widths (W = 128) and
+    the sparse sweep over the corpus's documents of L positions; kernels
+    with one layout are absent."""
     Vd = gemma2_9b.VOCAB_SIZE
     nbv, nbc = KB.num_blocks(Vd, 128), KB.num_blocks(CONFIG.K, 16)
     chunk, dec = "chunk", f"(64, {Vd})"
@@ -278,6 +286,7 @@ def path_layouts() -> dict:
                        for K in DECODE_VOCABS},
         "alias_assemble": {"phi": KA.alias_layout(CONFIG.V, aops._next_pow2(CONFIG.K)),
                            dec: KA.alias_layout(64, aops._next_pow2(Vd))},
+        "sparse_mh": {f"corpus K={K} cap 64": KS.mh_layout(K, 64, L) for K in SPARSE_KS},
     }
 
 
@@ -1016,8 +1025,12 @@ def phase_table_paths(state, corpus, dev, seed):
 
 def phase_profile(state, corpus, method, W, label=None, **kw):
     """One more sweep of ``method`` under torch.profiler (after the
-    counted runs): device time by kernel and the device's busy share.
-    ``kw`` goes to ``gibbs_step`` (the sparse sweep's options)."""
+    counted runs): device time by kernel, the device's busy share and the
+    trace's kernel count (S1's apart).  ``kw`` goes to ``gibbs_step`` (the
+    sparse sweep's options).  Late in this script's process a trace loses
+    some of its kernels (PERF.md §7): its busy share is a lower bound, and
+    the sparse sweep is profiled in a fresh process
+    (:func:`sparse_profile_fresh`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1037,6 +1050,8 @@ def phase_profile(state, corpus, method, W, label=None, **kw):
     for us, n, key in rows[:10]:
         log(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
     return state, {"wall_s": wall, "device_busy_s": busy,
+                   "launches": {"sparse_mh": sum(n for _, n, k in rows if "sparse_mh" in k),
+                                "kernels": sum(n for _, n, _ in rows)},
                    "top": [{"ms": us / 1e3, "count": n, "name": key[:120]}
                            for us, n, key in rows[:10]]}
 
@@ -2806,7 +2821,18 @@ SPARSE_MODES = ("cdf", "alias", "alias_device")
 # (chunk, L, cap) temporaries near 1 GB with 22 steps over the corpus
 SPARSE_PLAIN_CHUNK = 2048
 SPARSE_STEPS = 2                       # gibbs_step's mh_steps default
-THREEFRY_OPS = 82                      # integer operations of one uniform (sparse_mh.cu)
+# one Threefry uniform: the integer operations of the block's source
+# (THREEFRY_OPS, counted at the fp32 rate), and the integer instructions
+# sm_90a compiles it to (SASS of one uniform: 20 SHF, 20 LOP3, 11 IADD3,
+# 1 VIADD, 14 IMAD.IADD).  An SM issues 64 integer lanes a clock on its
+# ALU pipe and 64 more as IMAD forms on its FMA pipe; only LOP3 has no
+# IMAD form (adds go as IMAD.IADD, rotations as IMAD.SHL / IMAD.HI), so
+# a uniform takes at least max(20 / 64, 66 / 128) of an SM's clock a lane
+THREEFRY_OPS = 82
+THREEFRY_INT_INSTRS, THREEFRY_ALU_ONLY_INSTRS = 66, 20
+INT32_ALU_LANES_PER_SM, INT32_LANES_PER_SM = 64, 128
+H100_SMS, H100_MAX_SM_HZ = 132, 1.98e9   # clocks.max.sm
+MH_UNIFORMS = {"cdf": 4, "alias": 5, "alias_device": 5}   # a cycle, doc layout
 STREAM_DOCS, STREAM_SHARD_DOCS = 50000, 12500
 
 
@@ -2843,30 +2869,87 @@ def sparse_tables(phi, mode: str):
     return t.prob.contiguous(), t.alias.contiguous()
 
 
-def check_s1(tally, case, inp, tables, seed2, row0, steps, mode):
-    """S1 against its plain version on one input: z, both accept counts
-    and the proposal count bit for bit."""
+def check_s1(tally, case, inp, tables, seed2, row0, steps, mode, alpha=0.1):
+    """S1 in each layout that takes the shape against its plain version on
+    one input (z, both accept counts and the proposal count bit for bit),
+    and the layouts' z against each other."""
     z, docs, mask, theta, phi, ids, cnt = inp
-    args = (z, docs, mask, theta, phi, ids, cnt, *tables, seed2, row0, 0.1)
-    zk, wa, da, nk = KS.mh_sweep(*args, steps=steps, mode=mode)
+    args = (z, docs, mask, theta, phi, ids, cnt, *tables, seed2, row0, alpha)
     zp, wp, dp, props = sparse_ref.mh_sweep_torch(*args, steps=steps, cap=ids.shape[1],
                                                   mode=mode, chunk=SPARSE_PLAIN_CHUNK)
-    tally.same("sparse_mh", case, zk, zp)
-    tally.same("sparse_mh", case + " counts", torch.stack([wa, da, nk * steps]).long(),
-               torch.stack([wp, dp, props]).long())
-    return {"word_accepts": int(wa), "doc_accepts": int(da), "proposals": int(props),
-            "changed": int((zk != z).sum())}
+    want = torch.stack([wp, dp, props]).long()
+    got = {}
+    for lay in KS.fitting_layouts(theta.shape[1], ids.shape[1], docs.shape[1]):
+        zk, wa, da, nk = KS._mh_sweep(*args, steps=steps, mode=mode, layout=lay)
+        tally.same("sparse_mh", f"{case} [{lay}]", zk, zp)
+        tally.same("sparse_mh", f"{case} [{lay}] counts",
+                   torch.stack([wa, da, nk * steps]).long(), want)
+        got[lay] = zk
+    if len(got) > 1:
+        tally.same("sparse_mh", f"{case} doc = position", got["doc"], got["position"])
+    return {"word_accepts": int(wp), "doc_accepts": int(dp), "proposals": int(props),
+            "changed": int((zp != z).sum()), "layouts": list(got)}
+
+
+def s1_exact_inputs(dev, seed2, kind: str):
+    """Small inputs on which a token's doc proposal hits a boundary
+    exactly, built from the token's own uniform u3 = k / 2**24 (K = 16):
+    ``"t=Ka"`` sets alpha = k / K and the document's retained mass to
+    2**24 - k, so t = K alpha; ``"x=cc"`` (K alpha = 16, mass 2**24 - 16)
+    gives each document counts (x, mass - x) with x = t - K alpha, so x
+    equals cc[0].  -> (inputs, row0, alpha)."""
+    M, L, K, V, row0 = 64, 8, 16, 30, 3
+    g = torch.Generator(device=dev).manual_seed(75)
+    rows = torch.arange(M, device=dev)
+    ctr = (row0 + rows[:, None]) * L + torch.arange(L, device=dev)[None]
+    u3 = rng.uniform(rng._u32(seed2, dev), ctr, 3)
+    docs = torch.randint(0, V, (M, L), generator=g, device=dev, dtype=torch.int32)
+    mask = torch.rand((M, L), generator=g, device=dev) < 0.7
+    z = torch.randint(0, K, (M, L), generator=g, device=dev, dtype=torch.int32)
+    dt = torch.randint(0, 5, (M, K), generator=g, device=dev).float()
+    if kind == "t=Ka":
+        k = int(u3[0, 0].item() * 2**24)
+        alpha = k / K
+        dt[0] = 0
+        dt[0, 5], dt[0, 9] = 2**24 - k - 1000, 1000
+        mask[0, 0] = True
+        first = torch.zeros(M, dtype=torch.int64, device=dev)
+    else:
+        alpha = 1.0
+        first = torch.argmax((u3 >= 0.5 + 2.0**-20).int(), dim=1)
+        x = (u3[rows, first] * 2**24).long() - 16
+        dt.zero_()
+        dt[rows, rows % K] = x.float()
+        dt[rows, (rows + 3) % K] = (2**24 - 16 - x).float()
+        mask[rows, first] = True
+    if (dt < 0).any():
+        raise AssertionError(f"{kind}: the built counts are negative")
+    sp = lsp.sparse_counts(dt, 4)
+    # the boundary is hit, in float32 as the kernel computes it
+    Ka = torch.tensor(float(K), device=dev) * torch.tensor(alpha, device=dev)
+    cc = torch.cumsum(sp.cnt, 1).float()
+    t = u3[rows, first] * (Ka + cc[:, -1])
+    hits = int((t == Ka).sum()) if kind == "t=Ka" else int((t - Ka == cc[:, 0]).sum())
+    if not hits:
+        raise AssertionError(f"{kind}: no token's doc proposal lands on the boundary")
+    theta = _normalised_gamma(g, (M, K), 0.3, 1, dev)
+    phi = factors("dirichlet", 1, V, K, g, dev)[1].contiguous()
+    return [z, docs, mask, theta, phi, sp.ids, sp.cnt], row0, alpha
 
 
 def s1_bound(inp, z_out, tables, steps, mode):
-    """Least time of one S1 call on this run's data -> (ms, by): the
-    position arrays read and z written (13 bytes a position), the retained
-    lists, and of the gathered inputs at least the elements this run must
-    touch: theta and phi at each live token's topic before and after the
-    sweep, and a live word's table entries (cdf: a descent's ceil(log2 K)
-    + 1; alias: a column's prob and alias); operations: five Threefry
-    uniforms a live token and cycle, counted at the fp32 rate (the int32
-    rate is lower, so this stays a bound)."""
+    """Least time of one S1 call on this run's data: the larger of the
+    bytes term and the integer term ``int32_ms``.  Bytes: the position
+    arrays read and z written (13 bytes a position), the retained lists,
+    and of the gathered inputs at least the elements this run must touch
+    (theta and phi at each live token's topic before and after the sweep,
+    and a live word's table entries: cdf a descent's ceil(log2 K) + 1,
+    alias a column's prob and alias).  Integer work: the uniforms a live
+    token and cycle must draw (``MH_UNIFORMS``: cdf 4, alias 5), each
+    the larger of THREEFRY_ALU_ONLY_INSTRS at the ALU pipe's 64 lanes an SM
+    a clock and THREEFRY_INT_INSTRS at both pipes' 128, 132 SMs at 1,980
+    MHz.  ``fp32_ms`` counts THREEFRY_OPS a uniform at the fp32 rate, the
+    first port's looser figure."""
     z, docs, mask, theta, phi, ids, cnt = inp
     K, V = theta.shape[1], phi.shape[0]
     live = mask.reshape(-1)
@@ -2881,18 +2964,154 @@ def s1_bound(inp, z_out, tables, steps, mode):
     per_word = sparse_ref.ceil_log2(K) + 1 if mode == "cdf" else 2
     nbytes = (z.numel() * 13 + ids.numel() * 8 + (th_el + ph_el) * 4
               + words * per_word * 4)
-    ops_ = int(live.sum()) * steps * 5 * THREEFRY_OPS
+    uniforms = int(live.sum()) * steps * MH_UNIFORMS[mode]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops_ / FP32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    t_fp32 = uniforms * THREEFRY_OPS / FP32_FLOPS * 1e3
+    clocks = max(THREEFRY_ALU_ONLY_INSTRS / INT32_ALU_LANES_PER_SM,
+                 THREEFRY_INT_INSTRS / INT32_LANES_PER_SM)
+    t_int = uniforms * clocks / (H100_SMS * H100_MAX_SM_HZ) * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_int else (t_int, "operations")
+    return {"bound_ms": bound, "bound_by": by, "bytes_ms": t_bytes, "int32_ms": t_int,
+            "fp32_ms": t_fp32, "uniforms": uniforms}
+
+
+def s1_device_per_launch(fn, reps: int = 20):
+    """S1's device time a launch from a torch.profiler trace of ``reps``
+    calls of ``fn`` (one S1 launch each) -> (ms, launches the trace held)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "sparse_mh" in e.key]
+    n = sum(e.count for e in rows)
+    return (sum(e.self_device_time_total for e in rows) / n / 1e3 if n else None), n
+
+
+def _s1_times(args, mode, reps: int = 20) -> dict:
+    """S1 in each layout that takes the shape: the CUDA-event time, two
+    means of ``reps`` launches taken in turns doc, position, position, doc
+    (``ms`` the faster), and the device time a launch from a profiler
+    trace (``device_ms``, with the launches the trace held)."""
+    K, cap, L = args[3].shape[1], args[5].shape[1], args[1].shape[1]
+    lays = KS.fitting_layouts(K, cap, L)
+    runs = {lay: (lambda lay=lay: KS._mh_sweep(*args, steps=SPARSE_STEPS, mode=mode,
+                                               layout=lay)) for lay in lays}
+    ev = {lay: [] for lay in lays}
+    for lay in (*lays, *reversed(lays)):
+        ev[lay].append(cuda_ms(runs[lay], reps=reps))
+    out = {}
+    for lay in lays:
+        ms, n = s1_device_per_launch(runs[lay], reps)
+        out[lay] = {"ms": min(ev[lay]), "events_ms": ev[lay], "device_ms": ms,
+                    "launches_seen": n}
+    return out
+
+
+def s1_timing(dev, seed) -> dict:
+    """S1's times at the corpus, 2 steps, cap 64, K = 240, 1,024 and
+    2,048 with cdf and alias_device tables: each layout's event and device
+    times (:func:`_s1_times`) beside its bound, and the plain version's
+    time at K = 240, cdf.  Each K's inputs come from a generator seeded
+    ``seed + 70 + K``.  -> phase 7's S1 record for the ``kernels`` line."""
+    corpus = paper_corpus(seed, CONFIG.M, CONFIG.V)
+    seed2 = rng.fold(rng.seed_from_key([seed, 70]), rng.TAG_SPARSE_MH)
+    K, L = CONFIG.K, corpus.docs.shape[1]
+    by_k, pms = {}, None
+    for Kt in SPARSE_KS:
+        inp = sparse_inputs(corpus, dev, torch.Generator(device=dev).manual_seed(
+            seed + 70 + Kt), Kt, 64)
+        for mode in ("cdf", "alias_device"):
+            tabs = sparse_tables(inp[4], mode)
+            a = (*inp, *tabs, seed2, 0, 0.1)
+            t = _s1_times(a, mode)
+            zt = KS.mh_sweep(*a, steps=SPARSE_STEPS, mode=mode)[0]
+            t["bound"] = b = s1_bound(inp, zt, tabs, SPARSE_STEPS, mode)
+            if (Kt, mode) == (K, "cdf"):
+                pms = cuda_ms(lambda: sparse_ref.mh_sweep_torch(
+                    *a, steps=SPARSE_STEPS, cap=64, mode="cdf", chunk=SPARSE_PLAIN_CHUNK),
+                    reps=3, warmup=1)
+            by_k[f"K={Kt} {mode}"] = t
+            log(f"  sparse_mh K={Kt} {mode} (steps={SPARSE_STEPS}, cap 64): "
+                + ", ".join(f"{lay} events {t[lay]['events_ms']} device "
+                            f"{t[lay]['device_ms']} ({t[lay]['launches_seen']} launches "
+                            "in the trace)" for lay in KS.LAYOUTS if lay in t)
+                + f"; bound {b['bound_ms']:.5f} ms ({b['bound_by']}; int32 "
+                f"{b['int32_ms']:.5f}, fp32 rate {b['fp32_ms']:.5f}, bytes "
+                f"{b['bytes_ms']:.5f})")
+            del tabs, a
+        del inp
+    main = by_k[f"K={K} cdf"]
+    lay = KS.mh_layout(K, 64, L)
+    bound = main["bound"]
+    log(f"  sparse_mh (K={K}, cdf, {lay}) {main[lay]['ms']:.4f} ms, position "
+        f"{main['position']['ms']:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bound['bound_ms'] * 1e3:.2f} us ({bound['bound_by']}); library: none (no "
+        "PyTorch call runs an MH sweep)")
+    return {"ms": main[lay]["ms"], "device_ms": main[lay]["device_ms"], "plain_ms": pms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"],
+            "bound_int32_ms": bound["int32_ms"], "bound_fp32_ms": bound["fp32_ms"],
+            "bound_bytes_ms": bound["bytes_ms"], "library_ms": None,
+            "alias_ms": by_k[f"K={K} alias_device"][lay]["ms"], "layout": lay,
+            "position_ms": main["position"]["ms"],
+            "position_device_ms": main["position"]["device_ms"], "by_K": by_k,
+            "shape": [CONFIG.M, L, K, 64], "steps": SPARSE_STEPS}
+
+
+def phase_sparse_profile(dev, seed) -> dict:
+    """``--sparse-profile``, run by :func:`sparse_profile_fresh` in a
+    process of its own: S1's times (:func:`s1_timing`), then the sparse
+    cdf sweep at K = 240 profiled after one unprofiled sweep."""
+    timing = s1_timing(dev, seed)
+    corpus = paper_corpus(seed, CONFIG.M, CONFIG.V)
+    dev_corpus = corpus_mod.Corpus(docs=torch.as_tensor(corpus.docs, device=dev),
+                                   lengths=corpus.lengths,
+                                   mask=torch.as_tensor(corpus.mask, device=dev),
+                                   vocab_size=corpus.vocab_size)
+    state = gibbs.init_state(seed, dev_corpus, CONFIG.K, device=dev)
+    cache = lsp.SparseSweepCache()
+    state = gibbs.gibbs_step(state, dev_corpus, sparse=True, sparse_cache=cache)
+    prof = phase_profile(state, dev_corpus, "auto", None, label="sparse (cdf), fresh process",
+                         sparse=True, sparse_cache=cache)[1]
+    return {"timing": timing, "profile": prof}
+
+
+def sparse_profile_fresh(seed: int) -> dict:
+    """:func:`phase_sparse_profile` in a process of its own (this script
+    with ``--sparse-profile``, waited for): late in this process a
+    profiler trace loses kernels, S1's among them, where a fresh process's
+    trace holds them all (PERF.md §7).  Its log is relayed."""
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--sparse-profile", "--seed",
+           str(seed)]
+    # the card's memory that this process's allocator holds unused goes back,
+    # so that the fresh process finds room
+    reserved = torch.cuda.memory_reserved()
+    torch.cuda.empty_cache()
+    log(f"  fresh process: this one holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+        f"({reserved / 2**30:.2f} GiB reserved before empty_cache)")
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=900, cwd=str(ROOT))
+    lines = out.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log("  | " + line)
+    if out.returncode != 0 or not lines:
+        raise RuntimeError(f"--sparse-profile failed ({out.returncode}):\n"
+                           f"{out.stdout[-4000:]}\n{out.stderr[-4000:]}")
+    return json.loads(lines[-1])
 
 
 def phase_sparse_kernel(corpus, dev, seed, tally):
-    """Phase 7a: S1 against its plain version at the full corpus, K = 240,
-    in each word-proposal mode, steps 1 and 4, cap 8 (truncating) and 64;
-    then edge inputs (documents masked out, K = 2,048, row counters that
-    wrap at 2**32); then S1's times at the sweep's default (cdf, 2 steps,
-    cap 64) beside its plain version and its bound."""
+    """Phase 7a: S1 in each layout against its plain version at the full
+    corpus, K = 240, in each word-proposal mode, steps 1 and 4, cap 8
+    (truncating) and 64; then edge inputs (documents masked out, every
+    document masked, row counters that wrap at 2**32, cap 1 and cap = K,
+    a doc proposal exactly at K alpha and exactly on a cc value, L = 307
+    positions, K = 2,048, and K = 16,384 where the rule takes "position").
+    S1's times are taken in a fresh process (:func:`s1_timing`)."""
     K = CONFIG.K
     g = torch.Generator(device=dev).manual_seed(seed + 70)
     log(f"phase 7a: sparse MH sweep (S1) vs plain at M={corpus.docs.shape[0]} x "
@@ -2900,11 +3119,12 @@ def phase_sparse_kernel(corpus, dev, seed, tally):
     seed2 = rng.fold(rng.seed_from_key([seed, 70]), rng.TAG_SPARSE_MH)
     res = {}
     inp64 = sparse_inputs(corpus, dev, g, K, 64)
-    inp8 = inp64[:5] + list(lsp.sparse_counts(
-        lsp._counts_scatter(*inp64[:3], K, corpus.vocab_size)[0], 8))
-    support = (lsp._counts_scatter(*inp64[:3], K, corpus.vocab_size)[0] > 0).sum(1)
+    doc_topic = lsp._counts_scatter(*inp64[:3], K, corpus.vocab_size)[0]
+    inp8 = inp64[:5] + list(lsp.sparse_counts(doc_topic, 8))
+    support = (doc_topic > 0).sum(1)
     log(f"  documents whose support exceeds cap: {int((support > 8).sum())} (cap 8), "
-        f"{int((support > 64).sum())} (cap 64)")
+        f"{int((support > 64).sum())} (cap 64); S1's layout at the corpus: "
+        f"{KS.mh_layout(K, 64, corpus.docs.shape[1])}")
     for mode in SPARSE_MODES:
         tables = sparse_tables(inp64[4], mode)
         for steps in (1, 4):
@@ -2924,28 +3144,39 @@ def phase_sparse_kernel(corpus, dev, seed, tally):
         res[f"K=2048 {mode}"] = check_s1(tally, f"K=2048 M=8192 {mode}", inp_k,
                                          sparse_tables(inp_k[4], mode), seed2, 0, 2, mode)
     del inp_k
-    # times at the sweep's default: cdf tables, 2 steps, cap 64
-    tables = sparse_tables(inp64[4], "cdf")
-    args = (*inp64, *tables, seed2, 0, 0.1)
-    zk = KS.mh_sweep(*args, steps=SPARSE_STEPS, mode="cdf")[0]
-    bms, by = s1_bound(inp64, zk, tables, SPARSE_STEPS, "cdf")
-    ms = cuda_ms(lambda: KS.mh_sweep(*args, steps=SPARSE_STEPS, mode="cdf"))
-    pms = cuda_ms(lambda: sparse_ref.mh_sweep_torch(
-        *args, steps=SPARSE_STEPS, cap=64, mode="cdf", chunk=SPARSE_PLAIN_CHUNK),
-        reps=3, warmup=1)
-    ms2 = cuda_ms(lambda: KS.mh_sweep(*args, steps=SPARSE_STEPS, mode="cdf"))
-    dms = device_ms(lambda: KS.mh_sweep(*args, steps=SPARSE_STEPS, mode="cdf"))
-    alias_t = sparse_tables(inp64[4], "alias_device")
-    ams = cuda_ms(lambda: KS.mh_sweep(*inp64, *alias_t, seed2, 0, 0.1,
-                                      steps=SPARSE_STEPS, mode="alias_device"))
-    timing = {"ms": min(ms, ms2), "device_ms": dms, "plain_ms": pms, "bound_ms": bms,
-              "bound_by": by, "library_ms": None, "alias_ms": ams,
-              "shape": [*inp64[0].shape, K, 64], "steps": SPARSE_STEPS}
-    log(f"  sparse_mh (cdf, steps={SPARSE_STEPS}, cap 64) kernel {ms:.4f}/{ms2:.4f} ms "
-        f"(device {_ms(dms)}), alias_device tables {ams:.4f} ms, plain {pms:.4f} ms, "
-        f"bound {bms * 1e3:.2f} us ({by}); library: none (no PyTorch call runs an MH "
-        "sweep)")
-    return res, timing
+    # the doc layout's edges: every document masked, cap 1 and cap = K,
+    # the doc proposal exactly at K alpha and on a cc value, long documents
+    cdf = sparse_tables(inp64[4], "cdf")
+    dead = [x.clone() for x in inp64]
+    dead[2].zero_()
+    res["all masked"] = check_s1(tally, "cdf every document masked", dead, cdf, seed2, 0,
+                                 2, "cdf")
+    if res["all masked"]["changed"] or res["all masked"]["proposals"]:
+        raise AssertionError(f"S1 moved masked positions: {res['all masked']}")
+    for cap in (1, K):
+        inp_c = inp64[:5] + list(lsp.sparse_counts(doc_topic, cap))
+        res[f"cap={cap}"] = check_s1(tally, f"cdf steps=2 cap={cap}", inp_c, cdf, seed2, 0,
+                                     2, "cdf")
+    for kind in ("t=Ka", "x=cc"):
+        inp_e, row0, alpha = s1_exact_inputs(dev, seed2, kind)
+        for mode in ("cdf", "alias"):
+            res[f"{kind} {mode}"] = check_s1(tally, f"{kind} {mode} steps=1", inp_e,
+                                             sparse_tables(inp_e[4], mode), seed2, row0, 1,
+                                             mode, alpha=alpha)
+    long_corpus = paper_corpus(seed + 71, 4096, CONFIG.V, avg_len=250)
+    inp_l = sparse_inputs(long_corpus, dev, g, K, 64)
+    for mode in ("cdf", "alias"):
+        res[f"L={inp_l[0].shape[1]} {mode}"] = check_s1(
+            tally, f"L={inp_l[0].shape[1]} M=4096 {mode}", inp_l,
+            sparse_tables(inp_l[4], mode), seed2, 2**32 - 70000, 2, mode)
+    del inp_l
+    inp_big = sparse_inputs(corpus, dev, g, 16384, 64, M=256)
+    if KS.mh_layout(16384, 64, inp_big[0].shape[1]) != "position":
+        raise AssertionError("S1's rule should take the position layout at K = 16,384")
+    res["K=16384"] = check_s1(tally, "K=16384 M=256 cdf (position only)", inp_big,
+                              sparse_tables(inp_big[4], "cdf"), seed2, 0, 2, "cdf")
+    del inp_big
+    return res
 
 
 def sparse_sweeps(corpus, dev, seed, K, n, **kw):
@@ -2968,8 +3199,9 @@ def phase_sparse(corpus, dev, seed):
     sweeps each with ``word_proposal`` cdf, alias_device and auto (S1 once a
     sweep; K13 once a sweep where the tables are alias_device), one
     ``sparse="auto"`` sweep (the tuner's pick), and 3 sweeps of the dense
-    default beside them, each path's launches read around it; then one
-    profiled sparse sweep (cdf, K = 240)."""
+    default beside them, each path's launches read around it; then, in a
+    fresh process, S1's times and the sparse sweep (cdf, K = 240)
+    profiled."""
     from repro_torch import autotune
 
     M, maxN = corpus.docs.shape
@@ -3029,13 +3261,12 @@ def phase_sparse(corpus, dev, seed):
         add_counts(launches, counts)
         del state
         autotune.get_table_cache().clear()
-    state = gibbs.init_state(seed, corpus, CONFIG.K, device=dev)
-    cache = lsp.SparseSweepCache()
-    state = gibbs.gibbs_step(state, corpus, sparse=True, sparse_cache=cache)
-    res["profile"] = phase_profile(state, corpus, "auto", None, label="sparse (cdf)",
-                                   sparse=True, sparse_cache=cache)[1]
-    n_s1 = sum(t["count"] for t in res["profile"]["top"] if "sparse_mh" in t["name"])
-    log(f"  the trace holds S1 x{n_s1} (one launch a sweep)")
+    # S1's times and the profiled sparse sweep, in a fresh process; the
+    # trace's S1 count against the one launch a sweep
+    fresh = sparse_profile_fresh(seed)
+    res["profile"], res["s1_timing"] = fresh["profile"], fresh["timing"]
+    log(f"  profile: the trace holds S1 x{res['profile']['launches']['sparse_mh']} of 1 "
+        f"launch, {res['profile']['launches']['kernels']} kernels")
     return launches, res
 
 
@@ -3070,6 +3301,10 @@ def main(argv=None) -> int:
     ap.add_argument("--timing-only", action="store_true",
                     help="build, run phase 2g's timings alone and print them as JSON "
                          "(no checks, no result line)")
+    ap.add_argument("--sparse-profile", action="store_true",
+                    help="run phase 7b's fresh process alone (S1's times, the profiled "
+                         "sparse sweep) and print it as JSON (chip_smoke.py starts this "
+                         "itself)")
     ap.add_argument("--src", type=Path, default=None,
                     help="with --timing-only: import the port from this src/ directory "
                          "(another commit's checkout) in place of this one's")
@@ -3083,7 +3318,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     # the defaults resolve from the committed cost model, on a cache file of
     # this run inside the checkout
-    cache = ROOT / "build" / "autotune.json"
+    cache = ROOT / "build" / ("autotune_sparse_profile.json" if args.sparse_profile
+                              else "autotune.json")
     cache.unlink(missing_ok=True)
     os.environ["REPRO_TORCH_AUTOTUNE_CACHE"] = str(cache)
     os.environ["REPRO_AUTOTUNE"] = "model"
@@ -3098,6 +3334,9 @@ def main(argv=None) -> int:
     for name, text in _build.build_log.items():
         log(f"  nvcc {name}:\n" + "\n".join("    " + x for x in text.strip().splitlines()))
 
+    if args.sparse_profile:
+        log(json.dumps(phase_sparse_profile(dev, args.seed)))
+        return 0
     t0 = time.perf_counter()
     corpus = paper_corpus(args.seed, CONFIG.M, CONFIG.V)
     log(f"corpus built in {time.perf_counter() - t0:.2f} s")
@@ -3150,15 +3389,15 @@ def main(argv=None) -> int:
     counts, main_res["sharded"] = phase_sharded(dev_corpus, dev, args.seed)
     add_counts(launches, counts)
     log("phase 7: sparse LDA (the MH-alias sweep, S1)")
-    main_res["sparse_kernel"], timing["sparse_mh"] = phase_sparse_kernel(
-        corpus, dev, args.seed, tally)
+    main_res["sparse_kernel"] = phase_sparse_kernel(corpus, dev, args.seed, tally)
     counts, main_res["sparse"] = phase_sparse(dev_corpus, dev, args.seed)
     add_counts(launches, counts)
+    timing["sparse_mh"] = main_res["sparse"].pop("s1_timing")
     counts, main_res["streaming"] = phase_streaming(dev, args.seed)
     add_counts(launches, counts)
 
     kernels = []
-    layouts = path_layouts()
+    layouts = path_layouts(corpus.docs.shape[1])
     for name, (kid, src, replaces, _) in KERNELS.items():
         t, tm = tally.t[name], timing[name]
         kernels.append({
@@ -3180,9 +3419,15 @@ def main(argv=None) -> int:
             kernels[-1].update({f"{k}_vocab": vocab[k] for k in (
                 "ms", "device_ms", "plain_ms", "bound_ms", "layout", "shape")})
             kernels[-1]["device_ms"] = tm["device_ms"]
-        if name == "sparse_mh":
-            kernels[-1].update({k: tm[k] for k in ("device_ms", "alias_ms", "shape",
-                                                    "steps")})
+        if name == "sparse_mh":  # both layouts, and K = 1,024 and 2,048
+            kernels[-1].update({k: tm[k] for k in (
+                "device_ms", "alias_ms", "layout", "position_ms", "position_device_ms",
+                "bound_int32_ms", "bound_fp32_ms", "bound_bytes_ms", "shape", "steps")})
+            kernels[-1]["by_K"] = {case: {lay: {"ms": t[lay]["ms"],
+                                                 "device_ms": t[lay]["device_ms"]}
+                                          for lay in KS.LAYOUTS if lay in t}
+                                   | {"bound_ms": t["bound"]["bound_ms"]}
+                                   for case, t in tm["by_K"].items()}
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({

@@ -35,6 +35,14 @@ The divisor ``alpha`` is a float32 tensor on the inputs' device, never a
 host scalar: PyTorch on the card divides by a host scalar through its
 reciprocal, which rounds differently from the true quotient that the
 kernel and the reference take.
+
+:func:`mh_sweep_doc_order_torch` models S1's ``"doc"`` layout token by
+token in its own order: one document a block, its list as a topic ->
+count map (the scatter of ``cnt`` at ``ids``) and its float32 prefix
+``cc``, the doc-sparse position by the kernel's upper-bound binary
+search over ``cc``, and the document's live positions in order, token
+``i`` on lane ``i % threads`` in round ``i // threads``.  It gives what :func:`mh_sweep_torch` gives wherever
+``cnt >= 0`` (``cc`` non-decreasing, as ``sparse_counts`` produces).
 """
 
 from __future__ import annotations
@@ -71,6 +79,21 @@ def _word_propose(mode: str, w, u0, u1, tbl_a, tbl_b, K: int, Kf):
         val = flat_a[wrow + torch.clamp(cand, max=K - 1)]
         base = base + torch.where((cand < K) & (val < t), span, 0)
     return torch.clamp(base, max=K - 1)
+
+
+def count_le(cc, x, cap: int) -> torch.Tensor:
+    """``#{j < cap : cc[..., j] <= x}`` by S1's upper-bound binary search
+    (``sparse_mh.cu``'s ``count_le``): halving steps from the largest
+    power of two <= cap; equal to the linear count where ``cc`` is
+    non-decreasing along its last axis."""
+    p = torch.zeros(x.shape, dtype=torch.int64, device=x.device)
+    step = 1 << (int(cap).bit_length() - 1)
+    while step:
+        q = p + step
+        val = torch.gather(cc, -1, (torch.clamp(q, max=cap) - 1).unsqueeze(-1)).squeeze(-1)
+        p = torch.where((q <= cap) & (val <= x), q, p)
+        step >>= 1
+    return p
 
 
 def _retained(ids_c, cnt_c, k) -> torch.Tensor:
@@ -148,3 +171,80 @@ def mh_sweep_torch(z, docs, mask, theta, phi, ids, cnt, tbl_a, tbl_b, seed, row0
             da += acc.sum()
         z_out[start:end] = zc.to(torch.int32)
     return z_out, wa, da, live.sum() * steps
+
+
+def doc_schedule(mask, threads: int):
+    """S1's doc-layout order of the live tokens: ``(doc, pos, lane,
+    round)`` int64 tensors, one document a block, its live positions in
+    order, token ``i`` of a document on lane ``i % threads`` in round
+    ``i // threads``."""
+    M, L = mask.shape
+    flat = torch.nonzero(mask.reshape(-1) > 0).squeeze(1)
+    doc, pos = flat // L, flat % L
+    per_doc = torch.bincount(doc, minlength=M)
+    first = torch.cumsum(per_doc, 0) - per_doc
+    i = torch.arange(flat.numel(), device=mask.device) - first[doc]
+    return doc, pos, i % threads, i // threads
+
+
+def mh_sweep_doc_order_torch(z, docs, mask, theta, phi, ids, cnt, tbl_a, tbl_b, seed,
+                             row0, alpha, *, steps: int, cap: int, mode: str,
+                             threads: int = 128
+                             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """S1's ``"doc"`` layout as an exact-order model: the arguments and
+    results of :func:`mh_sweep_torch`.  The rounds of the schedule run in
+    order, each over every document's token of that round; a token's
+    cycles read its document's map and ``cc`` only."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    M, L = docs.shape
+    K = theta.shape[-1]
+    dev = theta.device
+    f32 = torch.float32
+    seed = _rng._u32(seed, dev)
+    alpha_t = torch.tensor(alpha, dtype=f32, device=dev)
+    Kf = torch.tensor(float(K), dtype=f32, device=dev)
+    Ka = Kf * alpha_t
+    z_out = z.to(torch.int32).clone()
+    wa = torch.zeros((), dtype=torch.int64, device=dev)
+    da = torch.zeros((), dtype=torch.int64, device=dev)
+    # each document's list: the topic -> count map (ids outside [0, K)
+    # skipped) and the float32 of the integer prefix
+    idsl, cntl = ids.long(), cnt.to(torch.int32)
+    keep = (idsl >= 0) & (idsl < K)
+    tmap = torch.zeros((M, K), dtype=torch.int32, device=dev)
+    rows = torch.arange(M, device=dev)[:, None].expand_as(idsl)
+    tmap.index_put_((rows[keep], idsl[keep]), cntl[keep], accumulate=True)
+    cc = torch.cumsum(cntl, dim=1, dtype=torch.int32).to(f32)
+    mass = Ka + cc[:, cap - 1]
+    doc, pos, _, rnd = doc_schedule(mask, threads)
+    flat_phi, flat_th = phi.reshape(-1), theta.reshape(-1)
+    for r in range(int(rnd.max()) + 1 if rnd.numel() else 0):
+        sel = rnd == r
+        d, i = doc[sel], pos[sel]
+        w = docs[d, i]
+        zc = z_out[d, i].long()
+        trow, wrow = d * K, w.long() * K
+        ctr = (((int(row0) + d) & _MASK) * L + i) & _MASK
+        for s in range(steps):
+            u0, u2, u3, u4 = (_rng.uniform(seed, ctr, 5 * s + j) for j in (0, 2, 3, 4))
+            u1 = _rng.uniform(seed, ctr, 5 * s + 1) if mode != "cdf" else None
+            kp = _word_propose(mode, w, u0, u1, tbl_a, tbl_b, K, Kf)
+            acc = u2 * flat_th[trow + zc] < flat_th[trow + kp]
+            zc = torch.where(acc, kp, zc)
+            wa += acc.sum()
+            t = u3 * mass[d]
+            ku = torch.clamp((t / alpha_t).to(torch.int32), max=K - 1).long()
+            p = count_le(cc[d], t - Ka, cap)
+            ks = idsl[d, torch.clamp(p, max=cap - 1)]
+            kq = torch.where(t < Ka, ku, ks)
+            ncur = tmap[d, zc].to(f32)
+            nprop = tmap[d, kq].to(f32)
+            num = flat_th[trow + kq] * flat_phi[wrow + kq] * (alpha_t + ncur)
+            den = flat_th[trow + zc] * flat_phi[wrow + zc] * (alpha_t + nprop)
+            acc = u4 * den < num
+            zc = torch.where(acc, kq, zc)
+            da += acc.sum()
+        z_out[d, i] = zc.to(torch.int32)
+    return z_out, wa, da, (mask > 0).sum() * steps

@@ -1251,25 +1251,33 @@ def _mh_tables(phi, mode):
     return t.prob, t.alias
 
 
-def _mh_equal(inp, mode, steps, row0, seed2):
+def _mh_equal(inp, mode, steps, row0, seed2, alpha=0.1):
+    """S1 in each layout that takes the shape against its plain version
+    (z, both accept counts, the proposal count) and the layouts' z against
+    each other; the rule's pick among them."""
     tables = _mh_tables(inp[4], mode)
-    args = (*inp, *tables, seed2, row0, 0.1)
-    z, wa, da, n = KS.mh_sweep(*args, steps=steps, mode=mode)
+    args = (*inp, *tables, seed2, row0, alpha)
     zp, wp, dp, props = mh_sweep_torch(*args, steps=steps, cap=inp[5].shape[1],
                                        mode=mode, chunk=64)
-    torch.cuda.synchronize()
-    assert torch.equal(z, zp)
-    assert (int(wa), int(da), int(n) * steps) == (int(wp), int(dp), int(props))
-    return z
+    K, cap, L = inp[3].shape[1], inp[5].shape[1], inp[1].shape[1]
+    zs = {}
+    for layout in (None, *KS.fitting_layouts(K, cap, L)):
+        z, wa, da, n = KS._mh_sweep(*args, steps=steps, mode=mode, layout=layout)
+        torch.cuda.synchronize()
+        assert torch.equal(z, zp), layout
+        assert (int(wa), int(da), int(n) * steps) == (int(wp), int(dp), int(props)), layout
+        zs[layout] = z
+    assert len(zs) == 1 + len(KS.fitting_layouts(K, cap, L))
+    return zs[None]
 
 
 @pytest.mark.parametrize("cap", [8, 64])
 @pytest.mark.parametrize("steps", [1, 2, 4])
 @pytest.mark.parametrize("mode", ["cdf", "alias", "alias_device"])
 def test_sparse_mh_equals_plain(dev, mode, steps, cap):
-    """S1's z and accept counts equal its plain version's bit for bit, on
-    ragged (and empty) documents, truncating and wide caps, K = 240 and a
-    row offset whose counters wrap at 2**32."""
+    """S1's z and accept counts equal its plain version's bit for bit, in
+    each layout, on ragged (and empty) documents, truncating and wide
+    caps, K = 240 and a row offset whose counters wrap at 2**32."""
     inp = _mh_inputs(dev, steps * 100 + cap, 300, 96, 240, 500, cap)
     seed2 = rng.fold(rng.seed_from_key([steps, cap]), rng.TAG_SPARSE_MH)
     for row0 in (0, 2**32 - 5000):
@@ -1282,6 +1290,84 @@ def test_sparse_mh_edge_shapes(dev, K, cap):
     seed2 = rng.fold(rng.seed_from_key([K, 1]), rng.TAG_SPARSE_MH)
     for mode in ("cdf", "alias_device"):
         _mh_equal(inp, mode, 3, 17, seed2)
+
+
+@pytest.mark.parametrize("cap", [1, 240])
+@pytest.mark.parametrize("mode", ["cdf", "alias"])
+def test_sparse_mh_layouts_cap_one_and_k(dev, mode, cap):
+    """cap 1 (one retained topic) and cap = K (every topic, zero tails)."""
+    inp = _mh_inputs(dev, cap, 200, 70, 240, 300, cap)
+    _mh_equal(inp, mode, 2, 5, rng.fold(rng.seed_from_key([cap, 2]), rng.TAG_SPARSE_MH))
+
+
+@pytest.mark.parametrize("mode", ["cdf", "alias_device"])
+def test_sparse_mh_layouts_long_and_masked_documents(dev, mode):
+    """L = 150 (longer than a doc-layout block of 128 threads, not a
+    multiple of 32), full documents and fully masked ones; then every
+    position masked (z kept, counts 0)."""
+    inp = _mh_inputs(dev, 9, 120, 150, 240, 400, 64)
+    inp[2][:10] = True
+    inp[2][10:30] = False
+    seed2 = rng.fold(rng.seed_from_key([9, 9]), rng.TAG_SPARSE_MH)
+    _mh_equal(inp, mode, 2, 2**32 - 3000, seed2)
+    inp[2][:] = False
+    z = _mh_equal(inp, mode, 2, 0, seed2)
+    assert torch.equal(z, inp[0])
+
+
+def _exact_inputs(dev, seed2, kind):
+    """A token's doc proposal exactly at K alpha (``"t=Ka"``) or its
+    doc-sparse offset exactly on cc[0] (``"x=cc"``), built from the token's
+    own uniform u3 = k / 2**24 with K = 16 (as chip_smoke's phase 7a)."""
+    M, L, K, V, row0 = 32, 8, 16, 30, 3
+    g = np.random.default_rng(len(kind))
+    ctr = (row0 + torch.arange(M)[:, None]) * L + torch.arange(L)[None]
+    u3 = rng.uniform(rng._u32(seed2), ctr, 3)
+    dt = g.integers(0, 5, size=(M, K)).astype(np.float32)
+    mask = g.random((M, L)) < 0.7
+    if kind == "t=Ka":
+        k = int(u3[0, 0].item() * 2**24)
+        alpha = k / K
+        dt[0] = 0
+        dt[0, 5], dt[0, 9] = 2**24 - k - 1000, 1000
+        mask[0, 0] = True
+    else:
+        alpha = 1.0
+        first = torch.argmax((u3 >= 0.5 + 2.0**-20).int(), dim=1).numpy()
+        x = (u3[torch.arange(M), first] * 2**24).long().numpy() - 16
+        dt[:] = 0
+        dt[np.arange(M), np.arange(M) % K] = x
+        dt[np.arange(M), (np.arange(M) + 3) % K] = 2**24 - 16 - x
+        mask[np.arange(M), first] = True
+    sp = lsp.sparse_counts(torch.as_tensor(dt, device=dev), 4)
+    theta = g.dirichlet(np.full(K, 0.3), size=M).astype(np.float32)
+    phi = np.ascontiguousarray(g.dirichlet(np.full(V, 0.3), size=K).T).astype(np.float32)
+    t = [torch.as_tensor(x, device=dev) for x in (
+        g.integers(0, K, size=(M, L)).astype(np.int32),
+        g.integers(0, V, size=(M, L)).astype(np.int32), mask, theta, phi)]
+    return t + [sp.ids, sp.cnt], row0, alpha
+
+
+@pytest.mark.parametrize("kind", ["t=Ka", "x=cc"])
+def test_sparse_mh_layouts_exact_boundaries(dev, kind):
+    seed2 = rng.fold(rng.seed_from_key([3, 3]), rng.TAG_SPARSE_MH)
+    inp, row0, alpha = _exact_inputs(dev, seed2, kind)
+    for mode in ("cdf", "alias"):
+        _mh_equal(inp, mode, 1, row0, seed2, alpha=alpha)
+
+
+def test_sparse_mh_rule_takes_position_at_large_k(dev):
+    """K = 12,500: one document's map, list and positions exceed a block's
+    48 KB, so the rule takes the position layout, which equals the plain
+    version; the doc layout refuses the shape."""
+    inp = _mh_inputs(dev, 4, 16, 40, 12500, 50, 64)
+    assert KS.mh_layout(12500, 64, 40) == "position"
+    assert KS.fitting_layouts(12500, 64, 40) == ("position",)
+    seed2 = rng.fold(rng.seed_from_key([4, 4]), rng.TAG_SPARSE_MH)
+    _mh_equal(inp, "cdf", 2, 0, seed2)
+    with pytest.raises(ValueError):
+        KS._mh_sweep(*inp, *_mh_tables(inp[4], "cdf"), seed2, 0, 0.1, steps=1,
+                     mode="cdf", layout="doc")
 
 
 def test_sparse_sweeps_launch_s1_and_k13_once_a_sweep(dev, port_autotune):
