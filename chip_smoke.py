@@ -161,6 +161,25 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    S1's count in its trace; 2 sweeps of ``StreamingSparseLDA`` over
    ``zipf_shard_source`` (50,000 documents in 4 shards, the corpus's
    vocabulary) with tokens/s.
+8. Serving, the decoder path (``repro_torch.models`` and
+   ``repro_torch.serve``), each path with the launch counts read around
+   it: gemma2-9b's ``CONFIG`` at full width and depth (42 layers, d_model
+   3,584, head_dim 256, d_ff 14,336, V = 256,000), bfloat16 parameters
+   from ``init_params`` on the card (seeded), float32 caches.
+   ``ContinuousBatchingEngine`` at ``ServeSpec`` defaults (8 slots,
+   ``max_len`` 256, ``prefill_chunk`` 2) serves 16 requests (prompts of
+   1-120 tokens, 16-48 new, the model card's top-k 64 / top-p 0.95,
+   greedy, min-p 0.05 and top-k 1 in turns): every request finishes with
+   tokens below V, greedy and top-k 1 rows equal the argmax of the step's
+   logits, four requests run alone in fresh engines give the same tokens,
+   and one step at 8 live slots has its truncated draw (K9) held against
+   the plain version; K9 (or what the plan's method implies) once per
+   step.  Seconds a step at 8 live slots (median, p90), the draw's CUDA
+   events within the step, prefill seconds per bucket, tokens/s, peak
+   memory, and a profiled window of 3 steps (busy share, kernels a step).
+   Then ``generate`` over 64 prompts of 32 tokens, 8 new, with the model
+   card's truncation (K9 at (64, 256000) once per token), and one
+   ``make_decode_step(num_samples=4)`` call (K11 + K12 once).
 
 The last two lines are the ``{"kernels": [...]}`` record (the 13 TPU
 kernels and S1; a kernel with several layouts also gives the one its
@@ -191,6 +210,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import sampling  # noqa: E402
+from repro_torch import serve  # noqa: E402
 from repro_torch.configs import gemma2_9b  # noqa: E402
 from repro_torch.configs.lda import CONFIG  # noqa: E402
 from repro_torch.core import api  # noqa: E402
@@ -217,6 +237,8 @@ from repro_torch.kernels.sparse_mh import ref as sparse_ref  # noqa: E402
 from repro_torch.lda import corpus as corpus_mod  # noqa: E402
 from repro_torch.lda import gibbs  # noqa: E402
 from repro_torch.lda import sparse as lsp  # noqa: E402
+from repro_torch.models import build_model, init_params, param_count  # noqa: E402
+from repro_torch.serve.engine import _pad_caches_to  # noqa: E402
 from repro_torch.sampling import reference as sref  # noqa: E402
 from repro_torch.sampling import transforms as tr  # noqa: E402
 
@@ -3294,6 +3316,291 @@ def phase_streaming(dev, seed):
                     "launches": counts}
 
 
+# phase 8: serving gemma2-9b at full width and depth (the model card's
+# truncation, greedy, min-p and top-k 1 in turns)
+SERVE_MIXES = (("model card", dict(top_k=64, top_p=0.95)), ("greedy", dict(temperature=0.0)),
+               ("min-p 0.05", dict(min_p=0.05)), ("top-k 1", dict(top_k=1)))
+SERVE_REQUESTS, SERVE_SOLO = 16, 4      # requests served; of them, rerun alone
+SERVE_PROMPT, SERVE_NEW = (1, 120), (16, 48)
+GEN_B, GEN_S, GEN_NEW = 64, 32, 8       # generate: prompts, prompt length, new tokens
+
+
+def serve_requests(seed: int, V: int) -> list:
+    """The phase's requests, made anew from ``seed`` on every call (a
+    Request is the engine's to fill)."""
+    rng = np.random.default_rng(seed + 80)
+    out = []
+    for i in range(SERVE_REQUESTS):
+        plen = int(rng.integers(SERVE_PROMPT[0], SERVE_PROMPT[1] + 1))
+        new = int(rng.integers(SERVE_NEW[0], SERVE_NEW[1] + 1))
+        out.append(serve.Request(prompt=rng.integers(0, V, plen).astype(np.int32),
+                                 max_new_tokens=new, seed=seed * 1000 + i,
+                                 sampling=serve.SamplingParams(**SERVE_MIXES[i % 4][1])))
+    return out
+
+
+def serve_expect(method: str, draws: int, S: int = 1) -> dict:
+    """The launches a plan's method implies for ``draws`` truncated draw
+    calls: K9 each (K11 + K12 for several tokens a row) for ``kernel`` /
+    ``kernel_trunc``, K1 for ``butterfly``; none for the plain methods."""
+    if method in ("kernel", "kernel_trunc"):
+        return ({"fused_trunc_draw": draws} if S == 1
+                else {"masked_blocksums": draws, "walk_trunc": draws})
+    return {"butterfly_table": draws} if method == "butterfly" else {}
+
+
+def _pct(xs, q) -> float:
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def _argmax_faults(rec) -> dict:
+    """Greedy and top-k 1 rows: each token is its row's argmax, or a token
+    whose logit equals the maximum (a tie)."""
+    got = torch.cat([r[0] for r in rec]).long()
+    am = torch.cat([r[1] for r in rec]).long()
+    lg_got = torch.cat([r[2] for r in rec])
+    lg_max = torch.cat([r[3] for r in rec])
+    mis = got != am
+    ties = mis & (lg_got == lg_max)
+    return {"rows": int(got.numel()), "mismatches": int(mis.sum()), "ties": int(ties.sum())}
+
+
+SERVE_PROFILE_STEPS = 3
+
+
+def serve_profile(model, params, seed: int, V: int) -> dict:
+    """SERVE_PROFILE_STEPS decode steps of a fresh engine at 8 live slots
+    under torch.profiler: wall, device busy share, kernels a step and the
+    largest kernels.  Late in this script's process a trace may lose
+    kernels (PERF.md §7): the busy share is a lower bound; the trace's K9
+    count says whether it held every draw."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = serve.ContinuousBatchingEngine(model, params)
+    for r in serve_requests(seed, V)[:eng.max_slots]:
+        eng.submit_nowait(r)
+    while eng.scheduler.waiting_depth:
+        eng._admit()
+        eng.step_once()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_PROFILE_STEPS):
+            if eng.step_once() != eng.max_slots:
+                raise AssertionError("the profiled steps need every slot live")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  reverse=True)
+    busy = sum(r[0] for r in rows) / 1e6
+    n = SERVE_PROFILE_STEPS
+    out = {"steps": n, "wall_s": wall / n, "device_busy_s": busy / n,
+           "kernels_per_step": sum(c for _, c, _ in rows) / n,
+           "k9_in_trace": sum(c for _, c, k in rows if "trunc_draw" in k),
+           "top": [{"ms": us / 1e3 / n, "count": c / n, "name": k[:120]}
+                   for us, c, k in rows[:10]]}
+    log(f"  profiled decode step at {eng.max_slots} live slots ({n} steps): wall "
+        f"{out['wall_s']:.5f} s, device busy {out['device_busy_s']:.5f} s "
+        f"({100 * busy / wall:.1f}%), {out['kernels_per_step']:.0f} kernels a step, "
+        f"K9 launches in the trace {out['k9_in_trace']} of {n}")
+    for t in out["top"]:
+        log(f"  {t['ms']:9.4f} ms  x{t['count']:<7.1f} {t['name'][:90]}")
+    del eng
+    return out
+
+
+def phase_serving(dev, seed, tally):
+    """Phase 8: gemma2-9b's ``CONFIG`` (42 layers, d_model 3,584, V =
+    256,000) with bfloat16 parameters from ``init_params`` on the card and
+    float32 caches.  (a) ``ContinuousBatchingEngine`` at ``ServeSpec``
+    defaults serves SERVE_REQUESTS requests; SERVE_SOLO of them again, each
+    alone in a fresh engine (equal tokens); greedy and top-k 1 rows equal
+    the argmax; one full step's truncated draw (K9) against its plain
+    version.  (b) ``generate`` over GEN_B prompts, and one
+    ``make_decode_step(num_samples=4)`` call (K11 + K12)."""
+    cfg = gemma2_9b.CONFIG
+    V = cfg.vocab_size
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed + 81), model.specs,
+                         torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = param_count(model.specs)
+    log(f"phase 8: serving {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, V={V}; {n_params} bfloat16 "
+        f"parameters made in {init_s:.2f} s")
+    launches = {}
+
+    # (a) the engine, with its decode traced: the logits of each step (for
+    # the argmax rows), the truncated draw's CUDA events at 8 live slots and
+    # one full step's (w, u, kpm)
+    held, rec, draw_ev, capture = {}, [], [], {}
+
+    def decode(p, c, t, pos):
+        logits, c = model.decode(p, c, t, pos)
+        held["logits"] = logits
+        return logits, c
+
+    eng = serve.ContinuousBatchingEngine(model._replace(decode=decode), params)
+    real_draw, real_step = eng._draw, eng._step
+
+    def draw(w, u, kpm):
+        full = bool(eng._active.all())
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real_draw(w, u, kpm)
+        e1.record()
+        if full:
+            draw_ev.append((e0, e1))
+            if not capture:
+                capture.update(w=w.clone(), u=u.clone(), kpm=kpm.clone(), out=out.clone())
+        return out
+
+    def step(*args):
+        greedy = [int(s) for s in np.nonzero(eng._active)[0]
+                  if eng._temp[s] == 0 or eng._kpm[s, 0] == 1]
+        idx = torch.as_tensor(greedy, dtype=torch.long, device=dev)
+        nxt = real_step(*args)
+        if greedy:
+            lg = held["logits"][idx].float()
+            got = nxt[idx].long()
+            rec.append((got, lg.argmax(-1), lg.gather(1, got[:, None])[:, 0], lg.max(-1).values))
+        return nxt
+
+    eng._draw, eng._step = draw, step
+    log(f"  engine: {eng.max_slots} slots, max_len {eng.max_len}, prefill_chunk "
+        f"{eng.prefill_chunk}; plan ({eng.max_slots}, {V}) method={eng.plan.method} "
+        f"W={eng.plan.W}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run(serve_requests(seed, V))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eng_counts = read_counts()
+    st = eng.stats()
+    check_path(f"engine ({eng.max_slots}, {V}) method={eng.plan.method}", eng_counts,
+               serve_expect(eng.plan.method, st["steps"]))
+    add_counts(launches, eng_counts)
+    for r in out:
+        if r.state is not serve.RequestState.FINISHED or len(r.output_tokens) != r.max_new_tokens:
+            raise AssertionError(f"request {r.id} did not finish: {r.state} "
+                                 f"{len(r.output_tokens)}/{r.max_new_tokens}")
+        if not all(0 <= t < V for t in r.output_tokens):
+            raise AssertionError(f"request {r.id}: a token outside [0, {V})")
+    am = _argmax_faults(rec)
+    log(f"  greedy and top-k 1 rows: {am}")
+    if am["mismatches"] != am["ties"] or not am["rows"]:
+        raise AssertionError(f"a greedy or top-k 1 row is not the argmax: {am}")
+    # the recycling invariant: alone in a fresh engine, the same tokens
+    solo_counts = {}
+    for i in range(SERVE_SOLO):
+        one = serve.ContinuousBatchingEngine(model, params)
+        torch.cuda.synchronize()
+        reset_counts()
+        r = one.run([serve_requests(seed, V)[i]])[0]
+        counts = read_counts()
+        check_path(f"engine, request {i} alone", counts,
+                   serve_expect(one.plan.method, one.stats()["steps"]))
+        add_counts(solo_counts, counts)
+        if r.output_tokens != out[i].output_tokens:
+            raise AssertionError(f"request {i} ({SERVE_MIXES[i][0]}): alone "
+                                 f"{r.output_tokens} != batched {out[i].output_tokens}")
+        del one
+    add_counts(launches, solo_counts)
+    log(f"  recycling: {SERVE_SOLO} requests alone equal their batched tokens "
+        f"({[m for m, _ in SERVE_MIXES[:SERVE_SOLO]]})")
+    res_profile = serve_profile(model, params, seed, V)
+    # one full step's draw against the plain version
+    w, u, kpm = capture["w"], capture["u"], capture["kpm"]
+    a = KB.fused_trunc_draw(w, u, kpm, eng.plan.W)
+    tally.trunc("fused_trunc_draw", f"phase 8 step ({eng.max_slots},{V})", a,
+                KB.fused_trunc_draw_torch(w, u, kpm, eng.plan.W), w, u, kpm, False)
+    tally.same("fused_trunc_draw", "phase 8 step, the engine's draw", capture["out"],
+               a.clamp(max=V - 1))
+    full = [x["dt"] for x in eng.step_times if x["active"] == eng.max_slots]
+    draw_ms = [e0.elapsed_time(e1) for e0, e1 in draw_ev]
+    buckets = {}
+    for x in eng.prefill_times:
+        buckets.setdefault(x["bucket"], []).append(x["dt"])
+    res = {
+        "config": cfg.name, "params": n_params, "init_s": init_s,
+        "method": eng.plan.method, "W": eng.plan.W, "slots": eng.max_slots,
+        "max_len": eng.max_len, "requests": SERVE_REQUESTS, "steps": st["steps"],
+        "tokens": st["tokens_out"], "wall_s": wall, "tokens_per_s": st["tokens_out"] / wall,
+        "steps_at_full": len(full), "step_s_median": _pct(full, 50), "step_s_p90": _pct(full, 90),
+        "step_s_full": full, "draw_ms_median": _pct(draw_ms, 50), "draw_ms_p90": _pct(draw_ms, 90),
+        "prefill_s_by_bucket": {b: {"n": len(v), "median": _pct(v, 50)}
+                                for b, v in sorted(buckets.items())},
+        "argmax_rows": am, "launches": eng_counts, "solo_launches": solo_counts,
+        "profile": res_profile,
+    }
+    log(f"  engine: {st['steps']} decode steps, {st['tokens_out']} tokens in {wall:.3f} s "
+        f"({res['tokens_per_s']:.1f} tokens/s); seconds a step at {eng.max_slots} live "
+        f"slots ({len(full)} steps): median {res['step_s_median']:.5f}, p90 "
+        f"{res['step_s_p90']:.5f}; the truncated draw in the step (CUDA events): median "
+        f"{res['draw_ms_median']:.4f} ms, p90 {res['draw_ms_p90']:.4f} ms")
+    log(f"  prefill seconds by bucket: { {b: round(v['median'], 5) for b, v in res['prefill_s_by_bucket'].items()} }")
+    del eng, capture, held
+
+    # (b) generate over GEN_B prompts, the model card's truncation
+    g = torch.Generator(device=dev).manual_seed(seed + 82)
+    toks = torch.randint(0, V, (GEN_B, GEN_S), generator=g, device=dev, dtype=torch.int32)
+    sp0 = serve.default_sampling_params(cfg)
+    gplan = sampling.plan((GEN_B, V), method=cfg.sampler_spec.method, dtype="bfloat16",
+                          transforms=tr.signature(sp0.transforms()), backend=dev.type)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    gen = serve.generate(model, params, {"tokens": toks}, max_new_tokens=GEN_NEW, generator=g)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    counts = read_counts()
+    check_path(f"generate ({GEN_B},{V}) method={gplan.method}", counts,
+               serve_expect(gplan.method, GEN_NEW))
+    add_counts(launches, counts)
+    if gen.tokens.shape != (GEN_B, GEN_NEW) or not ((gen.tokens >= 0) & (gen.tokens < V)).all():
+        raise AssertionError(f"generate: tokens of shape {gen.tokens.shape} or out of range")
+    res["generate"] = {"B": GEN_B, "prompt": GEN_S, "new": GEN_NEW, "method": gplan.method,
+                       "seconds": gen_s, "launches": counts}
+    log(f"  generate: {GEN_B} prompts of {GEN_S} tokens, {GEN_NEW} new, plan method="
+        f"{gplan.method} W={gplan.W}: {gen_s:.3f} s")
+    # one decode step drawing four candidate tokens a row
+    B4 = 8
+    last, caches = model.prefill(params, {"tokens": toks[:B4]})
+    caches = _pad_caches_to(caches, GEN_S + 1)
+    dstep = serve.make_decode_step(model, batch_size=B4, num_samples=4)
+    dplan = sampling.plan((B4, V), method=cfg.sampler_spec.method, dtype="bfloat16",
+                          draws=4, transforms=tr.signature(sp0.transforms()), backend=dev.type)
+    torch.cuda.synchronize()
+    reset_counts()
+    cand, logits, _ = dstep(params, caches, last.argmax(-1).to(torch.int32)[:, None], GEN_S, g)
+    counts = read_counts()
+    check_path(f"decode step ({B4},{V}) num_samples=4 method={dplan.method}", counts,
+               serve_expect(dplan.method, 1, S=4))
+    add_counts(launches, counts)
+    # the top-k test in the weights the draw truncates (bf16 logits round
+    # to tied weights)
+    wts = sampling.logits_to_weights(logits, 1.0).float()
+    kth = torch.sort(wts, dim=1, descending=True).values[:, sp0.top_k - 1:sp0.top_k]
+    if cand.shape != (B4, 4) or not bool((torch.gather(wts, 1, cand.long()) >= kth).all()):
+        raise AssertionError(f"num_samples=4: shape {tuple(cand.shape)} or a token outside "
+                             "its row's top-k")
+    res["decode_num_samples_4"] = {"B": B4, "method": dplan.method, "launches": counts}
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  decode step, 4 tokens a row at ({B4},{V}), method={dplan.method}: launches "
+        f"{ {n: c for n, c in counts.items() if c} }; peak device memory "
+        f"{res['peak_bytes'] / 2**30:.3f} GiB")
+    del params, caches, logits
+    torch.cuda.empty_cache()
+    return launches, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3394,6 +3701,11 @@ def main(argv=None) -> int:
     add_counts(launches, counts)
     timing["sparse_mh"] = main_res["sparse"].pop("s1_timing")
     counts, main_res["streaming"] = phase_streaming(dev, args.seed)
+    add_counts(launches, counts)
+    del dev_corpus, phi, inputs
+    torch.cuda.empty_cache()
+    log("phase 8: serving (the decoder path: models/ and serve/ on the card)")
+    counts, main_res["serving"] = phase_serving(dev, args.seed, tally)
     add_counts(launches, counts)
 
     kernels = []

@@ -8,9 +8,9 @@ Vose's build pairs the entries of two worklists, smalls (scaled weight
 a row-vectorized numpy loop in float64 (:func:`build_alias_tables_host`).
 Here both are one row-vectorized loop, advancing every unfinished row by
 one (small, large) pair per step, in the reference's pairing order and in
-its dtype, so the tables equal the reference's: ``alias`` exactly,
-``prob`` up to the rounding of the row total (PyTorch and XLA sum in
-different orders).  K steps per row are sequential by nature (about
+its dtype, so the tables equal the reference's: ``alias`` and ``prob``
+alike.  The scale ``K / total`` is one division of two tensors, as the
+reference's.  K steps per row are sequential by nature (about
 10 small PyTorch ops each).
 
 Draws are O(1): one uniform picks a column, a second keeps it or takes
@@ -75,7 +75,10 @@ def build_alias_tables(weights) -> AliasTable:
     (a zero row scales to NaN, has no smalls and keeps prob 1)."""
     w = torch.as_tensor(weights).to(torch.float32)
     K = w.shape[-1]
-    scaled = w * (K / w.sum(dim=-1, keepdim=True))
+    tot = w.sum(dim=-1, keepdim=True)
+    # a tensor over a tensor rounds once, as the reference's K / sum(w);
+    # a Python scalar over a tensor is reciprocal-then-multiply in PyTorch
+    scaled = w * (torch.tensor(float(K), dtype=tot.dtype, device=tot.device) / tot)
     ok = torch.ones(w.shape[0], dtype=torch.bool, device=w.device)
     prob, alias = _vose(scaled, ok)
     return AliasTable(prob=prob, alias=alias)
@@ -98,7 +101,8 @@ def build_alias_tables_host(weights) -> AliasTable:
     K = w.shape[1]
     tot = w.sum(dim=1, keepdim=True)
     ok = tot > 0
-    s = torch.where(ok, w * (K / torch.where(ok, tot, torch.ones_like(tot))), 1.0)
+    Kt = torch.tensor(float(K), dtype=tot.dtype)
+    s = torch.where(ok, w * (Kt / torch.where(ok, tot, torch.ones_like(tot))), 1.0)
     prob, alias = _vose(s, ok[:, 0])
     return AliasTable(prob=prob.to(torch.float32).to(w0.device), alias=alias.to(w0.device))
 

@@ -40,8 +40,10 @@ def build_radix_forest(weights, m: int | None = None):
     uni = (torch.arange(K, dtype=torch.float32, device=w.device) + 1.0) / K
     cdf = torch.where(ok, torch.cumsum(w, dim=-1) / torch.where(ok, tot, 1.0), uni)
     edges = torch.arange(M + 1, dtype=torch.float32, device=w.device) / M
-    root = torch.searchsorted(cdf.contiguous(), edges.expand(B, M + 1).contiguous(),
-                              right=True)
+    # a total of +inf leaves NaNs in the cdf; jnp.searchsorted sorts NaN
+    # last, so the roots search the cdf with NaN read as +inf
+    root = torch.searchsorted(cdf.nan_to_num(nan=float("inf")).contiguous(),
+                              edges.expand(B, M + 1).contiguous(), right=True)
     return cdf, root.clamp(0, K - 1).to(torch.int32)
 
 

@@ -45,7 +45,8 @@ def _partition(weights: torch.Tensor):
     B, K = w.shape
     tot = w.sum(dim=-1, keepdim=True)
     ok = tot > 0
-    s = torch.where(ok, w * (K / torch.where(ok, tot, torch.ones_like(tot))), 1.0)
+    Kt = torch.tensor(float(K), dtype=tot.dtype, device=tot.device)  # one rounding
+    s = torch.where(ok, w * (Kt / torch.where(ok, tot, torch.ones_like(tot))), 1.0)
     heavy = s > 1.0
     cH = torch.cumsum(heavy.to(torch.int32), dim=-1).to(torch.int32)
     iota1 = torch.arange(1, K + 1, dtype=torch.int32, device=w.device)[None, :]

@@ -18,7 +18,13 @@ Tolerances, stated per check:
   (10, 53), Kp = 64 (7.6e-6), so it cannot hold across frameworks.
 * The induced mass of a device-built table equals the weights within the
   reference's 5e-6.
-* The radix draw is exact on shared uniforms; Gumbel and generator-driven
+* On integer-count rows (Poisson(3)), whose totals are exact in both
+  frameworks, the scale ``K / total`` is one division in both, so the
+  host and float32 Vose tables and ``_partition``'s scaled row are equal
+  bit for bit.
+* The radix draw is exact on shared uniforms, also on rows whose float32
+  total is +inf (an inf weight, or finite weights whose sum overflows),
+  where the cdf holds NaNs; Gumbel and generator-driven
   alias draws are compared by chi-squared (the uniforms cannot be shared).
 """
 
@@ -210,6 +216,60 @@ def test_radix_forest_matches_reference(K):
     row = np.asarray(jc[0])
     np.testing.assert_array_equal(got.numpy(), np.minimum(np.searchsorted(row, u, "right"),
                                                           K - 1))
+
+
+def _poisson_rows(seed, B, K):
+    return np.random.default_rng(seed).poisson(3.0, (B, K)).astype(np.float32)
+
+
+def test_vose_builders_bit_equal_on_integer_counts():
+    """Integer-count rows: alias equal and prob bit-equal to the
+    reference's, host (float64) and float32 builds alike."""
+    w = _poisson_rows(21, 4000, 240)
+    jh = jalias.build_alias_tables_host(jnp.asarray(w))
+    th = talias.build_alias_tables_host(torch.as_tensor(w))
+    np.testing.assert_array_equal(th.alias.numpy(), np.asarray(jh.alias))
+    np.testing.assert_array_equal(th.prob.numpy(), np.asarray(jh.prob))
+    w = w[:512]
+    jt = jalias.build_alias_tables(jnp.asarray(w))
+    tt = talias.build_alias_tables(torch.as_tensor(w))
+    np.testing.assert_array_equal(tt.alias.numpy(), np.asarray(jt.alias))
+    np.testing.assert_array_equal(tt.prob.numpy(), np.asarray(jt.prob))
+
+
+def test_partition_bit_equal_on_integer_counts():
+    w = _poisson_rows(22, 512, 240)
+    js, jorder, jinv, jnl = jops._partition(jnp.asarray(w))
+    ts, order, inv, nl = tops._partition(torch.as_tensor(w))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    for a, b in ((order, jorder), (inv, jinv), (nl, jnl)):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def _inf_total_rows():
+    inf_w = np.random.default_rng(23).uniform(0.0, 1.0, (8, 256)).astype(np.float32)
+    inf_w[:, 5] = np.inf
+    big = np.random.default_rng(24).uniform(0.0, 1e37, (4, 300)).astype(np.float32)
+    return {"inf_weight": inf_w, "overflowing_sum": big}.items()
+
+
+@pytest.mark.parametrize("name,w", _inf_total_rows())
+def test_radix_forest_inf_total_matches_reference(name, w):
+    """A row whose float32 total is +inf: the cdf holds NaNs, and the
+    roots (and so the draws) are the reference's, which sorts NaN last."""
+    assert np.isinf(w.sum(axis=1, dtype=np.float32)).all()
+    B = w.shape[0]
+    jc, jr = jradix.build_radix_forest(jnp.asarray(w))
+    tc, tr_ = tradix.build_radix_forest(torch.as_tensor(w))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(tr_.numpy(), np.asarray(jr))
+    for u0 in (0.0, 1e-7, 0.25, 0.5, 0.999, 1.0 - 2.0 ** -24):
+        u = np.full((B,), u0, np.float32)
+        want = np.asarray(jradix.draw_radix_forest(jc, jr, jnp.asarray(u)))
+        got = tradix.draw_radix_forest(tc, tr_, torch.as_tensor(u))
+        np.testing.assert_array_equal(got.numpy(), want)
+    if name == "inf_weight":
+        np.testing.assert_array_equal(want, np.full((B,), 5))
 
 
 @pytest.mark.parametrize("draw", ["gumbel", "gumbel_logits", "alias", "alias_device"])
