@@ -180,6 +180,33 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    Then ``generate`` over 64 prompts of 32 tokens, 8 new, with the model
    card's truncation (K9 at (64, 256000) once per token), and one
    ``make_decode_step(num_samples=4)`` call (K11 + K12 once).
+9. The other model families at full width, bfloat16 parameters from
+   ``init_params`` on the card, each model freed before the next, each
+   path's launches read around it.  Through ``ContinuousBatchingEngine``
+   (8 slots, float32 caches, the plan's method set to ``kernel``; what
+   ``auto`` would pick is printed): minicpm3-4b (MLA), granite-moe-1b-a400m
+   (MoE), mamba2-370m (SSM) and hymba-1.5b (hybrid, 128 meta tokens), 10
+   requests each (plain, top-p 0.9, top-k 20, top-k 1 and greedy in turns):
+   K9 once a step, one step at 8 live slots held against its plain
+   version, greedy and top-k 1 rows the argmax, no token at or past V,
+   finite logits, and (not MoE, whose capacity couples rows) four requests
+   alone equal to their batched tokens.  Through ``generate`` (4 prompts
+   of 32 tokens, 8 new, bfloat16 caches): pixtral-12b with 256 stub patch
+   embeddings, seamless-m4t-medium with 64 stub frames (V = 256,206) and
+   arctic-480b at full width but 1 of its 35 layers (a cut of depth,
+   printed).  Each family then takes one ``make_decode_step(num_samples=4)``
+   call under top-k 20 / top-p 0.9 with the plan's method set to
+   ``kernel`` (K11 + K12 once; every candidate within its row's top-k).
+   Seconds a decode step (median, p90), tokens/s, prefill seconds per
+   bucket, peak memory and launches per family.
+10. Training: 3 steps each of granite-moe-1b-a400m and mamba2-370m at full
+   width and depth (bfloat16 parameters, float32 AdamW state, a batch of
+   4 x 512 from ``TokenPipeline`` repeated, ``remat="full"``): finite
+   losses that fall, parameters that move, seconds a step, tokens/s and
+   peak memory; then one AdamW step of every architecture's SMOKE config
+   on the card (``remat="full"``) against the same step on the CPU
+   (``remat="none"``): loss and gradient norm within rtol 1e-4, every
+   parameter within 2e-4.
 
 The last two lines are the ``{"kernels": [...]}`` record (the 13 TPU
 kernels and S1; a kernel with several layouts also gives the one its
@@ -191,6 +218,9 @@ device the script exits 1 before printing a result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
+import gc
 import json
 import os
 import re
@@ -211,7 +241,10 @@ import torch  # noqa: E402
 
 from repro_torch import sampling  # noqa: E402
 from repro_torch import serve  # noqa: E402
+from repro_torch.configs import ARCH_IDS, get_config  # noqa: E402
 from repro_torch.configs import gemma2_9b  # noqa: E402
+from repro_torch.configs.base import SamplerSpec, ShapeConfig  # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.configs.lda import CONFIG  # noqa: E402
 from repro_torch.core import api  # noqa: E402
 from repro_torch.core import butterfly as bfly  # noqa: E402
@@ -238,9 +271,12 @@ from repro_torch.lda import corpus as corpus_mod  # noqa: E402
 from repro_torch.lda import gibbs  # noqa: E402
 from repro_torch.lda import sparse as lsp  # noqa: E402
 from repro_torch.models import build_model, init_params, param_count  # noqa: E402
-from repro_torch.serve.engine import _pad_caches_to  # noqa: E402
+from repro_torch.models.params import tree_leaves, tree_map  # noqa: E402
+from repro_torch.serve.engine import _logits_plan, _pad_caches_to, _sp_sig  # noqa: E402
 from repro_torch.sampling import reference as sref  # noqa: E402
 from repro_torch.sampling import transforms as tr  # noqa: E402
+from repro_torch.train.optimizer import make_optimizer  # noqa: E402
+from repro_torch.train.train_step import make_train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -321,8 +357,22 @@ def read_counts() -> dict:
     return {name: k[3][name] for name, k in KERNELS.items()}
 
 
+_START = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase's first line ends with the script's seconds."""
+    if a and isinstance(a[0], str) and a[0].startswith("phase "):
+        a = (*a, f"[{time.perf_counter() - _START:.1f} s]")
     print(*a, flush=True)
+
+
+def free_device() -> None:
+    """Free a phase's device memory: collect the reference cycles first (a
+    traced engine's draw and step close over the engine, which holds the
+    parameters), then return the cached blocks."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def nvidia_smi() -> str:
@@ -3368,58 +3418,273 @@ def _argmax_faults(rec) -> dict:
 SERVE_PROFILE_STEPS = 3
 
 
-def serve_profile(model, params, seed: int, V: int) -> dict:
-    """SERVE_PROFILE_STEPS decode steps of a fresh engine at 8 live slots
-    under torch.profiler: wall, device busy share, kernels a step and the
-    largest kernels.  Late in this script's process a trace may lose
-    kernels (PERF.md §7): the busy share is a lower bound; the trace's K9
-    count says whether it held every draw."""
+def device_profile(fn, n: int, label: str, count: str = "") -> dict:
+    """``fn()`` ``n`` times under torch.profiler, tracing the card only (a
+    trace of the host's ops takes longer to read than the calls take to
+    run): wall and device-busy seconds a call, the busy share, device ops
+    a call (kernels, copies and sets) and the ten largest; ``count``: how
+    many device ops whose name holds it the trace kept.  Late in this
+    script's process a trace may lose kernels (PERF.md §7): the busy share
+    and the op count are then lower bounds, and ``count`` says whether the
+    trace held a kernel whose launches are known."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rows = sorted(((e.self_device_time_total, e.count, e.key)
+                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  reverse=True)
+    if not rows:
+        raise AssertionError(f"{label}: the trace holds no device op")
+    busy = sum(r[0] for r in rows) / 1e6
+    out = {"calls": n, "wall_s": wall / n, "device_busy_s": busy / n, "busy_share": busy / wall,
+           "ops_per_call": sum(c for _, c, _ in rows) / n,
+           "trace_s": time.perf_counter() - t0,
+           "top": [{"ms": us / 1e3 / n, "count": c / n, "name": k[:120]}
+                   for us, c, k in rows[:10]]}
+    if count:
+        out["counted"] = sum(c for _, c, k in rows if count in k)
+    log(f"  profiled {label} ({n} calls): wall {out['wall_s']:.5f} s a call, device busy "
+        f"{out['device_busy_s']:.5f} s ({100 * out['busy_share']:.1f}%), "
+        f"{out['ops_per_call']:.0f} device ops a call (trace read in {out['trace_s']:.1f} s)"
+        + (f"; '{count}' ops in the trace: {out['counted']} of {n}" if count else ""))
+    for t in out["top"]:
+        log(f"  {t['ms']:9.4f} ms  x{t['count']:<7.1f} {t['name'][:90]}")
+    return out
+
+
+def serve_profile(model, params, requests) -> dict:
+    """SERVE_PROFILE_STEPS decode steps of a fresh engine with every slot
+    live (the first ``max_slots`` of ``requests``), profiled."""
     eng = serve.ContinuousBatchingEngine(model, params)
-    for r in serve_requests(seed, V)[:eng.max_slots]:
+    for r in requests[:eng.max_slots]:
         eng.submit_nowait(r)
     while eng.scheduler.waiting_depth:
         eng._admit()
         eng.step_once()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(SERVE_PROFILE_STEPS):
-            if eng.step_once() != eng.max_slots:
-                raise AssertionError("the profiled steps need every slot live")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = sorted(((e.self_device_time_total, e.count, e.key)
-                   for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-                  reverse=True)
-    busy = sum(r[0] for r in rows) / 1e6
-    n = SERVE_PROFILE_STEPS
-    out = {"steps": n, "wall_s": wall / n, "device_busy_s": busy / n,
-           "kernels_per_step": sum(c for _, c, _ in rows) / n,
-           "k9_in_trace": sum(c for _, c, k in rows if "trunc_draw" in k),
-           "top": [{"ms": us / 1e3 / n, "count": c / n, "name": k[:120]}
-                   for us, c, k in rows[:10]]}
-    log(f"  profiled decode step at {eng.max_slots} live slots ({n} steps): wall "
-        f"{out['wall_s']:.5f} s, device busy {out['device_busy_s']:.5f} s "
-        f"({100 * busy / wall:.1f}%), {out['kernels_per_step']:.0f} kernels a step, "
-        f"K9 launches in the trace {out['k9_in_trace']} of {n}")
-    for t in out["top"]:
-        log(f"  {t['ms']:9.4f} ms  x{t['count']:<7.1f} {t['name'][:90]}")
+
+    def step():
+        if eng.step_once() != eng.max_slots:
+            raise AssertionError("the profiled steps need every slot live")
+
+    out = device_profile(step, SERVE_PROFILE_STEPS,
+                         f"decode step at {eng.max_slots} live slots", count="trunc_draw")
     del eng
     return out
+
+
+# the wrappers that the draw entry points (kernels.butterfly_sample.ops)
+# call by name: K2, K3, K9, K11, K12
+DRAW_WRAPPERS = ("blocksums", "walk", "fused_trunc_draw", "masked_blocksums", "walk_trunc")
+
+
+@contextlib.contextmanager
+def captured_draws():
+    """Inside, the first call that ``ops`` makes of each wrapper of
+    DRAW_WRAPPERS is recorded, ``cap[name] = (args, out)``, ``out``
+    cloned before the caller clamps it in place.  The launch and its
+    count stay the wrapper's own."""
+    cap = {}
+    real = {n: getattr(bops, n) for n in DRAW_WRAPPERS}
+
+    def wrap(name):
+        def call(*args):
+            out = real[name](*args)
+            if name not in cap:
+                cap[name] = (args, out.clone())
+            return out
+        return call
+
+    for n in DRAW_WRAPPERS:
+        setattr(bops, n, wrap(n))
+    try:
+        yield cap
+    finally:
+        for n, fn in real.items():
+            setattr(bops, n, fn)
+
+
+def check_captured(tally, case: str, cap: dict, counts: dict) -> None:
+    """Hold the launches that captured_draws recorded on a main path
+    against their kernels' plain versions on the same inputs.  Every
+    wrapper launched there (``counts``) must have been recorded.  Running
+    sums within their fp32 adds (K11 also bit-equal to its exact-order
+    model); draws equal, or float64-checked ties."""
+    names = [n for n in DRAW_WRAPPERS if counts.get(n)]
+    missing = [n for n in names if n not in cap]
+    if missing:
+        raise AssertionError(f"{case}: no launch of {missing} was recorded")
+    for name in names:
+        args, out = cap[name]
+        if name == "blocksums":
+            w, W, nb = args
+            tally.running(name, f"{case} K2", out, KB.blocksums_torch(w, W, nb), False)
+        elif name == "walk":
+            w, run, u, rows, W = args
+            plain = KB.walk_torch(w, KB.blocksums_torch(w, W, run.shape[1]), u, rows, W)
+            tally.weights(name, f"{case} K3", out, plain, w.float(), u, False)
+        elif name == "fused_trunc_draw":
+            w, u, prm, W, iters = args
+            tally.trunc(name, f"{case} K9", out, KB.fused_trunc_draw_torch(w, u, prm, W, iters),
+                        w, u, prm, False)
+        elif name == "masked_blocksums":
+            w, tau, W, nb = args
+            tally.running(name, f"{case} K11", out, KB.masked_blocksums_torch(w, tau, W, nb),
+                          False, rel_tol=(W + nb) * 2.0 ** -23)
+            tally.same(name, f"{case} K11 vs warp order", out,
+                       masked_blocksums_warp_order_torch(w, tau, W, nb))
+        else:
+            w, run, u, tau, rows, W = args
+            plain = KB.walk_trunc_torch(w, KB.masked_blocksums_torch(w, tau, W, run.shape[1]),
+                                        u, tau, rows, W)
+            tally.weights(name, f"{case} K12", out, plain, KB._mask(w.float(), tau), u, False)
+
+
+def serve_engine(label: str, model, params, requests, solo, tally, dev) -> tuple:
+    """``model`` through ``ContinuousBatchingEngine`` at ``ServeSpec``
+    defaults, its decode traced.  ``requests()`` (a fresh list on each
+    call) is served: every request finishes, every token lies in [0, V),
+    every step's logits are finite, greedy and top-k 1 rows are the
+    argmax, and one full step's truncated draw (K9) is held to its plain
+    version.  ``solo`` names the first requests' mixes; each of them runs
+    again alone in a fresh engine and must give its batched tokens.  Then
+    a profiled window with every slot live.  Returns (launches, result)."""
+    cfg = model.cfg
+    V, Vp = cfg.vocab_size, cfg.padded_vocab
+    eng, trace = traced_engine(model, params, dev)
+    log(f"  engine: {eng.max_slots} slots, max_len {eng.max_len}, prefill_chunk "
+        f"{eng.prefill_chunk}; plan ({eng.max_slots}, {Vp}) method={eng.plan.method} "
+        f"W={eng.plan.W}")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = eng.run(requests())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = eng.stats()
+    check_path(f"{label} engine ({eng.max_slots}, {Vp}) method={eng.plan.method}", counts,
+               serve_expect(eng.plan.method, st["steps"]))
+    for r in out:
+        if r.state is not serve.RequestState.FINISHED or len(r.output_tokens) != r.max_new_tokens:
+            raise AssertionError(f"{label}: request {r.id} did not finish: {r.state} "
+                                 f"{len(r.output_tokens)}/{r.max_new_tokens}")
+        if not all(0 <= t < V for t in r.output_tokens):
+            raise AssertionError(f"{label}: request {r.id}: a token outside [0, {V})")
+    if not bool(trace["finite"]):
+        raise AssertionError(f"{label}: non-finite logits in a decode step")
+    am = _argmax_faults(trace["rec"])
+    log(f"  greedy and top-k 1 rows: {am}")
+    if am["mismatches"] != am["ties"] or not am["rows"]:
+        raise AssertionError(f"{label}: a greedy or top-k 1 row is not the argmax: {am}")
+    # the recycling invariant: alone in a fresh engine, the same tokens
+    solo_counts = {}
+    for i, mix in enumerate(solo):
+        one = serve.ContinuousBatchingEngine(model, params)
+        torch.cuda.synchronize()
+        reset_counts()
+        r = one.run([requests()[i]])[0]
+        c = read_counts()
+        check_path(f"{label} engine, request {i} alone", c,
+                   serve_expect(one.plan.method, one.stats()["steps"]))
+        add_counts(solo_counts, c)
+        if r.output_tokens != out[i].output_tokens:
+            raise AssertionError(f"{label} request {i} ({mix}): alone {r.output_tokens} != "
+                                 f"batched {out[i].output_tokens}")
+        del one
+    log(f"  recycling: {len(solo)} requests alone equal their batched tokens "
+        f"({list(solo) or 'not checked'})")
+    profile = serve_profile(model, params, sorted(requests(), key=lambda r: -r.max_new_tokens))
+    # one full step's draw against the plain version
+    cap = trace["capture"]
+    if not cap:
+        raise AssertionError(f"{label}: no step ran with every slot live")
+    a = KB.fused_trunc_draw(cap["w"], cap["u"], cap["kpm"], eng.plan.W)
+    tally.trunc("fused_trunc_draw", f"{label} step ({eng.max_slots},{Vp})", a,
+                KB.fused_trunc_draw_torch(cap["w"], cap["u"], cap["kpm"], eng.plan.W),
+                cap["w"], cap["u"], cap["kpm"], False)
+    tally.same("fused_trunc_draw", f"{label} step, the engine's draw", cap["out"],
+               a.clamp(max=Vp - 1))
+    full = [x["dt"] for x in eng.step_times if x["active"] == eng.max_slots]
+    draw_ms = [e0.elapsed_time(e1) for e0, e1 in trace["draw_ev"]]
+    buckets = {}
+    for x in eng.prefill_times:
+        buckets.setdefault(x["bucket"], []).append(x["dt"])
+    res = {
+        "method": eng.plan.method, "W": eng.plan.W, "slots": eng.max_slots,
+        "max_len": eng.max_len, "requests": len(out), "steps": st["steps"],
+        "tokens": st["tokens_out"], "wall_s": wall, "tokens_per_s": st["tokens_out"] / wall,
+        "steps_at_full": len(full), "step_s_median": _pct(full, 50), "step_s_p90": _pct(full, 90),
+        "step_s_full": full, "draw_ms_median": _pct(draw_ms, 50), "draw_ms_p90": _pct(draw_ms, 90),
+        "prefill_s_by_bucket": {b: {"n": len(v), "median": _pct(v, 50)}
+                                for b, v in sorted(buckets.items())},
+        "argmax_rows": am, "solo_equal": list(solo), "launches": counts,
+        "solo_launches": solo_counts, "profile": profile,
+    }
+    log(f"  {label} engine: {st['steps']} decode steps, {st['tokens_out']} tokens in {wall:.3f} s "
+        f"({res['tokens_per_s']:.1f} tokens/s); seconds a step at {eng.max_slots} live "
+        f"slots ({len(full)} steps): median {res['step_s_median']:.5f}, p90 "
+        f"{res['step_s_p90']:.5f}; the truncated draw in the step (CUDA events): median "
+        f"{res['draw_ms_median']:.4f} ms, p90 {res['draw_ms_p90']:.4f} ms")
+    log(f"  prefill seconds by bucket: "
+        f"{ {b: round(v['median'], 5) for b, v in res['prefill_s_by_bucket'].items()} }")
+    launches = dict(counts)
+    add_counts(launches, solo_counts)
+    del eng, trace, cap
+    return launches, res
+
+
+def num_samples_step(label: str, model, params, batch, prefill_len: int, dev, seed: int,
+                     tally, sp) -> dict:
+    """One ``make_decode_step(num_samples=4)`` call truncated by ``sp`` on
+    the prefilled ``batch``: K11 + K12 once, held to their plain versions
+    on the step's own weights, tau and uniforms; finite logits; every
+    candidate within its row's top-k and below ``vocab_size``."""
+    cfg = model.cfg
+    last, caches = model.prefill(params, batch)
+    caches = _pad_caches_to(caches, prefill_len + 1)
+    B = last.shape[0]
+    dstep = serve.make_decode_step(model, batch_size=B, num_samples=4, sampling_params=sp)
+    torch.cuda.synchronize()
+    reset_counts()
+    with captured_draws() as cap:
+        cand, logits, _ = dstep(params, caches, last.argmax(-1).to(torch.int32)[:, None],
+                                prefill_len, torch.Generator(device=dev).manual_seed(seed))
+    counts = read_counts()
+    dplan = _logits_plan(cfg, B, logits.shape[1], str(logits.dtype)[6:], draws=4,
+                         transforms=_sp_sig(sp), backend=dev.type)   # the step's own plan
+    case = f"{label} decode step ({B},{cfg.padded_vocab}) num_samples=4"
+    check_path(f"{case} method={dplan.method}", counts, serve_expect(dplan.method, 1, S=4))
+    check_captured(tally, f"{label} num_samples=4", cap, counts)
+    V = cfg.vocab_size
+    if not (torch.isfinite(last[:, :V]).all() and torch.isfinite(logits[:, :V]).all()):
+        raise AssertionError(f"{case}: non-finite logits")
+    # the top-k test in the weights the draw truncates (bf16 logits round
+    # to tied weights)
+    wts = sampling.logits_to_weights(logits, 1.0).float()
+    kth = torch.sort(wts, dim=1, descending=True).values[:, sp.top_k - 1:sp.top_k]
+    if cand.shape != (B, 4) or not bool((torch.gather(wts, 1, cand.long()) >= kth).all()) \
+            or int(cand.max()) >= V:
+        raise AssertionError(f"{case}: shape {tuple(cand.shape)} or a token outside its "
+                             "row's top-k")
+    return counts
 
 
 def phase_serving(dev, seed, tally):
     """Phase 8: gemma2-9b's ``CONFIG`` (42 layers, d_model 3,584, V =
     256,000) with bfloat16 parameters from ``init_params`` on the card and
-    float32 caches.  (a) ``ContinuousBatchingEngine`` at ``ServeSpec``
-    defaults serves SERVE_REQUESTS requests; SERVE_SOLO of them again, each
-    alone in a fresh engine (equal tokens); greedy and top-k 1 rows equal
-    the argmax; one full step's truncated draw (K9) against its plain
-    version.  (b) ``generate`` over GEN_B prompts, and one
-    ``make_decode_step(num_samples=4)`` call (K11 + K12)."""
+    float32 caches.  (a) ``serve_engine`` over SERVE_REQUESTS requests,
+    SERVE_SOLO of them again alone.  (b) ``generate`` over GEN_B prompts
+    (its first draw held to the plain version) and one
+    ``make_decode_step(num_samples=4)`` call (K11 + K12), both under the
+    model card's truncation."""
     cfg = gemma2_9b.CONFIG
     V = cfg.vocab_size
     model = build_model(cfg)
@@ -3434,119 +3699,9 @@ def phase_serving(dev, seed, tally):
     log(f"phase 8: serving {cfg.name}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
         f"head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, V={V}; {n_params} bfloat16 "
         f"parameters made in {init_s:.2f} s")
-    launches = {}
-
-    # (a) the engine, with its decode traced: the logits of each step (for
-    # the argmax rows), the truncated draw's CUDA events at 8 live slots and
-    # one full step's (w, u, kpm)
-    held, rec, draw_ev, capture = {}, [], [], {}
-
-    def decode(p, c, t, pos):
-        logits, c = model.decode(p, c, t, pos)
-        held["logits"] = logits
-        return logits, c
-
-    eng = serve.ContinuousBatchingEngine(model._replace(decode=decode), params)
-    real_draw, real_step = eng._draw, eng._step
-
-    def draw(w, u, kpm):
-        full = bool(eng._active.all())
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = real_draw(w, u, kpm)
-        e1.record()
-        if full:
-            draw_ev.append((e0, e1))
-            if not capture:
-                capture.update(w=w.clone(), u=u.clone(), kpm=kpm.clone(), out=out.clone())
-        return out
-
-    def step(*args):
-        greedy = [int(s) for s in np.nonzero(eng._active)[0]
-                  if eng._temp[s] == 0 or eng._kpm[s, 0] == 1]
-        idx = torch.as_tensor(greedy, dtype=torch.long, device=dev)
-        nxt = real_step(*args)
-        if greedy:
-            lg = held["logits"][idx].float()
-            got = nxt[idx].long()
-            rec.append((got, lg.argmax(-1), lg.gather(1, got[:, None])[:, 0], lg.max(-1).values))
-        return nxt
-
-    eng._draw, eng._step = draw, step
-    log(f"  engine: {eng.max_slots} slots, max_len {eng.max_len}, prefill_chunk "
-        f"{eng.prefill_chunk}; plan ({eng.max_slots}, {V}) method={eng.plan.method} "
-        f"W={eng.plan.W}")
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    out = eng.run(serve_requests(seed, V))
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    eng_counts = read_counts()
-    st = eng.stats()
-    check_path(f"engine ({eng.max_slots}, {V}) method={eng.plan.method}", eng_counts,
-               serve_expect(eng.plan.method, st["steps"]))
-    add_counts(launches, eng_counts)
-    for r in out:
-        if r.state is not serve.RequestState.FINISHED or len(r.output_tokens) != r.max_new_tokens:
-            raise AssertionError(f"request {r.id} did not finish: {r.state} "
-                                 f"{len(r.output_tokens)}/{r.max_new_tokens}")
-        if not all(0 <= t < V for t in r.output_tokens):
-            raise AssertionError(f"request {r.id}: a token outside [0, {V})")
-    am = _argmax_faults(rec)
-    log(f"  greedy and top-k 1 rows: {am}")
-    if am["mismatches"] != am["ties"] or not am["rows"]:
-        raise AssertionError(f"a greedy or top-k 1 row is not the argmax: {am}")
-    # the recycling invariant: alone in a fresh engine, the same tokens
-    solo_counts = {}
-    for i in range(SERVE_SOLO):
-        one = serve.ContinuousBatchingEngine(model, params)
-        torch.cuda.synchronize()
-        reset_counts()
-        r = one.run([serve_requests(seed, V)[i]])[0]
-        counts = read_counts()
-        check_path(f"engine, request {i} alone", counts,
-                   serve_expect(one.plan.method, one.stats()["steps"]))
-        add_counts(solo_counts, counts)
-        if r.output_tokens != out[i].output_tokens:
-            raise AssertionError(f"request {i} ({SERVE_MIXES[i][0]}): alone "
-                                 f"{r.output_tokens} != batched {out[i].output_tokens}")
-        del one
-    add_counts(launches, solo_counts)
-    log(f"  recycling: {SERVE_SOLO} requests alone equal their batched tokens "
-        f"({[m for m, _ in SERVE_MIXES[:SERVE_SOLO]]})")
-    res_profile = serve_profile(model, params, seed, V)
-    # one full step's draw against the plain version
-    w, u, kpm = capture["w"], capture["u"], capture["kpm"]
-    a = KB.fused_trunc_draw(w, u, kpm, eng.plan.W)
-    tally.trunc("fused_trunc_draw", f"phase 8 step ({eng.max_slots},{V})", a,
-                KB.fused_trunc_draw_torch(w, u, kpm, eng.plan.W), w, u, kpm, False)
-    tally.same("fused_trunc_draw", "phase 8 step, the engine's draw", capture["out"],
-               a.clamp(max=V - 1))
-    full = [x["dt"] for x in eng.step_times if x["active"] == eng.max_slots]
-    draw_ms = [e0.elapsed_time(e1) for e0, e1 in draw_ev]
-    buckets = {}
-    for x in eng.prefill_times:
-        buckets.setdefault(x["bucket"], []).append(x["dt"])
-    res = {
-        "config": cfg.name, "params": n_params, "init_s": init_s,
-        "method": eng.plan.method, "W": eng.plan.W, "slots": eng.max_slots,
-        "max_len": eng.max_len, "requests": SERVE_REQUESTS, "steps": st["steps"],
-        "tokens": st["tokens_out"], "wall_s": wall, "tokens_per_s": st["tokens_out"] / wall,
-        "steps_at_full": len(full), "step_s_median": _pct(full, 50), "step_s_p90": _pct(full, 90),
-        "step_s_full": full, "draw_ms_median": _pct(draw_ms, 50), "draw_ms_p90": _pct(draw_ms, 90),
-        "prefill_s_by_bucket": {b: {"n": len(v), "median": _pct(v, 50)}
-                                for b, v in sorted(buckets.items())},
-        "argmax_rows": am, "launches": eng_counts, "solo_launches": solo_counts,
-        "profile": res_profile,
-    }
-    log(f"  engine: {st['steps']} decode steps, {st['tokens_out']} tokens in {wall:.3f} s "
-        f"({res['tokens_per_s']:.1f} tokens/s); seconds a step at {eng.max_slots} live "
-        f"slots ({len(full)} steps): median {res['step_s_median']:.5f}, p90 "
-        f"{res['step_s_p90']:.5f}; the truncated draw in the step (CUDA events): median "
-        f"{res['draw_ms_median']:.4f} ms, p90 {res['draw_ms_p90']:.4f} ms")
-    log(f"  prefill seconds by bucket: { {b: round(v['median'], 5) for b, v in res['prefill_s_by_bucket'].items()} }")
-    del eng, capture, held
+    launches, res = serve_engine("phase 8", model, params, lambda: serve_requests(seed, V),
+                                 [m for m, _ in SERVE_MIXES[:SERVE_SOLO]], tally, dev)
+    res.update(config=cfg.name, params=n_params, init_s=init_s)
 
     # (b) generate over GEN_B prompts, the model card's truncation
     g = torch.Generator(device=dev).manual_seed(seed + 82)
@@ -3557,12 +3712,15 @@ def phase_serving(dev, seed, tally):
     torch.cuda.synchronize()
     reset_counts()
     t0 = time.perf_counter()
-    gen = serve.generate(model, params, {"tokens": toks}, max_new_tokens=GEN_NEW, generator=g)
+    with captured_draws() as cap:
+        gen = serve.generate(model, params, {"tokens": toks}, max_new_tokens=GEN_NEW,
+                             generator=g)
     torch.cuda.synchronize()
     gen_s = time.perf_counter() - t0
     counts = read_counts()
     check_path(f"generate ({GEN_B},{V}) method={gplan.method}", counts,
                serve_expect(gplan.method, GEN_NEW))
+    check_captured(tally, f"phase 8 generate ({GEN_B},{V})", cap, counts)
     add_counts(launches, counts)
     if gen.tokens.shape != (GEN_B, GEN_NEW) or not ((gen.tokens >= 0) & (gen.tokens < V)).all():
         raise AssertionError(f"generate: tokens of shape {gen.tokens.shape} or out of range")
@@ -3571,34 +3729,331 @@ def phase_serving(dev, seed, tally):
     log(f"  generate: {GEN_B} prompts of {GEN_S} tokens, {GEN_NEW} new, plan method="
         f"{gplan.method} W={gplan.W}: {gen_s:.3f} s")
     # one decode step drawing four candidate tokens a row
-    B4 = 8
-    last, caches = model.prefill(params, {"tokens": toks[:B4]})
-    caches = _pad_caches_to(caches, GEN_S + 1)
-    dstep = serve.make_decode_step(model, batch_size=B4, num_samples=4)
-    dplan = sampling.plan((B4, V), method=cfg.sampler_spec.method, dtype="bfloat16",
-                          draws=4, transforms=tr.signature(sp0.transforms()), backend=dev.type)
+    counts = num_samples_step("phase 8", model, params, {"tokens": toks[:8]}, GEN_S, dev,
+                              seed + 83, tally, sp0)
+    add_counts(launches, counts)
+    res["decode_num_samples_4"] = {"B": 8, "launches": counts}
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  peak device memory {res['peak_bytes'] / 2**30:.3f} GiB")
+    del params, cap
+    free_device()
+    return launches, res
+
+
+def traced_engine(model, params, dev, **kw):
+    """An engine whose decode and draw are traced: ``trace["rec"]`` holds,
+    for every step, the greedy and top-k 1 rows' (drawn, argmax, logit of
+    the drawn, max logit); ``"draw_ev"`` the truncated draw's CUDA events
+    at every step with all slots live; ``"capture"`` the first such step's
+    (w, u, kpm, out); ``"finite"`` whether every step's logits over the
+    real vocabulary were finite (a device flag, read once at the end)."""
+    V = model.cfg.vocab_size
+    trace = {"rec": [], "draw_ev": [], "capture": {}, "finite": None}
+    held = {}
+
+    def decode(p, c, t, pos):
+        logits, c = model.decode(p, c, t, pos)
+        held["logits"] = logits
+        ok = torch.isfinite(logits[:, :V]).all()
+        trace["finite"] = ok if trace["finite"] is None else trace["finite"] & ok
+        return logits, c
+
+    eng = serve.ContinuousBatchingEngine(model._replace(decode=decode), params, **kw)
+    real_draw, real_step = eng._draw, eng._step
+
+    def draw(w, u, kpm):
+        full = bool(eng._active.all())
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = real_draw(w, u, kpm)
+        e1.record()
+        if full:
+            trace["draw_ev"].append((e0, e1))
+            if not trace["capture"]:
+                trace["capture"].update(w=w.clone(), u=u.clone(), kpm=kpm.clone(),
+                                        out=out.clone())
+        return out
+
+    def step(*args):
+        greedy = [int(s) for s in np.nonzero(eng._active)[0]
+                  if eng._temp[s] == 0 or eng._kpm[s, 0] == 1]
+        idx = torch.as_tensor(greedy, dtype=torch.long, device=dev)
+        nxt = real_step(*args)
+        if greedy:
+            lg = held["logits"][idx].float()
+            got = nxt[idx].long()
+            trace["rec"].append((got, lg.argmax(-1), lg.gather(1, got[:, None])[:, 0],
+                                 lg.max(-1).values))
+        return nxt
+
+    eng._draw, eng._step = draw, step
+    return eng, trace
+
+
+# phase 9: the other model families at full width (slices 12b and 12c)
+FAMILY_ENGINE = ("minicpm3-4b", "granite-moe-1b-a400m", "mamba2-370m", "hymba-1.5b")
+FAMILY_GENERATE = ("pixtral-12b", "seamless-m4t-medium", "arctic-480b")
+FAMILY_MIXES = (("plain", {}), ("top-p 0.9", dict(top_p=0.9)), ("top-k 20", dict(top_k=20)),
+                ("top-k 1", dict(top_k=1)), ("greedy", dict(temperature=0.0)))
+FAMILY_REQUESTS, FAMILY_SOLO = 16, 4
+FAMILY_PROMPT, FAMILY_NEW = (1, 40), (16, 28)
+FAMILY_SOLO_NEW = (6, 12)                      # the requests also run alone are short
+FAMILY_GEN = dict(B=4, S=32, new=16, src=64)   # generate: prompts, length, new, enc-dec frames
+ARCTIC_LAYERS = 1                              # of 35: the depth cut that fits one card
+FAMILY_TRUNC = dict(top_k=20, top_p=0.9)       # the num_samples=4 step's truncation
+
+
+def family_requests(seed: int, V: int) -> list:
+    rng = np.random.default_rng(seed + 90)
+    out = []
+    for i in range(FAMILY_REQUESTS):
+        plen = int(rng.integers(FAMILY_PROMPT[0], FAMILY_PROMPT[1] + 1))
+        lo, hi = FAMILY_SOLO_NEW if i < FAMILY_SOLO else FAMILY_NEW
+        new = int(rng.integers(lo, hi + 1))
+        out.append(serve.Request(prompt=rng.integers(0, V, plen).astype(np.int32),
+                                 max_new_tokens=new, seed=seed * 1000 + 500 + i,
+                                 sampling=serve.SamplingParams(**FAMILY_MIXES[i % 5][1])))
+    return out
+
+
+def kernel_config(cfg):
+    """``cfg`` with its sampler's method set to ``kernel`` (the rest kept)."""
+    return dataclasses.replace(cfg, sampler=dataclasses.replace(
+        cfg.sampler or SamplerSpec(), method="kernel"))
+
+
+def family_model(name: str, dev, seed: int, layers: int = 0):
+    """A family's full-width model with bfloat16 parameters made on the
+    card from ``seed`` (``layers``: a cut of depth)."""
+    cfg = kernel_config(get_config(name))
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), model.specs,
+                         torch.bfloat16, dev)
+    torch.cuda.synchronize()
+    return model, params, time.perf_counter() - t0
+
+
+def family_engine(name: str, dev, seed: int, tally) -> tuple:
+    """One family through the engine (phase 9a): ``serve_engine`` over
+    FAMILY_REQUESTS requests (FAMILY_SOLO again alone, but for MoE, whose
+    capacity couples the rows of a step), then one ``num_samples=4``
+    step."""
+    model, params, init_s = family_model(name, dev, seed)
+    cfg = model.cfg
+    V = cfg.vocab_size
+    auto = sampling.plan((8, cfg.padded_vocab), method="auto", dtype="float32",
+                         has_key=False, backend=dev.type).method
+    torch.cuda.reset_peak_memory_stats()
+    log(f"phase 9: {name} through the engine: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, V={V}; {param_count(model.specs)} bfloat16 parameters made in "
+        f"{init_s:.2f} s (auto picks {auto} at (8, {cfg.padded_vocab}))")
+    solo = [] if cfg.family == "moe" else [m for m, _ in FAMILY_MIXES[:FAMILY_SOLO]]
+    launches, res = serve_engine(f"phase 9 {name}", model, params,
+                                 lambda: family_requests(seed, V), solo, tally, dev)
+    toks = torch.randint(0, V, (FAMILY_GEN["B"], 8), device=dev, dtype=torch.int32,
+                         generator=torch.Generator(device=dev).manual_seed(seed + 1))
+    add_counts(launches, num_samples_step(f"phase 9 {name}", model, params, {"tokens": toks},
+                                          toks.shape[1] + cfg.meta_tokens, dev, seed, tally,
+                                          serve.SamplingParams(**FAMILY_TRUNC)))
+    res.update(config=name, family=cfg.family, layers=cfg.num_layers,
+               params=param_count(model.specs), init_s=init_s, auto_method=auto,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"  {name}: peak {res['peak_bytes'] / 2**30:.3f} GiB; launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    del params
+    free_device()
+    return launches, res
+
+
+def family_generate(name: str, dev, seed: int, tally) -> tuple:
+    """One family through ``generate`` with bfloat16 caches (phase 9b);
+    its first draw (K2 + K3) held to the plain versions."""
+    layers = ARCTIC_LAYERS if name == "arctic-480b" else 0
+    torch.cuda.reset_peak_memory_stats()
+    model, params, init_s = family_model(name, dev, seed, layers)
+    cfg = model.cfg
+    V, B, S, new = cfg.vocab_size, FAMILY_GEN["B"], FAMILY_GEN["S"], FAMILY_GEN["new"]
+    cut = (f"; CUT: {layers} of {get_config(name).num_layers} layers at full width "
+           f"(all would need ~{param_count(build_model(get_config(name)).specs) * 2 / 1e9:.0f}"
+           " GB in bfloat16)") if layers else ""
+    log(f"phase 9: {name} through generate: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"V={V}; {param_count(model.specs)} bfloat16 parameters made in {init_s:.2f} s{cut}")
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    toks = torch.randint(0, V, (B, S), generator=g, device=dev, dtype=torch.int32)
+    emb_len = FAMILY_GEN["src"] if cfg.encoder_layers else cfg.frontend_len
+    emb = (torch.randn((B, emb_len, cfg.d_model), generator=g, device=dev) * 0.02).to(
+        torch.bfloat16) if emb_len else None
+    if cfg.encoder_layers:
+        batch, prefix = {"src_embeds": emb, "tgt_tokens": toks}, 0
+    elif emb is not None:
+        batch, prefix = {"tokens": toks, "frontend_embeds": emb}, emb_len
+    else:
+        batch, prefix = {"tokens": toks}, cfg.meta_tokens
+    # step times: the host clock at each decode call, after a sync
+    stamps, pre = [], []
+
+    def prefill(p, b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.prefill(p, b)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+        return out
+
+    def decode(p, c, t, pos):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return model.decode(p, c, t, pos)
+
+    timed = model._replace(prefill=prefill, decode=decode)
+    gplan = sampling.plan((B, cfg.padded_vocab), method=cfg.sampler_spec.method,
+                          dtype="bfloat16", has_key=True, backend=dev.type)
+    auto = sampling.plan((B, cfg.padded_vocab), method="auto", dtype="bfloat16",
+                         has_key=True, backend=dev.type).method
     torch.cuda.synchronize()
     reset_counts()
-    cand, logits, _ = dstep(params, caches, last.argmax(-1).to(torch.int32)[:, None], GEN_S, g)
+    t0 = time.perf_counter()
+    with captured_draws() as cap:
+        gen = serve.generate(timed, params, batch, max_new_tokens=new, generator=g)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stamps.append(time.perf_counter())
     counts = read_counts()
-    check_path(f"decode step ({B4},{V}) num_samples=4 method={dplan.method}", counts,
-               serve_expect(dplan.method, 1, S=4))
-    add_counts(launches, counts)
-    # the top-k test in the weights the draw truncates (bf16 logits round
-    # to tied weights)
-    wts = sampling.logits_to_weights(logits, 1.0).float()
-    kth = torch.sort(wts, dim=1, descending=True).values[:, sp0.top_k - 1:sp0.top_k]
-    if cand.shape != (B4, 4) or not bool((torch.gather(wts, 1, cand.long()) >= kth).all()):
-        raise AssertionError(f"num_samples=4: shape {tuple(cand.shape)} or a token outside "
-                             "its row's top-k")
-    res["decode_num_samples_4"] = {"B": B4, "method": dplan.method, "launches": counts}
-    res["peak_bytes"] = torch.cuda.max_memory_allocated()
-    log(f"  decode step, 4 tokens a row at ({B4},{V}), method={dplan.method}: launches "
-        f"{ {n: c for n, c in counts.items() if c} }; peak device memory "
-        f"{res['peak_bytes'] / 2**30:.3f} GiB")
-    del params, caches, logits
-    torch.cuda.empty_cache()
+    check_path(f"{name} generate ({B},{cfg.padded_vocab}) method={gplan.method}", counts,
+               auto_expect(gplan.method, new))
+    check_captured(tally, f"phase 9 {name} generate", cap, counts)
+    launches = dict(counts)
+    if gen.tokens.shape != (B, new) or not ((gen.tokens >= 0) & (gen.tokens < V)).all():
+        raise AssertionError(f"{name} generate: tokens of shape {gen.tokens.shape} or out "
+                             "of range")
+    if gen.prefill_len != S + prefix:
+        raise AssertionError(f"{name} generate: prefill_len {gen.prefill_len}")
+    steps = list(np.diff(stamps))
+    add_counts(launches, num_samples_step(f"phase 9 {name}", model, params, batch, S + prefix,
+                                          dev, seed, tally,
+                                          serve.SamplingParams(**FAMILY_TRUNC)))
+    res = {
+        "config": name, "family": cfg.family, "layers": cfg.num_layers,
+        "layers_of": get_config(name).num_layers, "params": param_count(model.specs),
+        "init_s": init_s, "method": gplan.method, "auto_method": auto, "B": B, "prompt": S,
+        "prefix": prefix, "new": new, "wall_s": wall, "tokens_per_s": B * new / wall,
+        "prefill_s": pre[0], "decode_steps": len(steps), "step_s_median": _pct(steps, 50),
+        "step_s_p90": _pct(steps, 90), "launches": launches,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+    }
+    log(f"  {name}: generate {B} x {S} (+{prefix} prefix) -> {new} new, method "
+        f"{gplan.method} (auto picks {auto}): {wall:.3f} s ({res['tokens_per_s']:.1f} "
+        f"tokens/s), prefill {pre[0]:.4f} s, seconds a decode step ({len(steps)} steps) "
+        f"median {res['step_s_median']:.5f} p90 {res['step_s_p90']:.5f}; peak "
+        f"{res['peak_bytes'] / 2**30:.3f} GiB; launches "
+        f"{ {n: c for n, c in launches.items() if c} }")
+    del params, batch, emb, cap
+    free_device()
     return launches, res
+
+
+def phase_families(dev, seed, tally) -> tuple:
+    """Phase 9: the seven other families at full width."""
+    launches, res = {}, {}
+    for i, name in enumerate(FAMILY_ENGINE):
+        counts, res[name] = family_engine(name, dev, seed + 91 + i, tally)
+        add_counts(launches, counts)
+    for i, name in enumerate(FAMILY_GENERATE):
+        counts, res[name] = family_generate(name, dev, seed + 95 + i, tally)
+        add_counts(launches, counts)
+    return launches, res
+
+
+# phase 10: training
+TRAIN_FULL = ("granite-moe-1b-a400m", "mamba2-370m")
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 512, 3
+TRAIN_OPT = dict(lr=1e-3, warmup=1, total_steps=100)   # full step size from step 1
+SMOKE_TOL = dict(loss_rtol=1e-4, param_atol=2e-4)
+
+
+def train_full(name: str, dev, seed: int) -> dict:
+    cfg = get_config(name)
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), model.specs,
+                         torch.bfloat16, dev)
+    opt = make_optimizer("adamw", **TRAIN_OPT)
+    state = opt.init(params)
+    step_fn = make_train_step(model, opt, remat="full")
+    pipe = TokenPipeline(cfg, ShapeConfig("chip", TRAIN_S, TRAIN_B, "train"), seed=seed)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in pipe.next_batch().items()}
+    probe = tree_leaves(params["layers"])[-1][0].clone()
+    losses, times = [], []
+    reset_counts()
+    for step in range(1, TRAIN_STEPS + 1):   # the same batch each step
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step_fn(params, state, batch, step)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m.loss))
+    check_path(f"{name} train steps", read_counts(), {})
+    moved = not torch.equal(tree_leaves(params["layers"])[-1][0], probe)
+    res = {"config": name, "layers": cfg.num_layers, "params": param_count(model.specs),
+           "B": TRAIN_B, "S": TRAIN_S, "losses": losses, "grad_norm": float(m.grad_norm),
+           "step_s": times, "step_s_median": _pct(times, 50),
+           "tokens_per_s": TRAIN_B * TRAIN_S / _pct(times, 50), "moved": moved,
+           "peak_bytes": torch.cuda.max_memory_allocated()}
+    # one more step on the same batch, profiled (its result is dropped)
+    res["profile"] = device_profile(lambda: step_fn(params, state, batch, TRAIN_STEPS + 1), 1,
+                                    f"{name} train step")
+    log(f"phase 10: {name} at full width and depth ({cfg.num_layers} layers, "
+        f"{res['params']} bfloat16 parameters, float32 AdamW state), {TRAIN_STEPS} steps on "
+        f"one {TRAIN_B} x {TRAIN_S} batch, remat full: losses {losses}, seconds a step "
+        f"{[round(t, 4) for t in times]} ({res['tokens_per_s']:.0f} tokens/s after the "
+        f"first), peak {res['peak_bytes'] / 2**30:.3f} GiB")
+    if not (np.isfinite(losses).all() and moved and losses[-1] < losses[0]):
+        raise AssertionError(f"{name} training: losses {losses}, parameters moved {moved}")
+    del params, state, batch, m
+    free_device()
+    return res
+
+
+def train_smoke(name: str, dev, seed: int) -> dict:
+    """One AdamW step of a SMOKE config on ``dev`` (the card) against the
+    CPU."""
+    cfg = get_config(name, smoke=True)
+    model = build_model(cfg)
+    params = init_params(seed, model.specs, torch.float32, "cpu")
+    batch = TokenPipeline(cfg, ShapeConfig("smoke", 32, 4, "train"), seed=seed).next_batch()
+    opt = make_optimizer("adamw", lr=1e-3, warmup=2, total_steps=10)
+    out = {}
+    for where, remat in (("cpu", "none"), (dev, "full")):
+        p = tree_map(lambda t: t.to(where), params)
+        b = {k: torch.as_tensor(v, device=where) for k, v in batch.items()}
+        p1, _, m = make_train_step(model, opt, remat=remat)(p, opt.init(p), b, 1)
+        out[where] = (p1, float(m.loss), float(m.grad_norm))
+    (pc, lc, gc), (pg, lg, gg) = out["cpu"], out[dev]
+    err = max(float((a.cpu() - b).abs().max()) for a, b in zip(tree_leaves(pg),
+                                                                 tree_leaves(pc)))
+    ok = (abs(lg - lc) <= SMOKE_TOL["loss_rtol"] * abs(lc)
+          and abs(gg - gc) <= SMOKE_TOL["loss_rtol"] * abs(gc)
+          and err <= SMOKE_TOL["param_atol"])
+    log(f"  {name:22s} smoke step card vs CPU: loss {lg:.6f} / {lc:.6f}, grad norm "
+        f"{gg:.6f} / {gc:.6f}, parameters max |diff| {err:.3g}")
+    if not ok:
+        raise AssertionError(f"{name}: the card's smoke train step differs from the CPU's")
+    return {"loss": [lg, lc], "grad_norm": [gg, gc], "param_max_abs_diff": err}
+
+
+def phase_training(dev, seed) -> dict:
+    """Phase 10: training at full width, then every SMOKE config's step on
+    the card against the CPU's."""
+    res = {name: train_full(name, dev, seed + 100 + i) for i, name in enumerate(TRAIN_FULL)}
+    log(f"phase 10: one AdamW step of each SMOKE config, card (remat full) vs CPU (remat "
+        f"none), tolerance {SMOKE_TOL}")
+    res["smoke"] = {name: train_smoke(name, dev, seed + 110) for name in ARCH_IDS}
+    return res
+
 
 
 def main(argv=None) -> int:
@@ -3707,6 +4162,11 @@ def main(argv=None) -> int:
     log("phase 8: serving (the decoder path: models/ and serve/ on the card)")
     counts, main_res["serving"] = phase_serving(dev, args.seed, tally)
     add_counts(launches, counts)
+    log("phase 9: the other model families at full width")
+    counts, main_res["families"] = phase_families(dev, args.seed, tally)
+    add_counts(launches, counts)
+    log("phase 10: training (train/ and data/ on the card)")
+    main_res["training"] = phase_training(dev, args.seed)
 
     kernels = []
     layouts = path_layouts(corpus.docs.shape[1])

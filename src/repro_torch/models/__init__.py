@@ -1,6 +1,6 @@
-"""LM model stack: params specs, layers, GQA attention, the decoder-only
-backbone and the family dispatch (the dense family; the others come with
-ROADMAP.md queue 1, slice 12b)."""
+"""LM model stack: params specs, layers, attention variants (GQA, MLA,
+cross), SSM, MoE, the decoder-only and encoder-decoder backbones and the
+family dispatch."""
 
 from repro_torch.models.model import Model, build_model
 from repro_torch.models.params import (

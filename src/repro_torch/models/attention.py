@@ -1,5 +1,6 @@
-"""Attention: GQA with qk-norm, softcap and sliding windows, the
-counterpart of the GQA part of ``repro.models.attention``.
+"""Attention variants: GQA (qk-norm / softcap / sliding window), MLA
+(compressed latents, with the absorbed decode path) and cross-attention,
+the counterpart of ``repro.models.attention``.
 
 Masking is position-based, so the same math serves train (full causal),
 prefill (causal, cache write) and decode (one query against a long cache,
@@ -8,11 +9,9 @@ the softcap comes before the mask, and masked scores are ``NEG_INF``, as
 in the reference; ``scaled_dot_product_attention`` has no softcap, so the
 attention here is plain tensor operations.
 
-A decode step writes its keys and values into the caches it is given, in
-place (one row per sequence, not the whole cache), and returns them.
-
-MLA and cross-attention come with the remaining model families (ROADMAP
-queue 1, slice 12b).
+A decode step writes its keys and values (MLA: its latents) into the
+caches it is given, in place (one row per sequence, not the whole cache),
+and returns them.
 """
 
 from __future__ import annotations
@@ -22,8 +21,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import apply_rope, einsum, head_rmsnorm, head_rmsnorm_spec
+from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.models.layers import (apply_rope, einsum, head_rmsnorm,
+                                       head_rmsnorm_spec, rmsnorm)
 from repro_torch.models.params import ParamSpec
 
 NEG_INF = -2.0e38
@@ -214,4 +214,157 @@ def gqa_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
     return {
         "k": ParamSpec((batch, max_len, kv, hd), ("batch", "kv_seq", "kv_heads", "head"), init="zeros"),
         "v": ParamSpec((batch, max_len, kv, hd), ("batch", "kv_seq", "kv_heads", "head"), init="zeros"),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def cross_attention_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    d, h, hd = cfg.d_model, cfg.num_heads, cfg.resolved_head_dim
+    kv = cfg.num_kv_heads
+    return {
+        "wq": ParamSpec((d, h, hd), ("embed", "heads", "head")),
+        "wk": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head")),
+        "wv": ParamSpec((d, kv, hd), ("embed", "kv_heads", "head")),
+        "wo": ParamSpec((h, hd, d), ("heads", "head", "embed")),
+    }
+
+
+def cross_attend(params, x, memory_kv, cfg: ModelConfig, memory_valid=None):
+    """x (B,Sq,D) attends to precomputed memory (k, v) (B,Sk,KV,hd)."""
+    B, S, _ = x.shape
+    q = einsum("bsd,dnh->bsnh", x, params["wq"])
+    k, v = memory_kv
+    Sk = k.shape[1]
+    if S > CHUNKED_THRESHOLD:
+        out = _sdpa_chunked(
+            q, k, v, torch.arange(S, device=x.device), torch.arange(Sk, device=x.device),
+            causal=False, window=0, k_valid=memory_valid, softcap=cfg.attn_softcap,
+        )
+    else:
+        mask = torch.ones((S, Sk), dtype=torch.bool, device=x.device)
+        if memory_valid is not None:
+            mask = mask & memory_valid[None, :]
+        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
+    return einsum("bsnh,nhd->bsd", out, params["wo"])
+
+
+def cross_memory(params, memory, cfg: ModelConfig):
+    """Precompute cross-attention (k, v) from encoder output (B,Sk,D)."""
+    k = einsum("bsd,dnh->bsnh", memory, params["wk"])
+    v = einsum("bsd,dnh->bsnh", memory, params["wv"])
+    return k, v
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2 / MiniCPM3)
+# ---------------------------------------------------------------------------
+
+
+def mla_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk = m.qk_nope_head_dim
+    return {
+        "wdq": ParamSpec((d, m.q_lora_rank), ("embed", "q_lora")),
+        "q_norm": {"scale": ParamSpec((m.q_lora_rank,), ("q_lora",), init="ones")},
+        "wuq": ParamSpec(
+            (m.q_lora_rank, h, qk + m.qk_rope_head_dim), ("q_lora", "heads", "head")
+        ),
+        "wdkv": ParamSpec(
+            (d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed", "kv_lora")
+        ),
+        "kv_norm": {"scale": ParamSpec((m.kv_lora_rank,), ("kv_lora",), init="ones")},
+        "wuk": ParamSpec((m.kv_lora_rank, h, qk), ("kv_lora", "heads", "head")),
+        "wuv": ParamSpec((m.kv_lora_rank, h, m.v_head_dim), ("kv_lora", "heads", "head")),
+        "wo": ParamSpec((h, m.v_head_dim, d), ("heads", "head", "embed")),
+    }
+
+
+def _mla_latents(params, x, positions, cfg: ModelConfig):
+    """x -> (c_kv (B,S,r), k_pe (B,S,rope)) with norm + RoPE applied."""
+    m: MLAConfig = cfg.mla
+    dkv = einsum("bsd,dr->bsr", x, params["wdkv"])
+    c_kv, k_pe = dkv[..., : m.kv_lora_rank], dkv[..., m.kv_lora_rank:]
+    c_kv = rmsnorm(params["kv_norm"], c_kv, cfg.norm_eps)
+    k_pe = apply_rope(k_pe, positions, cfg.rope_theta)
+    return c_kv, k_pe
+
+
+def _mla_queries(params, x, positions, cfg: ModelConfig):
+    m: MLAConfig = cfg.mla
+    cq = rmsnorm(params["q_norm"], einsum("bsd,dr->bsr", x, params["wdq"]), cfg.norm_eps)
+    q = einsum("bsr,rnh->bsnh", cq, params["wuq"])
+    q_nope = q[..., : m.qk_nope_head_dim]
+    q_pe = apply_rope(q[..., m.qk_nope_head_dim:], positions, cfg.rope_theta)
+    return q_nope, q_pe
+
+
+def mla_attend_full(params, x, positions, cfg: ModelConfig):
+    """Prefill/train: expand latents to per-head k/v (the 'naive' mode).
+    Returns ``(y, {"c_kv", "k_pe"})``, the latents being the decode cache."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape
+    c_kv, k_pe = _mla_latents(params, x, positions, cfg)
+    q_nope, q_pe = _mla_queries(params, x, positions, cfg)
+    k_nope = einsum("bsr,rnh->bsnh", c_kv, params["wuk"])
+    v = einsum("bsr,rnh->bsnh", c_kv, params["wuv"])
+    q = torch.cat([q_nope, q_pe], -1)
+    k_pe_h = k_pe[:, :, None, :].expand(*k_nope.shape[:3], m.qk_rope_head_dim)
+    k = torch.cat([k_nope, k_pe_h], -1)
+    if S > CHUNKED_THRESHOLD:
+        out = _sdpa_chunked(q, k, v, positions, positions, causal=True, window=0,
+                            softcap=cfg.attn_softcap)
+    else:
+        mask = attention_mask(positions, positions, causal=True)
+        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
+    y = einsum("bsnh,nhd->bsd", out, params["wo"])
+    return y, {"c_kv": c_kv, "k_pe": k_pe}
+
+
+def mla_attend_decode(params, x, cache, cache_pos, cfg: ModelConfig):
+    """Absorbed decode: score directly against the latent cache.
+
+    q_c = q_nope @ W_uk per head; scores = q_c . c_kv + q_pe . k_pe;
+    ctx = probs . c_kv; y = (ctx @ W_uv) @ wo.  ``cache_pos`` is the write
+    position shared by the batch, or (B,) per row; the step's latents are
+    written into ``cache`` in place (one row per sequence)."""
+    m: MLAConfig = cfg.mla
+    B, S, _ = x.shape  # S == 1
+    per_row = isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1
+    if per_row:
+        cache_pos = cache_pos.to(x.device).long()
+        positions = cache_pos[:, None]
+    else:
+        positions = torch.full((S,), int(cache_pos), device=x.device)
+    c_new, kpe_new = _mla_latents(params, x, positions, cfg)
+    c_kv = _cache_update(cache["c_kv"], c_new, cache_pos)
+    k_pe = _cache_update(cache["k_pe"], kpe_new, cache_pos)
+    q_nope, q_pe = _mla_queries(params, x, positions, cfg)
+    q_c = einsum("bsnh,rnh->bsnr", q_nope, params["wuk"])
+    scale = float(np.float32(1.0) / np.sqrt(np.float32(m.qk_nope_head_dim + m.qk_rope_head_dim)))
+    scores = (einsum("bsnr,btr->bnst", q_c, c_kv)
+              + einsum("bsnh,bth->bnst", q_pe, k_pe)).to(torch.float32) * scale
+    k_pos = torch.arange(c_kv.shape[1], device=c_kv.device)
+    if per_row:
+        valid = (k_pos[None, :] <= cache_pos[:, None])[:, None, None, :]   # (B,1,1,T)
+    else:
+        valid = (k_pos <= int(cache_pos))[None, None, None, :]
+    probs = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1).to(c_kv.dtype)
+    ctx = einsum("bnst,btr->bsnr", probs, c_kv)
+    out = einsum("bsnr,rnh->bsnh", ctx, params["wuv"])
+    y = einsum("bsnh,nhd->bsd", out, params["wo"])
+    return y, {"c_kv": c_kv, "k_pe": k_pe}
+
+
+def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int):
+    m: MLAConfig = cfg.mla
+    return {
+        "c_kv": ParamSpec((batch, max_len, m.kv_lora_rank), ("batch", "kv_seq", None),
+                          init="zeros"),
+        "k_pe": ParamSpec((batch, max_len, m.qk_rope_head_dim), ("batch", "kv_seq", None),
+                          init="zeros"),
     }

@@ -9,10 +9,12 @@ casts both sides first, where ``torch.einsum`` would refuse.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.params import ParamSpec
 
@@ -23,6 +25,16 @@ def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
     for o in ops[1:]:
         dt = torch.promote_types(dt, o.dtype)
     return torch.einsum(eq, *(o if o.dtype == dt else o.to(dt) for o in ops))
+
+
+def remat_layer(fn, remat: str):
+    """``fn`` under ``torch.utils.checkpoint`` (recomputed in the backward
+    pass) for ``remat`` "full" or "dots" while gradients are recorded,
+    else ``fn``: the stacks' counterpart of the reference's
+    ``jax.checkpoint`` around each layer."""
+    if remat in ("full", "dots") and torch.is_grad_enabled():
+        return partial(checkpoint, fn, use_reentrant=False)
+    return fn
 
 
 # ---------------------------------------------------------------------------

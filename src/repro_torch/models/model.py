@@ -1,13 +1,10 @@
-"""build_model(cfg): one Model interface over the model families, the
+"""build_model(cfg): one Model interface over every model family, the
 counterpart of ``repro.models.model``.
 
 ``batch`` dicts:
   decoder-only            {"tokens": (B, S)}
   vlm / audio (dec-only)  {"tokens": (B, S_text), "frontend_embeds": (B, S_f, D)}
-
-The port runs the dense decoder-only family; the others, the
-encoder-decoder one among them, raise ``NotImplementedError``
-(:func:`repro_torch.models.transformer.check_supported`).
+  encdec                  {"src_embeds": (B, Se, D), "tgt_tokens": (B, St)}
 """
 
 from __future__ import annotations
@@ -15,6 +12,7 @@ from __future__ import annotations
 from typing import Callable, Dict, NamedTuple
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as ed
 from repro_torch.models import transformer as tf
 
 
@@ -28,7 +26,23 @@ class Model(NamedTuple):
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    tf.check_supported(cfg)
+    if cfg.encoder_layers > 0:
+
+        def apply(params, batch, remat="full"):
+            return ed.encdec_apply(cfg, params, batch["src_embeds"], batch["tgt_tokens"], remat)
+
+        def prefill(params, batch):
+            return ed.encdec_prefill(cfg, params, batch["src_embeds"], batch["tgt_tokens"])
+
+        def decode(params, caches, tokens, cache_pos):
+            return ed.encdec_decode(cfg, params, caches, tokens, cache_pos)
+
+        def cache_specs(batch_size, max_len):
+            # decode cache: self KV up to max_len // 2 target + cross of the rest
+            tgt = max_len // 2
+            return ed.encdec_cache_specs(cfg, batch_size, tgt, max_len - tgt)
+
+        return Model(cfg, ed.encdec_specs(cfg), apply, prefill, decode, cache_specs)
 
     def apply(params, batch, remat="full"):
         return tf.lm_apply(cfg, params, batch["tokens"], batch.get("frontend_embeds"), remat)

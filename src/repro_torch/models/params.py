@@ -82,11 +82,13 @@ def _leaf_init(g: torch.Generator, spec: ParamSpec, dtype, device) -> torch.Tens
     # fan-in scaled normal: std = scale / sqrt(fan_in), drawn in float32
     std = spec.scale / np.sqrt(_fan_in(spec))
     if spec.axes and spec.axes[0] == "layers":
-        # a stacked leaf one layer at a time: the float32 draw of a 9B
-        # model's largest leaf would otherwise need twice its final size
+        # a stacked leaf one layer at a time (a stacked expert leaf one
+        # expert at a time): the float32 draw of the largest leaf would
+        # otherwise need twice its final size
         out = torch.empty(spec.shape, dtype=dtype, device=device)
-        for i in range(spec.shape[0]):
-            out[i] = (torch.randn(spec.shape[1:], generator=g, device=device) * std).to(dtype)
+        per = 2 if spec.axes[1:2] == ("experts",) else 1
+        for idx in np.ndindex(*spec.shape[:per]):
+            out[idx] = (torch.randn(spec.shape[per:], generator=g, device=device) * std).to(dtype)
         return out
     return (torch.randn(spec.shape, generator=g, device=device) * std).to(dtype)
 

@@ -1,16 +1,15 @@
-"""Decoder-only LM stack, the counterpart of ``repro.models.transformer``
-for the dense family with GQA attention, in three modes (full, prefill,
-decode).
+"""Decoder-only LM stack, the counterpart of ``repro.models.transformer``:
+four layer families (dense / moe / ssm / hybrid, with GQA or MLA
+attention) in three modes (full, prefill, decode).
 
 Params and caches are stacked ``(L, ...)`` trees, as in the reference (its
 checkpoint layout); :func:`stack_apply` is a Python loop over the layers
 that reads layer ``l`` of each stacked leaf (a view, no copy), where the
 reference scans.  Per-layer attention windows are data
-(:func:`layer_windows`), so gemma2's local/global alternation is a
-per-layer integer.  Remat is a training concern and a no-op here.
-
-The families whose layers are not ported yet (moe, ssm, hybrid, vlm,
-audio, and ``attention="mla"``) raise ``NotImplementedError``.
+(:func:`layer_windows`), so gemma2's local/global alternation and hymba's
+three full-attention layers are per-layer integers.  ``remat="full"`` (or
+``"dots"``) runs each layer under ``torch.utils.checkpoint`` when
+gradients are being recorded, where the reference puts ``jax.checkpoint``.
 """
 
 from __future__ import annotations
@@ -22,12 +21,15 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     einsum,
     embed,
     embedding_spec,
     mlp,
     mlp_spec,
+    remat_layer,
     rmsnorm,
     rmsnorm_spec,
     unembed,
@@ -35,23 +37,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.params import ParamSpec, stack_specs_tree, tree_map
 
-# where each family that the port does not run yet comes from
-_PENDING = "ROADMAP.md queue 1, slice 12b (the remaining model families)"
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration whose layers the
-    port does not have yet."""
-    if cfg.encoder_layers > 0 or cfg.family == "encdec":
-        what = "the encoder-decoder family"
-    elif cfg.family != "dense":
-        what = f"the {cfg.family!r} family"
-    elif cfg.attention != "gqa":
-        what = f"attention={cfg.attention!r}"
-    else:
-        return
-    raise NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet; it comes with {_PENDING}")
+_ATTN_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio")
 
 
 # ---------------------------------------------------------------------------
@@ -60,19 +46,43 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_spec(cfg: ModelConfig) -> Dict:
-    check_supported(cfg)
     d = cfg.d_model
-    spec: Dict = {"ln_attn": rmsnorm_spec(d), "attn": attn.gqa_spec(cfg),
-                  "ln_mlp": rmsnorm_spec(d), "mlp": mlp_spec(d, cfg.d_ff)}
-    if cfg.post_norms:
-        spec["ln_post_attn"] = rmsnorm_spec(d)
-        spec["ln_post_mlp"] = rmsnorm_spec(d)
+    spec: Dict = {}
+    if cfg.family in _ATTN_FAMILIES:
+        spec["ln_attn"] = rmsnorm_spec(d)
+        spec["attn"] = attn.mla_spec(cfg) if cfg.attention == "mla" else attn.gqa_spec(cfg)
+        if cfg.post_norms:
+            spec["ln_post_attn"] = rmsnorm_spec(d)
+    if cfg.family in ("dense", "vlm", "audio", "hybrid"):
+        spec["ln_mlp"] = rmsnorm_spec(d)
+        spec["mlp"] = mlp_spec(d, cfg.d_ff)
+        if cfg.post_norms:
+            spec["ln_post_mlp"] = rmsnorm_spec(d)
+    if cfg.family == "moe":
+        spec["ln_mlp"] = rmsnorm_spec(d)
+        spec["moe"] = moe_mod.moe_spec(cfg)
+        if cfg.moe.dense_residual_d_ff > 0:
+            spec["dense_mlp"] = mlp_spec(d, cfg.moe.dense_residual_d_ff)
+    if cfg.family in ("ssm", "hybrid"):
+        if cfg.family == "ssm":
+            spec["ln_ssm"] = rmsnorm_spec(d)
+        spec["ssm"] = ssm_mod.ssm_spec(cfg)
+        if cfg.family == "hybrid":
+            # learned per-branch output scales (hymba's beta_attn/beta_ssm)
+            spec["branch_scale"] = ParamSpec((2,), (None,), init="ones")
     return spec
 
 
 def layer_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
-    check_supported(cfg)
-    return {"attn": attn.gqa_cache_spec(cfg, batch, max_len)}
+    spec: Dict = {}
+    if cfg.family in _ATTN_FAMILIES:
+        if cfg.attention == "mla":
+            spec["attn"] = attn.mla_cache_spec(cfg, batch, max_len)
+        else:
+            spec["attn"] = attn.gqa_cache_spec(cfg, batch, max_len)
+    if cfg.family in ("ssm", "hybrid"):
+        spec["ssm"] = ssm_mod.ssm_cache_spec(cfg, batch)
+    return spec
 
 
 # ---------------------------------------------------------------------------
@@ -81,11 +91,21 @@ def layer_cache_spec(cfg: ModelConfig, batch: int, max_len: int) -> Dict:
 
 
 def _attn_branch(p, h, positions, window, cfg, cache, cache_pos):
+    if cfg.attention == "mla":
+        if cache is None:
+            return attn.mla_attend_full(p, h, positions, cfg)
+        return attn.mla_attend_decode(p, h, cache, cache_pos, cfg)
     if cache is None:
         y, kv = attn.gqa_attend(p, h, positions, cfg, causal=True, window=window)
         return y, {"k": kv[0], "v": kv[1]}
     return attn.gqa_attend(p, h, positions, cfg, causal=False, window=window,
                            cache=cache, cache_pos=cache_pos)
+
+
+def _ssm_branch(p, h, cfg, cache):
+    if cache is None:
+        return ssm_mod.ssm_block(p, h, cfg)
+    return ssm_mod.ssm_decode_step(p, h, cache, cfg)
 
 
 def layer_apply(
@@ -98,19 +118,47 @@ def layer_apply(
     cache_pos=None,
 ):
     """One block.  Returns (x, cache_out, aux_loss)."""
-    check_supported(cfg)
+    aux = 0.0
+    cache_out: Dict = {}
     attn_cache = None if cache is None else cache.get("attn")
-    h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
-    y, c = _attn_branch(p["attn"], h, positions, window, cfg, attn_cache, cache_pos)
-    if cfg.post_norms:
-        y = rmsnorm(p["ln_post_attn"], y, cfg.norm_eps)
-    x = x + y
-    h = rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
-    y = mlp(p["mlp"], h, cfg.act)
-    if cfg.post_norms:
-        y = rmsnorm(p["ln_post_mlp"], y, cfg.norm_eps)
-    x = x + y
-    return x, {"attn": c}, 0.0
+    ssm_cache = None if cache is None else cache.get("ssm")
+
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
+        h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
+        y, cache_out["attn"] = _attn_branch(p["attn"], h, positions, window, cfg,
+                                            attn_cache, cache_pos)
+        if cfg.post_norms:
+            y = rmsnorm(p["ln_post_attn"], y, cfg.norm_eps)
+        x = x + y
+        h = rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
+        if cfg.family == "moe":
+            y, aux = moe_mod.moe_block(p["moe"], h, cfg, cfg.moe_dispatch)
+            if cfg.moe.dense_residual_d_ff > 0:
+                y = y + mlp(p["dense_mlp"], h, cfg.act)
+        else:
+            y = mlp(p["mlp"], h, cfg.act)
+        if cfg.post_norms:
+            y = rmsnorm(p["ln_post_mlp"], y, cfg.norm_eps)
+        x = x + y
+
+    elif cfg.family == "ssm":
+        h = rmsnorm(p["ln_ssm"], x, cfg.norm_eps)
+        y, cache_out["ssm"] = _ssm_branch(p["ssm"], h, cfg, ssm_cache)
+        x = x + y
+
+    elif cfg.family == "hybrid":
+        h = rmsnorm(p["ln_attn"], x, cfg.norm_eps)
+        ya, cache_out["attn"] = _attn_branch(p["attn"], h, positions, window, cfg,
+                                             attn_cache, cache_pos)
+        ys, cache_out["ssm"] = _ssm_branch(p["ssm"], h, cfg, ssm_cache)
+        bs = p["branch_scale"].to(torch.float32)
+        x = x + (bs[0] * ya.to(torch.float32) + bs[1] * ys.to(torch.float32)).to(x.dtype)
+        h = rmsnorm(p["ln_mlp"], x, cfg.norm_eps)
+        x = x + mlp(p["mlp"], h, cfg.act)
+    else:
+        raise ValueError(cfg.family)
+
+    return x, cache_out, aux
 
 
 # ---------------------------------------------------------------------------
@@ -155,15 +203,19 @@ def stack_apply(
 ):
     """The layer stack.  Returns (x, caches_out, aux_total): with
     ``caches`` the stacked caches, written in place; with
-    ``collect_cache`` each layer's (k, v) stacked into (L, ...) leaves;
-    else None.  ``remat`` is accepted for the reference's signature."""
+    ``collect_cache`` each layer's cache leaves stacked into (L, ...)
+    leaves; else None.  ``remat`` "full" or "dots" recomputes each layer
+    in the backward pass (``torch.utils.checkpoint``) of a full pass that
+    records gradients; "dots" saves nothing more than "full"."""
     windows = layer_windows(cfg)
     collected, aux = [], 0.0
+    layer = layer_apply if caches is not None or collect_cache else \
+        remat_layer(layer_apply, remat)
     for l in range(cfg.num_layers):
         lp = tree_map(lambda a: a[l], params)
         lcache = None if caches is None else tree_map(lambda a: a[l], caches)
-        x, cache_out, aux_l = layer_apply(cfg, lp, x, positions, int(windows[l]),
-                                          cache=lcache, cache_pos=cache_pos)
+        x, cache_out, aux_l = layer(cfg, lp, x, positions, int(windows[l]),
+                                    cache=lcache, cache_pos=cache_pos)
         aux = aux + aux_l
         if collect_cache:
             collected.append(cache_out)
@@ -227,10 +279,9 @@ def _logits(cfg, params, x):
 def lm_apply(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
              frontend_embeds: Optional[torch.Tensor] = None, remat: str = "none"):
     """Full forward: (logits for every *text* position (B, S_text, V), aux)."""
-    check_supported(cfg)
     x = _input_embeddings(cfg, params, tokens, frontend_embeds)
     x, _, aux = stack_apply(cfg, params["layers"], x,
-                           torch.arange(x.shape[1], device=x.device))
+                            torch.arange(x.shape[1], device=x.device), remat=remat)
     prefix = cfg.meta_tokens + (frontend_embeds.shape[1] if frontend_embeds is not None else 0)
     if prefix > 0:
         x = x[:, prefix:]
@@ -240,7 +291,6 @@ def lm_apply(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
 def lm_prefill(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,
                frontend_embeds: Optional[torch.Tensor] = None, remat: str = "none"):
     """Prefill: returns (last-position logits (B, V), stacked caches)."""
-    check_supported(cfg)
     x = _input_embeddings(cfg, params, tokens, frontend_embeds)
     x, caches, _ = stack_apply(cfg, params["layers"], x,
                                torch.arange(x.shape[1], device=x.device), collect_cache=True)
@@ -256,7 +306,6 @@ def lm_decode(cfg: ModelConfig, params: Dict, caches: Dict, tokens: torch.Tensor
     continuous-batching form, where every slot of one fixed-shape decode
     batch sits at its own sequence length (``repro_torch.serve.batching``).
     The step is written into ``caches`` in place."""
-    check_supported(cfg)
     x = embed(params["embed"], tokens, scale=cfg.embedding_scale)
     if isinstance(cache_pos, torch.Tensor) and cache_pos.dim() == 1:
         cache_pos = cache_pos.to(x.device)

@@ -24,6 +24,11 @@ requests expressed entirely as per-slot *data*.
 * **Prefill/decode interleaving.**  Prompts prefill one request at a time
   into power-of-two bucketed lengths, at most ``prefill_chunk`` per decode
   step, so admission never starves the running batch.
+* **Every decoder-only family.**  Attention caches are written at a
+  slot's sequence positions; the SSM state and conv tails (no sequence
+  axis) are written whole.  Learned meta tokens (hymba) lead every slot:
+  each prefill prepends them, and a slot's positions count from them (the
+  reference's engine refuses such configs).
 
 Nothing is traced or compiled: :meth:`ContinuousBatchingEngine.compile_stats`
 reports ``sampling.plan_stats()`` (plans resolve once per workload) and the
@@ -63,21 +68,31 @@ def _bucket(n: int) -> int:
     return 1 << max(0, int(n - 1).bit_length())
 
 
-def _insert(caches, prefix, slot: int) -> None:
-    """Write one request's prefilled prefix (a (L, 1, S, ...) tree, or
-    None for no prefix) into ``slot`` of the (L, B, S_max, ...) caches, in
-    place, and zero the slot's remaining rows, so no KV of the slot's
-    previous occupant survives recycling.  Every leaf of the dense
-    decoder's cache has its sequence axis at 2."""
+# cache leaves with a (L, B, S, ...) sequence axis (axis 2 when stacked);
+# every other leaf (the SSM state and conv tails) is per-row state
+# without one
+_SEQ_LEAF_NAMES = frozenset({"k", "v", "c_kv", "k_pe"})
+
+
+def _insert(caches, prefix, slot: int, name=None) -> None:
+    """Write one request's prefilled prefix (a (L, 1, ...) tree, or None
+    for no prefix) into ``slot`` of the (L, B, ...) caches, in place.  A
+    sequence leaf takes the prefix's first positions and zeros after them,
+    so no KV of the slot's previous occupant survives recycling; any other
+    leaf takes the prefix's state whole (zeros for no prefix)."""
     if isinstance(caches, dict):
         for k in caches:
-            _insert(caches[k], None if prefix is None else prefix[k], slot)
+            _insert(caches[k], None if prefix is None else prefix[k], slot, k)
         return
     row = caches[:, slot]
-    n = 0 if prefix is None else prefix.shape[2]
-    if n:
+    if prefix is None:
+        row.zero_()
+    elif name in _SEQ_LEAF_NAMES:
+        n = prefix.shape[2]
         row[:, :n] = prefix[:, 0]
-    row[:, n:] = 0
+        row[:, n:] = 0
+    else:
+        row.copy_(prefix[:, 0])
 
 
 class ContinuousBatchingEngine:
@@ -106,16 +121,19 @@ class ContinuousBatchingEngine:
             raise NotImplementedError(
                 "a sharded continuous-batching engine (mesh=) comes with "
                 "repro_torch.dist, ROADMAP.md queue 1, slice 14")
-        if cfg.encoder_layers > 0 or cfg.frontend_len > 0 or cfg.meta_tokens > 0:
+        if cfg.encoder_layers > 0 or cfg.frontend_len > 0:
             raise ValueError(
-                "continuous batching serves plain decoder-only families; "
-                f"config {cfg.name!r} has encoder/frontend/meta-token "
-                "prefixes whose slot layout is not implemented"
+                "continuous batching serves decoder-only families; "
+                f"config {cfg.name!r} has encoder/frontend prefixes whose "
+                "slot layout is not implemented"
             )
         serve = cfg.serve_spec
         self.model = model
         self.params = params
         self.device = _params_device(params)
+        # learned meta tokens (hymba) lead every slot's sequence: each
+        # prefill prepends them, and a slot's positions count from them
+        self._meta = cfg.meta_tokens
         self.max_slots = int(max_slots or serve.max_slots)
         self.max_len = int(max_len or serve.max_len)
         self.prefill_chunk = serve.prefill_chunk if prefill_chunk is None else prefill_chunk
@@ -259,8 +277,8 @@ class ContinuousBatchingEngine:
         req.state = RequestState.PREFILLING
         t0 = time.perf_counter()
         prefix = req.prompt[:-1]
-        if prefix.size:
-            sb = _bucket(prefix.size)
+        if prefix.size or self._meta:
+            sb = _bucket(prefix.size) if prefix.size else 0
             toks = np.zeros((1, sb), np.int32)
             toks[0, : prefix.size] = prefix
             pre = self.model.prefill(self.params,
@@ -279,7 +297,7 @@ class ContinuousBatchingEngine:
         # at position prompt_len-1 (writes its own KV, yields the first
         # sampled token) — prefill logits are never consumed
         self._token[slot] = int(req.prompt[-1])
-        self._pos[slot] = req.prompt_len - 1
+        self._pos[slot] = self._meta + req.prompt_len - 1
         self._seeds[slot] = self._seed_pair(req.seed)
         self._draw_idx[slot] = 0
         sp = req.sampling

@@ -269,7 +269,7 @@ def generate(
         return generator if mesh is None else _rng.fold(seed, t)
 
     last_logits, caches = model.prefill(params, batch)
-    toks = batch["tokens"]
+    toks = batch["tgt_tokens"] if "tgt_tokens" in batch else batch["tokens"]
     B, S = toks.shape
     prefix = cfg.meta_tokens + (
         batch["frontend_embeds"].shape[1] if "frontend_embeds" in batch else 0)

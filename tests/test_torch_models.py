@@ -29,7 +29,6 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import build_model as tbuild
 from repro_torch.models import layers as tlayers
 from repro_torch.models import params as tparams
-from repro_torch.models import transformer as ttf
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -281,20 +280,6 @@ def test_init_params_defaults_to_the_card(monkeypatch):
     m = tbuild(tconfigs.get_config("qwen3-4b", smoke=True))
     with pytest.raises(RuntimeError, match="CUDA"):
         tparams.init_params(0, m.specs)
-
-
-@pytest.mark.parametrize("arch,match", [
-    ("arctic-480b", "'moe' family"), ("granite-moe-1b-a400m", "'moe' family"),
-    ("mamba2-370m", "'ssm' family"), ("hymba-1.5b", "'hybrid' family"),
-    ("pixtral-12b", "'vlm' family"), ("seamless-m4t-medium", "encoder-decoder"),
-    ("minicpm3-4b", "attention='mla'")])
-def test_unported_families_raise(arch, match):
-    cfg = tconfigs.get_config(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match=match) as e:
-        tbuild(cfg)
-    assert "slice 12b" in str(e.value)
-    with pytest.raises(NotImplementedError):
-        ttf.lm_specs(cfg)
 
 
 def test_chip_smoke_imports_neither_jax_nor_repro():

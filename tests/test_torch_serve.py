@@ -62,16 +62,20 @@ TINY = dict(name="tiny-serve", family="dense", num_layers=2, d_model=32, num_hea
 TIE_TOL = 1e-5
 
 
-def _pair(kind: str, method: str = None):
-    """(reference model, port model, reference params, port params)."""
+def _pair(kind: str, method: str = None, **over):
+    """(reference model, port model, reference params, port params);
+    ``over`` replaces config fields in both."""
     if kind == "tiny":
         jc = jbase.ModelConfig(**TINY, sampler=jbase.SamplerSpec(method=method or "fenwick", W=8))
         tc = tbase.ModelConfig(**TINY, sampler=tbase.SamplerSpec(method=method or "fenwick", W=8))
     else:
         jc, tc = jget(kind, smoke=True), tget(kind, smoke=True)
         if method:
-            jc = dataclasses.replace(jc, sampler=dataclasses.replace(jc.sampler, method=method))
-            tc = dataclasses.replace(tc, sampler=dataclasses.replace(tc.sampler, method=method))
+            jc = dataclasses.replace(jc, sampler=dataclasses.replace(
+                jc.sampler or jbase.SamplerSpec(), method=method))
+            tc = dataclasses.replace(tc, sampler=dataclasses.replace(
+                tc.sampler or tbase.SamplerSpec(), method=method))
+    jc, tc = dataclasses.replace(jc, **over), dataclasses.replace(tc, **over)
     jm, tm = jbuild(jc), tbuild(tc)
     jp = jinit(jax.random.PRNGKey(0), jm.specs, jnp.float32)
     return jm, tm, jp, params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
@@ -125,8 +129,8 @@ def _tie(tm, tp, req, t, a, b) -> bool:
     return abs(_u(req.seed, t) * total - float(cdf[min(a, b)])) <= TIE_TOL * total
 
 
-def _compare_engines(kind, method, slots=3, n=10):
-    jm, tm, jp, tp = _pair(kind, method)
+def _compare_engines(kind, method, slots=3, n=10, **over):
+    jm, tm, jp, tp = _pair(kind, method, **over)
     V = tm.cfg.vocab_size
     want = [r.output_tokens for r in JEngine(jm, jp, max_slots=slots, max_len=32).run(
         _mixed(JRequest, JSP, V, n))]
@@ -163,6 +167,16 @@ def test_engine_matches_reference_kernel_route(monkeypatch):
     assert len(calls) == eng.stats()["steps"] > 0
 
 
+@pytest.mark.parametrize("kind", ["minicpm3-4b", "granite-moe-1b-a400m", "mamba2-370m",
+                                  "hymba-1.5b"])
+def test_engine_matches_reference_families(kind):
+    """MLA, MoE, SSM and hybrid SMOKE configs through both engines (hymba's
+    without its meta tokens, which the reference's engine refuses; the
+    port's serves them, ``test_engine_serves_meta_tokens``).  MoE's rows
+    share capacity, in both."""
+    _compare_engines(kind, "fenwick", **({"meta_tokens": 0} if kind == "hymba-1.5b" else {}))
+
+
 @pytest.mark.parametrize("kind", ["tiny", "gemma2-9b"])
 def test_greedy_generate_matches_reference(kind):
     jm, tm, jp, tp = _pair(kind)
@@ -172,6 +186,25 @@ def test_greedy_generate_matches_reference(kind):
                    temperature=0.0)
     np.testing.assert_array_equal(got.tokens, want.tokens)
     assert got.prefill_len == want.prefill_len == 10 and got.steps == 6
+
+
+@pytest.mark.parametrize("kind", ["pixtral-12b", "seamless-m4t-medium"])
+def test_greedy_generate_matches_reference_prefixed(kind):
+    """The vlm with its stub patch embeddings, and the enc-dec with its
+    source frames and target tokens (``generate`` reads ``tgt_tokens``)."""
+    jm, tm, jp, tp = _pair(kind)
+    cfg = tm.cfg
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab_size, (3, 6)).astype(np.int32)
+    emb = (rng.normal(size=(3, cfg.frontend_len or 5, cfg.d_model)) * 0.02).astype(np.float32)
+    batch = ({"src_embeds": emb, "tgt_tokens": toks} if cfg.encoder_layers
+             else {"tokens": toks, "frontend_embeds": emb})
+    want = jgenerate(jm, jp, {k: jnp.asarray(v) for k, v in batch.items()}, max_new_tokens=5,
+                     temperature=0.0)
+    got = generate(tm, tp, {k: torch.as_tensor(v) for k, v in batch.items()},
+                   max_new_tokens=5, temperature=0.0)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert got.prefill_len == want.prefill_len == 6 + (cfg.frontend_len or 0)
 
 
 def test_greedy_generate_matches_argmax_rollout(tiny):
@@ -465,9 +498,75 @@ def test_engine_waiting_slices_raise(tiny):
     tm, tp = tiny
     with pytest.raises(NotImplementedError, match="slice 14"):
         ContinuousBatchingEngine(tm, tp, max_slots=2, mesh=object())
-    for arch in ("arctic-480b", "seamless-m4t-medium", "minicpm3-4b", "mamba2-370m"):
-        with pytest.raises(NotImplementedError, match="slice 12b"):
-            tbuild(tget(arch, smoke=True))
+    for arch in ("pixtral-12b", "seamless-m4t-medium"):
+        m = tbuild(tget(arch, smoke=True))
+        with pytest.raises(ValueError, match="encoder/frontend"):
+            ContinuousBatchingEngine(m, init_params(0, m.specs, device="cpu"), max_slots=2)
+
+
+def test_recycled_ssm_slot_takes_the_new_state():
+    """mamba2 SMOKE: requests churning through 2 slots give the tokens of
+    one-at-a-time runs, and a slot recycled from a long request holds
+    exactly a fresh slot's SSM state (the state leaves have no sequence
+    axis: the insert writes them whole, or zeroes them for a single-token
+    prompt)."""
+    _, tm, _, tp = _pair("mamba2-370m", "fenwick")
+
+    def reqs():
+        return [_req(i, plen=2 + 3 * i, max_new=3 + i, temperature=0.8) for i in range(3)]
+
+    batched = [r.output_tokens for r in
+               ContinuousBatchingEngine(tm, tp, max_slots=2, max_len=32).run(reqs())]
+    solo = [ContinuousBatchingEngine(tm, tp, max_slots=1, max_len=32).run([r])[0].output_tokens
+            for r in reqs()]
+    assert batched == solo
+    for plen in (1, 5):
+        eng = ContinuousBatchingEngine(tm, tp, max_slots=1, max_len=32)
+        eng.run([_req(0, plen=9, max_new=6)])
+        eng.run([_req(1, plen=plen, max_new=1)])
+        fresh = ContinuousBatchingEngine(tm, tp, max_slots=1, max_len=32)
+        fresh.run([_req(1, plen=plen, max_new=1)])
+        for name, leaf in eng._caches["ssm"].items():
+            assert torch.equal(leaf, fresh._caches["ssm"][name]), (plen, name)
+
+
+def test_ssm_slot_state_absorbs_the_bucket_pad_as_the_reference():
+    """ROADMAP queue 3: an engine prefills a prompt's prefix padded with
+    token 0 up to its power-of-two bucket.  Attention masks the pad; an SSM
+    state absorbs it.  The reference's engine does so, and the port's
+    matches it: after a 4-token prompt (prefix 3, bucket 4) the slot's state
+    equals the reference's, not the state of the prompt itself."""
+    jm, tm, jp, tp = _pair("mamba2-370m", "fenwick")
+    prompt = np.array([5, 9, 2, 7], np.int32)
+    je = JEngine(jm, jp, max_slots=1, max_len=16)
+    je.run([JRequest(prompt=prompt, max_new_tokens=1, seed=0, sampling=JSP(temperature=0.0))])
+    te = ContinuousBatchingEngine(tm, tp, max_slots=1, max_len=16)
+    te.run([Request(prompt=prompt, max_new_tokens=1, seed=0,
+                    sampling=SamplingParams(temperature=0.0))])
+    got = te._caches["ssm"]["h"].numpy()
+    np.testing.assert_allclose(got, np.asarray(je._caches["ssm"]["h"]), rtol=1e-4, atol=1e-4)
+    _, exact = tm.prefill(tp, {"tokens": torch.as_tensor(prompt[None])})
+    assert not np.allclose(got, exact["ssm"]["h"].numpy(), rtol=1e-3, atol=1e-3)
+
+
+def test_engine_serves_meta_tokens():
+    """hymba SMOKE with its 8 meta tokens: every prefill prepends them and a
+    slot's positions count from them, so greedy engine tokens equal
+    ``generate``'s (prefixes of a power of two: no bucket pad)."""
+    _, tm, _, tp = _pair("hymba-1.5b", "fenwick")
+    assert tm.cfg.meta_tokens == 8
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, tm.cfg.vocab_size, n).astype(np.int32) for n in (1, 2, 3, 5, 9)]
+    eng = ContinuousBatchingEngine(tm, tp, max_slots=2, max_len=32)
+    assert eng._caches["attn"]["k"].shape[2] == 32 + 8
+    out = eng.run([Request(prompt=p, max_new_tokens=4, seed=i,
+                           sampling=SamplingParams(temperature=0.0))
+                   for i, p in enumerate(prompts)])
+    for p, r in zip(prompts, out):
+        want = generate(tm, tp, {"tokens": torch.as_tensor(p[None])}, max_new_tokens=4,
+                        temperature=0.0).tokens[0].tolist()
+        assert r.output_tokens == want, (len(p), r.output_tokens, want)
+    assert eng.compile_stats()["prefill_buckets"] == [0, 1, 2, 4, 8]
 
 
 def test_engine_state_lives_on_the_params_device(tiny):
