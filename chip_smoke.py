@@ -207,6 +207,26 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    on the card (``remat="full"``) against the same step on the CPU
    (``remat="none"``): loss and gradient norm within rtol 1e-4, every
    parameter within 2e-4.
+11. The launchers (``repro_torch.dist`` and ``repro_torch.launch``) on a
+   one-rank NCCL group (an in-memory store, no TCP port) and the
+   ("data", "model") mesh of (1, 1) that ``launch.mesh`` builds.
+   (a) ``launch.train``'s loop at full width and depth of mamba2-370m
+   (float32 parameters, AdamW, 4 x 512, ``--ckpt-every 2``, checkpoints
+   under ``build/``; the free disk space checked first): an uninterrupted
+   6-step run; a run that sends itself SIGTERM after step 3 and commits a
+   checkpoint; a second call that resumes it to step 6.  The restored tree
+   bit-equal to the saved one, the resumed batches bit-equal to the
+   uninterrupted run's, the losses within rtol 1e-3 of it; seconds a step,
+   the saves' and the restore's seconds, bytes and files, and the
+   StepMonitor summary; one ``compress=True`` save of the AdamW moments,
+   each element back within its scale / 2.  (b) ``launch.serve``'s
+   ``run`` at full width and depth of qwen3-4b (float32 parameters, the
+   plan's method set to ``kernel``): ``--continuous`` (K9), ``--continuous
+   --dp 1 --tp 1`` (the engine on the mesh: thresholds, K2 + K3) with the
+   same tokens, and ``generate`` on the mesh (K10); each path's first
+   launch of each kernel held to its plain version; seconds a step,
+   tokens/s and peak memory.  (c) ``launch.train --app lda`` at
+   configs/lda.py's CONFIG for 2 sweeps (the ``butterfly`` method, K1).
 
 The last two lines are the ``{"kernels": [...]}`` record (the 13 TPU
 kernels and S1; a kernel with several layouts also gives the one its
@@ -221,6 +241,7 @@ import argparse
 import contextlib
 import dataclasses
 import gc
+import hashlib
 import json
 import os
 import re
@@ -3483,26 +3504,29 @@ def serve_profile(model, params, requests) -> dict:
 # the wrappers that the draw entry points (kernels.butterfly_sample.ops)
 # call by name: K2, K3, K9, K11, K12
 DRAW_WRAPPERS = ("blocksums", "walk", "fused_trunc_draw", "masked_blocksums", "walk_trunc")
+# phase 11's seeded per-shard draw: K10 (generate on a mesh under the
+# config's truncation)
+SHARD_WRAPPERS = ("fused_trunc_draw_rng",)
 
 
 @contextlib.contextmanager
-def captured_draws():
+def captured_draws(names=DRAW_WRAPPERS):
     """Inside, the first call that ``ops`` makes of each wrapper of
-    DRAW_WRAPPERS is recorded, ``cap[name] = (args, out)``, ``out``
-    cloned before the caller clamps it in place.  The launch and its
-    count stay the wrapper's own."""
+    ``names`` is recorded, ``cap[name] = (args, out)``, ``out`` cloned
+    before the caller clamps it in place.  The launch and its count stay
+    the wrapper's own."""
     cap = {}
-    real = {n: getattr(bops, n) for n in DRAW_WRAPPERS}
+    real = {n: getattr(bops, n) for n in names}
 
     def wrap(name):
-        def call(*args):
-            out = real[name](*args)
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
             if name not in cap:
                 cap[name] = (args, out.clone())
             return out
         return call
 
-    for n in DRAW_WRAPPERS:
+    for n in names:
         setattr(bops, n, wrap(n))
     try:
         yield cap
@@ -3517,7 +3541,7 @@ def check_captured(tally, case: str, cap: dict, counts: dict) -> None:
     wrapper launched there (``counts``) must have been recorded.  Running
     sums within their fp32 adds (K11 also bit-equal to its exact-order
     model); draws equal, or float64-checked ties."""
-    names = [n for n in DRAW_WRAPPERS if counts.get(n)]
+    names = [n for n in DRAW_WRAPPERS + SHARD_WRAPPERS if counts.get(n)]
     missing = [n for n in names if n not in cap]
     if missing:
         raise AssertionError(f"{case}: no launch of {missing} was recorded")
@@ -3540,6 +3564,12 @@ def check_captured(tally, case: str, cap: dict, counts: dict) -> None:
                           False, rel_tol=(W + nb) * 2.0 ** -23)
             tally.same(name, f"{case} K11 vs warp order", out,
                        masked_blocksums_warp_order_torch(w, tau, W, nb))
+        elif name == "fused_trunc_draw_rng":
+            w, s2, r0, prm, W, iters = args
+            u = rng.row_uniforms(s2.to(w.device), r0, w.shape[0])
+            tally.trunc(name, f"{case} K10", out,
+                        KB.fused_trunc_draw_rng_torch(w, s2, r0, prm, W, iters), w, u, prm,
+                        False)
         else:
             w, run, u, tau, rows, W = args
             plain = KB.walk_trunc_torch(w, KB.masked_blocksums_torch(w, tau, W, run.shape[1]),
@@ -4056,6 +4086,281 @@ def phase_training(dev, seed) -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the launchers on the card
+# ---------------------------------------------------------------------------
+
+# --warmup 2: the resumed steps 3-5 train at the schedule's full rate, so a
+# wrongly restored optimizer state moves their losses
+LAUNCH_TRAIN = ("--arch", "mamba2-370m", "--steps", "6", "--batch", "4", "--seq-len", "512",
+                "--ckpt-every", "2", "--log-every", "1", "--warmup", "2")
+PREEMPT_AFTER = 3          # steps before the run sends itself SIGTERM
+# resumed vs uninterrupted losses: 0 measured on the H100 (PERF.md §6); the
+# margin is for a backward pass that sums with atomics in another order
+RESUME_LOSS_RTOL = 1e-5
+CKPTS_ON_DISK = 4          # the launcher's keep=3 and the one being written
+LAUNCH_SERVE = "qwen3-4b"  # the serve launcher's default arch
+
+
+def _batch_sha(batch) -> str:
+    h = hashlib.sha256()
+    for k in sorted(batch):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(batch[k]).tobytes())
+    return h.hexdigest()
+
+
+def _differing_leaves(a, b) -> int:
+    return sum(not torch.equal(x, y) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def launch_train(dev, seed) -> dict:
+    """Phase 11a: ``launch.train``'s loop (``train_lm``) at full width and
+    depth of mamba2-370m, float32 parameters and AdamW as the launcher
+    makes them.  An uninterrupted 6-step run without checkpoints; then a
+    run that sends itself SIGTERM after step 3 (the loop commits a
+    checkpoint and returns) and a second call that resumes it to step 6.
+    The restored tree must be bit-equal to the saved one, the resumed
+    batches to the uninterrupted run's, the losses within
+    RESUME_LOSS_RTOL; then one ``compress=True`` save of the AdamW state,
+    whose every element comes back within its scale / 2."""
+    import shutil
+    import signal
+
+    from repro_torch.dist.compression import quantize_int8
+    from repro_torch.dist.fault import CheckpointManager, reset_preemption
+    from repro_torch.launch import train as ltrain
+
+    root = ROOT / "build" / "phase11"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    n_params = param_count(build_model(get_config(LAUNCH_TRAIN[1])).specs)
+    ckpt_bytes = 3 * 4 * n_params                  # float32 params, AdamW m and v
+    free = shutil.disk_usage(root).free
+    need = CKPTS_ON_DISK * ckpt_bytes + ckpt_bytes
+    log(f"phase 11a: a checkpoint of {LAUNCH_TRAIN[1]} is {ckpt_bytes / 1e9:.3f} GB; "
+        f"{free / 1e9:.1f} GB free under {root}, {need / 1e9:.1f} GB needed")
+    if free < need:
+        raise AssertionError(f"phase 11a: {free / 1e9:.1f} GB free under {root}; the "
+                             f"checkpoints need {need / 1e9:.1f} GB")
+    parse = ltrain.parser().parse_args
+    argv = list(LAUNCH_TRAIN) + ["--seed", str(seed)]
+    shas = {"ref": {}, "run": {}}
+
+    def recorder(which, kill_after=None):
+        def on_step(step, batch, metrics):
+            shas[which][step] = _batch_sha(batch)
+            if kill_after is not None and step == kill_after - 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+        return on_step
+
+    prev = signal.getsignal(signal.SIGTERM)
+    res = {"config": LAUNCH_TRAIN[1], "params": n_params, "checkpoint_bytes": ckpt_bytes}
+    try:
+        reset_counts()
+        ref = ltrain.train_lm(parse(argv), on_step=recorder("ref"))
+        res["uninterrupted"] = {"losses": ref["losses"], "step_s": ref["step_s"]}
+        del ref
+        free_device()
+        ck = root / "ckpt"
+        a = ltrain.train_lm(parse(argv + ["--ckpt-dir", str(ck)]),
+                            on_step=recorder("run", PREEMPT_AFTER))
+        if not a["preempted"] or CheckpointManager(str(ck)).latest_step() != PREEMPT_AFTER:
+            raise AssertionError(f"phase 11a: SIGTERM after step {PREEMPT_AFTER} did not "
+                                 f"commit step {PREEMPT_AFTER}: {a['saves']}")
+        saved = {"params": a["params"], "opt": a["opt"]}
+        reset_preemption()
+        restored = {}
+
+        def on_restore(tree, extra):
+            restored["differ"] = _differing_leaves(tree, saved)
+            restored["leaves"] = len(tree_leaves(tree))
+            restored["extra"] = extra
+
+        b = ltrain.train_lm(parse(argv + ["--ckpt-dir", str(ck), "--monitor-out",
+                                          str(root / "monitor.json")]),
+                            on_step=recorder("run"), on_restore=on_restore)
+        check_path("phase 11a train", read_counts(), {})
+        del saved
+    finally:
+        reset_preemption()
+        signal.signal(signal.SIGTERM, prev)
+    losses = {**a["losses"], **b["losses"]}
+    want = res["uninterrupted"]["losses"]
+    rel = max(abs(losses[s] - want[s]) / abs(want[s]) for s in want)
+    batches_equal = shas["run"] == shas["ref"]
+    res.update(
+        preempted_at=PREEMPT_AFTER, resumed_from=b["start"], losses=losses,
+        loss_max_rel_diff=rel, batches_equal=batches_equal,
+        restored_leaves=restored.get("leaves"), restored_differ=restored.get("differ"),
+        step_s={**a["step_s"], **b["step_s"]}, saves=a["saves"] + b["saves"],
+        restore=b["restore"], monitor=b["summary"],
+        monitor_file=json.loads((root / "monitor.json").read_text()))
+    log(f"  uninterrupted losses {want}; preempted after step {PREEMPT_AFTER}, resumed from "
+        f"step {b['start']}: losses {losses}, max rel diff {rel:.3g} (tolerance "
+        f"{RESUME_LOSS_RTOL}); batches bit-equal {batches_equal}; restored tree: "
+        f"{restored.get('differ')} of {restored.get('leaves')} leaves differ")
+    log(f"  seconds a step {[round(t, 4) for t in res['step_s'].values()]}; saves "
+        f"{[{k: v for k, v in sv.items() if k != 'files'} for sv in res['saves']]}; files "
+        f"{res['saves'][0]['files']}; restore {b['restore']}")
+    log(f"  StepMonitor summary: {b['summary']}")
+    if restored.get("differ") != 0 or restored.get("extra", {}).get("step") != PREEMPT_AFTER:
+        raise AssertionError(f"phase 11a: the restored tree differs from the saved one "
+                             f"({restored})")
+    if not batches_equal or rel > RESUME_LOSS_RTOL or not np.isfinite(list(losses.values())).all():
+        raise AssertionError(f"phase 11a: resumed run off the uninterrupted one: batches "
+                             f"{batches_equal}, loss rel diff {rel}")
+    if b["summary"]["steps"] != 6 - PREEMPT_AFTER or b["summary"]["dead_hosts"]:
+        raise AssertionError(f"phase 11a: monitor summary {b['summary']}")
+
+    # one compressed save of the AdamW moments
+    opt = b["opt"]
+    del a, b
+    free_device()
+    shutil.rmtree(ck)
+    mgr = CheckpointManager(str(root / "int8"), async_save=False, compress=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mgr.save(1, {"opt": opt})
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back, _ = mgr.restore(like={"opt": opt})
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    worst = 0.0
+    for x, y in zip(tree_leaves(opt), tree_leaves(back["opt"])):
+        _, scale = quantize_int8(x)
+        err = (x - y).abs()
+        slack = float((err - (scale / 2 + torch.finfo(torch.float32).eps * x.abs())).max())
+        worst = max(worst, float(err.max() / torch.clamp_min(scale / 2, 1e-30)))
+        if slack > 0:
+            raise AssertionError(f"phase 11a: an int8 moment came back {slack} past scale/2")
+    d = root / "int8" / "step_00000001"
+    res["int8"] = {"save_s": save_s, "restore_s": restore_s,
+                   "bytes": sum(f.stat().st_size for f in d.iterdir()),
+                   "raw_bytes": 2 * 4 * n_params, "max_err_over_half_scale": worst}
+    log(f"  compress=True save of the AdamW moments: {res['int8']}")
+    del opt, back
+    shutil.rmtree(root)
+    free_device()
+    return res
+
+
+def launch_serve(dev, seed, tally) -> tuple:
+    """Phase 11b: ``launch.serve``'s ``run`` (what its CLI calls) at full
+    width and depth of qwen3-4b, float32 parameters as the launcher makes
+    them, the plan's method set to ``kernel``: ``--continuous`` without a
+    mesh (K9), ``--continuous --dp 1 --tp 1`` (the engine on a (1, 1)
+    mesh: thresholds, then K2 + K3 on the masked weights) with the same
+    tokens, and ``generate`` on the mesh (K10).  The first launch of each
+    kernel of each path is held to its plain version on its own inputs."""
+    from repro_torch.launch import serve as lserve
+
+    cfg = kernel_config(get_config(LAUNCH_SERVE))
+    model = build_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device=dev).manual_seed(seed), model.specs,
+                         torch.float32, dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    log(f"phase 11b: {LAUNCH_SERVE} at full width ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, V={cfg.vocab_size}); {param_count(model.specs)} float32 parameters "
+        f"made in {init_s:.2f} s")
+    launches, res = {}, {"config": LAUNCH_SERVE, "params": param_count(model.specs)}
+    paths = (("engine", ["--continuous"], DRAW_WRAPPERS, {"fused_trunc_draw"}),
+             ("engine dp 1", ["--continuous", "--dp", "1", "--tp", "1"], DRAW_WRAPPERS,
+              {"blocksums", "walk"}),
+             ("generate dp 1", ["--dp", "1", "--tp", "1"], SHARD_WRAPPERS,
+              {"fused_trunc_draw_rng"}))
+    for label, argv, names, expect in paths:
+        reset_counts()
+        with captured_draws(names) as cap:
+            out = lserve.run(lserve.parser().parse_args(argv + ["--sampler", "kernel"]), cfg,
+                             params)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        got = {n for n, c in counts.items() if c}
+        log(f"  {label}: launches { {n: c for n, c in counts.items() if c} }")
+        if got != expect:
+            raise AssertionError(f"phase 11b {label}: launched {got}, expected {expect}")
+        check_captured(tally, f"phase 11 {label}", cap, counts)
+        add_counts(launches, counts)
+        toks = out["tokens"]
+        flat = [t for row in toks for t in row]
+        if not flat or min(flat) < 0 or max(flat) >= cfg.vocab_size:
+            raise AssertionError(f"phase 11b {label}: tokens out of range")
+        steps = out["engine"].step_times if "engine" in out else []
+        res[label] = {"tokens": toks, "seconds": out["seconds"], "steps": out["steps"],
+                      "tokens_out": out["tokens_out"],
+                      "tokens_per_s": out["tokens_out"] / out["seconds"],
+                      "step_s_median": _pct([s["dt"] for s in steps], 50) if steps else
+                      out["seconds"] / out["steps"], "launches": counts}
+        log(f"  {label}: {out['tokens_out']} tokens in {out['seconds']:.3f} s "
+            f"({res[label]['tokens_per_s']:.1f} tokens/s, {out['steps']} steps, seconds a "
+            f"step {res[label]['step_s_median']:.5f})")
+        del out
+    if res["engine dp 1"]["tokens"] != res["engine"]["tokens"]:
+        raise AssertionError("phase 11b: the engine on the (1, 1) mesh gave other tokens "
+                             "than the engine without a mesh")
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  the engine on the mesh gave the unsharded engine's tokens; peak "
+        f"{res['peak_bytes'] / 2**30:.3f} GiB")
+    del params
+    free_device()
+    return launches, res
+
+
+def launch_lda(dev, seed) -> tuple:
+    """Phase 11c: ``launch.train --app lda`` (``train_lda``) at
+    configs/lda.py's CONFIG for 2 sweeps, its launches counted."""
+    from repro_torch.launch import train as ltrain
+
+    args = ltrain.parser().parse_args(["--app", "lda", "--steps", "2", "--log-every", "1",
+                                       "--seed", str(seed)])
+    reset_counts()
+    t0 = time.perf_counter()
+    out = ltrain.train_lda(args)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    c = out["config"]
+    log(f"phase 11c: --app lda at M={c.M}, V={c.V}, K={c.K}, method {c.sampler_method} "
+        f"W={c.sampler_W}: {len(out['sweeps'])} sweeps {out['sweeps']} ({wall:.2f} s with the "
+        f"corpus); launches { {n: k for n, k in counts.items() if k} }")
+    got = {n for n, k in counts.items() if k}
+    if not all(np.isfinite(s["perplexity"]) for s in out["sweeps"]) or \
+            got != set(AUTO_KERNELS[c.sampler_method]):
+        raise AssertionError(f"phase 11c: {out['sweeps']}, launches {counts}")
+    check_state(out["state"], c.K, out["state"].z)
+    return counts, {"config": dataclasses.asdict(c), "sweeps": out["sweeps"], "wall_s": wall,
+                    "launches": counts}
+
+
+def phase_launchers(dev, seed, tally) -> tuple:
+    """Phase 11: the launchers on a one-rank NCCL group (an in-memory store,
+    no TCP port) and the ("data", "model") mesh of (1, 1) they build."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import multihost
+    from repro_torch.dist import sharding as shd
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        res = {"train": launch_train(dev, seed + 120)}
+        launches, res["serve"] = launch_serve(dev, seed + 121, tally)
+        counts, res["lda"] = launch_lda(dev, seed + 122)
+        add_counts(launches, counts)
+    finally:
+        shd.set_activation_sharding(None)
+        multihost._reset_for_tests()
+        dist.destroy_process_group()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"phase 11: {res['seconds']:.2f} s")
+    return launches, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4167,6 +4472,9 @@ def main(argv=None) -> int:
     add_counts(launches, counts)
     log("phase 10: training (train/ and data/ on the card)")
     main_res["training"] = phase_training(dev, args.seed)
+    log("phase 11: the launchers on the card (dist/ and launch/)")
+    counts, main_res["launchers"] = phase_launchers(dev, args.seed, tally)
+    add_counts(launches, counts)
 
     kernels = []
     layouts = path_layouts(corpus.docs.shape[1])

@@ -65,6 +65,19 @@ class Corpus:
         return out
 
 
+def _choice_cdf(p: np.ndarray) -> np.ndarray:
+    """The cdf that ``Generator.choice(len(p), p=p)`` builds."""
+    cdf = p.cumsum()
+    cdf /= cdf[-1]
+    return cdf
+
+
+def _choice(rng: np.random.Generator, cdf: np.ndarray, size: int) -> np.ndarray:
+    """``rng.choice(len(cdf), size, p=p)`` on a prebuilt cdf: the same
+    uniforms, the same search, the same draws."""
+    return cdf.searchsorted(rng.random(size), side="right")
+
+
 def _topic_word_dirichlet(
     rng: np.random.Generator,
     V: int,
@@ -124,6 +137,10 @@ def synthesize_corpus(
     maxN = int(lengths.max())
     docs = np.zeros((M, maxN), np.int32)
     mask = np.zeros((M, maxN), bool)
+    # each topic's word cdf once, as ``rng.choice(V, p=true_phi[:, k])``
+    # builds it on every call (the same draws: choice searches its cdf
+    # with the same uniforms)
+    word_cdf = {}
     for m in range(M):
         n = lengths[m]
         topics = rng.choice(K, size=n, p=true_theta[m])
@@ -131,7 +148,9 @@ def synthesize_corpus(
         words = np.empty(n, np.int32)
         for k in np.unique(topics):
             sel = topics == k
-            words[sel] = rng.choice(V, size=sel.sum(), p=true_phi[:, k])
+            if k not in word_cdf:
+                word_cdf[k] = _choice_cdf(true_phi[:, k])
+            words[sel] = _choice(rng, word_cdf[k], int(sel.sum()))
         docs[m, :n] = words
         mask[m, :n] = True
     return Corpus(

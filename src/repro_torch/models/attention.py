@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.dist.sharding import activation_mesh, constrain_activation, for_cache
 from repro_torch.models.layers import (apply_rope, einsum, head_rmsnorm,
                                        head_rmsnorm_spec, rmsnorm)
 from repro_torch.models.params import ParamSpec
@@ -80,14 +81,18 @@ def _attend(scores, mask, v):
     return einsum("bhqs,bshv->bqhv", probs, v)
 
 
-def _sdpa(q, k, v, mask, softcap: float = 0.0):
+def _sdpa(q, k, v, mask, softcap: float = 0.0, kv_sharded: bool = False):
     """q (B,Sq,H,hd)  k (B,Sk,KV,hd)  v (B,Sk,KV,hv) -> (B,Sq,H,hv).
 
     A (Sq, Sk) mask broadcasts over the batch; a (B, Sq, Sk) mask is per
-    row (continuous batching: each slot attends its own prefix)."""
+    row (continuous batching: each slot attends its own prefix).
+    ``kv_sharded``: pin the score matrix's key axis to the cache's seq
+    sharding (the activation hook; the identity without a mesh)."""
     H = q.shape[2]
     k, v = _repeat_kv(k, H), _repeat_kv(v, H)
     scores = _scores(q, k, softcap)
+    if kv_sharded:
+        scores = constrain_activation(scores, ("batch", None, None, "act_kv"))
     return _attend(scores, mask[None, None] if mask.dim() == 2 else mask[:, None], v)
 
 
@@ -98,15 +103,20 @@ def _cache_update(cache_arr, new, pos):
     tensor), or a (B,) tensor of per-row positions (continuous batching:
     each slot writes at its own sequence length).  The reference writes
     the per-row case as a one-hot ``where`` over the whole cache; an
-    indexed write of one row per sequence gives the same cache."""
-    new = new.to(cache_arr.dtype)
+    indexed write of one row per sequence gives the same cache.  With an
+    activation mesh armed, the written cache is pinned to its
+    ("batch", "act_kv") layout, as the reference pins it."""
+    new = for_cache(cache_arr, new).to(cache_arr.dtype)
     if isinstance(pos, torch.Tensor) and pos.dim() == 1:
         B = cache_arr.shape[0]
         cache_arr[torch.arange(B, device=cache_arr.device), pos.long()] = new[:, 0]
-        return cache_arr
-    S, n = cache_arr.shape[1], new.shape[1]
-    start = min(max(int(pos), 0), S - n)   # dynamic_update_slice clamps the start
-    cache_arr[:, start:start + n] = new
+    else:
+        S, n = cache_arr.shape[1], new.shape[1]
+        start = min(max(int(pos), 0), S - n)   # dynamic_update_slice clamps the start
+        cache_arr[:, start:start + n] = new
+    if activation_mesh() is not None:
+        cache_arr = constrain_activation(
+            cache_arr, ("batch", "act_kv") + (None,) * (cache_arr.dim() - 2))
     return cache_arr
 
 
@@ -204,7 +214,7 @@ def gqa_attend(
         # window relative to the *query* position (cache_pos), not k order
         mask = attention_mask(torch.full(tuple(positions.shape[-1:]), p, device=k_pos.device),
                               k_pos, causal=False, window=window, k_valid=k_pos <= p)
-    out = _sdpa(q, ck, cv, mask, cfg.attn_softcap)
+    out = _sdpa(q, ck, cv, mask, cfg.attn_softcap, kv_sharded=True)
     y = einsum("bsnh,nhd->bsd", out, params["wo"])
     return y, {"k": ck, "v": cv}
 

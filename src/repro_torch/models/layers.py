@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.dist.sharding import gather_dim
 from repro_torch.models.params import ParamSpec
 
 
@@ -124,7 +125,11 @@ def embedding_spec(vocab: int, d_model: int) -> Dict[str, ParamSpec]:
 
 
 def embed(params, tokens, scale: bool = False):
-    table = params["table"]
+    """Rows of the table.  A vocab-sharded DTensor table is gathered along
+    the vocab first: DTensor's lookup on a vocab shard gives a masked
+    partial whose mask a later op with a cached sharding decision applies
+    to a tensor of another shape (ROADMAP.md, deliberate differences)."""
+    table = gather_dim(params["table"], 0)
     x = table[tokens.long()]
     if scale:
         # sqrt(float32(D)) cast to the table's dtype, then the multiply (a

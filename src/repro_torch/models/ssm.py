@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.dist.sharding import for_cache
 from repro_torch.models.layers import einsum, rmsnorm
 from repro_torch.models.params import ParamSpec
 
@@ -207,7 +208,7 @@ def ssm_decode_step(
     out = einsum("bse,ed->bsd", y, params["wout"])
     for name, new in (("h", h), ("conv_x", conv_x_state), ("conv_b", conv_b_state),
                       ("conv_c", conv_c_state)):
-        cache[name].copy_(new)
+        cache[name].copy_(for_cache(cache[name], new))
     return out, cache
 
 

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import constrain_activation
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -214,6 +215,8 @@ def stack_apply(
     for l in range(cfg.num_layers):
         lp = tree_map(lambda a: a[l], params)
         lcache = None if caches is None else tree_map(lambda a: a[l], caches)
+        if x.shape[1] > 1:  # not decode: the activation hook on the carry
+            x = constrain_activation(x, ("batch", "act_seq", None))
         x, cache_out, aux_l = layer(cfg, lp, x, positions, int(windows[l]),
                                     cache=lcache, cache_pos=cache_pos)
         aux = aux + aux_l

@@ -176,7 +176,8 @@ def reset_sharded_cache() -> None:
 
 
 def _local_rows(lay: _Layout, x, B: int, what: str, shape=None) -> torch.Tensor:
-    """This rank's rows of ``x``: a row-sharded DTensor's local tensor, or
+    """This rank's rows of ``x``: a DTensor's local tensor once it is
+    row-sharded (redistributed to the rows' placements if it is not), or
     rows [index * B/shards, (index + 1) * B/shards) of a plain tensor
     holding the whole array.  ``shape`` checks the global shape."""
     if isinstance(x, DTensor):
@@ -184,8 +185,9 @@ def _local_rows(lay: _Layout, x, B: int, what: str, shape=None) -> torch.Tensor:
             raise ValueError(f"plan was made for shape {tuple(shape)}, got {what} of "
                              f"shape {tuple(x.shape)}")
         if tuple(x.placements) != lay.placements:
-            raise ValueError(f"{what} must be row-sharded as {lay.placements}, got "
-                             f"{tuple(x.placements)}")
+            # shard_map's in_specs: any other placement (a model's Partial
+            # or vocab-sharded logits) is redistributed to the row layout
+            x = x.redistribute(lay.mesh, lay.placements)
         return x.to_local()
     x = torch.as_tensor(x)
     if shape is not None and tuple(x.shape) != tuple(shape):

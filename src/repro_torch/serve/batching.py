@@ -30,15 +30,26 @@ requests expressed entirely as per-slot *data*.
   each prefill prepends them, and a slot's positions count from them (the
   reference's engine refuses such configs).
 
+* **A mesh.**  ``mesh=`` (a ``DeviceMesh``) row-shards the draw over the
+  mesh's data axes, as the reference's ``shard_map`` does: each rank
+  thresholds and masks its own slots' weights and draws them with a
+  per-shard u-driven plan on the per-slot counter uniforms (the unfused
+  route the reference runs on a mesh: a ``kernel`` plan builds the masked
+  weights' block sums with K2 and walks them with K3, where the engine
+  without a mesh runs K9), then every rank gathers the step's whole token
+  vector.  The uniforms are functions of (request seed, token index), so
+  the tokens equal the unsharded engine's.  DTensor parameters (placed
+  by ``repro_torch.dist.sharding``) run under ``implicit_replication``.
+
 Nothing is traced or compiled: :meth:`ContinuousBatchingEngine.compile_stats`
 reports ``sampling.plan_stats()`` (plans resolve once per workload) and the
-prefill buckets seen.  A sharded engine (``mesh=``) comes with
-``repro_torch.dist`` (ROADMAP.md queue 1, slice 14).
+prefill buckets seen.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -46,11 +57,13 @@ import numpy as np
 import torch
 
 from repro_torch import sampling
+from repro_torch.dist.sharding import for_cache
 from repro_torch.kernels import rng as _rng
 from repro_torch.kernels.butterfly_sample import ops as _kops
 from repro_torch.models.model import Model
 from repro_torch.models.params import init_params
 from repro_torch.sampling import distribution as _dist
+from repro_torch.sampling import sharded as _sharded
 from repro_torch.sampling import transforms as _tr
 from repro_torch.serve.engine import _params_device
 from repro_torch.serve.request import FinishReason, Request, RequestState
@@ -85,6 +98,7 @@ def _insert(caches, prefix, slot: int, name=None) -> None:
             _insert(caches[k], None if prefix is None else prefix[k], slot, k)
         return
     row = caches[:, slot]
+    prefix = for_cache(row, prefix)
     if prefix is None:
         row.zero_()
     elif name in _SEQ_LEAF_NAMES:
@@ -117,10 +131,6 @@ class ContinuousBatchingEngine:
         cache_dtype=torch.float32,
     ):
         cfg = model.cfg
-        if mesh is not None:
-            raise NotImplementedError(
-                "a sharded continuous-batching engine (mesh=) comes with "
-                "repro_torch.dist, ROADMAP.md queue 1, slice 14")
         if cfg.encoder_layers > 0 or cfg.frontend_len > 0:
             raise ValueError(
                 "continuous batching serves decoder-only families; "
@@ -139,11 +149,19 @@ class ContinuousBatchingEngine:
         self.prefill_chunk = serve.prefill_chunk if prefill_chunk is None else prefill_chunk
         self.temperature = float(temperature)
         self.eos_id = eos_id
+        self.mesh = mesh
         self.scheduler = Scheduler(
             self.max_slots, serve.max_waiting if max_waiting is None else max_waiting)
 
         B, V = self.max_slots, cfg.padded_vocab
-        self.plan = self._resolve_plan(B, V)
+        # on a mesh: this rank's shard of the slots, and a plan per shard
+        self._lay, nd = None, 1
+        if mesh is not None:
+            nd = _sharded.data_size(mesh)
+            if B % nd:
+                raise ValueError(f"max_slots={B} must divide over the mesh's {nd} data shards")
+            self._lay = _sharded._layout(mesh)
+        self.plan = self._resolve_plan(B // nd, V, nd)
 
         # the decode cache: (L, B, S, ...) leaves, zero-initialized once;
         # slot rows are reset in place on every admit
@@ -173,8 +191,10 @@ class ContinuousBatchingEngine:
 
     # -- planning ----------------------------------------------------------
 
-    def _resolve_plan(self, B: int, V: int):
-        """A u-driven sampler plan for the (B, V) decode workload.
+    def _resolve_plan(self, B: int, V: int, devices: int = 1):
+        """A u-driven sampler plan for the (B, V) decode workload (a
+        shard's (B / shards, V) on a mesh, tagged with ``devices=shards``
+        so ``auto`` resolves in the tuner's ``|devN`` bucket).
 
         The per-slot RNG streams hand the draw an explicit (B,) uniform
         vector, so key-driven variants (gumbel / alias) and factored ones
@@ -184,7 +204,8 @@ class ContinuousBatchingEngine:
 
         def uplan(method):
             return sampling.plan((B, V), method=method, W=spec.W or None, dtype="float32",
-                                 draws=1, has_key=False, backend=self.device.type)
+                                 draws=1, has_key=False, devices=devices,
+                                 backend=self.device.type)
 
         p = uplan(spec.method)
         if p.method in _dist.KEY_VARIANTS or p.table_method in _dist.FACTORED_VARIANTS:
@@ -197,26 +218,46 @@ class ContinuousBatchingEngine:
         """One token per row from (B, V) weights, (B,) uniforms and the
         (B, 3) [top_k, top_p, min_p] block."""
         plan = self.plan
-        if plan.method in ("kernel", "kernel_trunc"):
+        if self.mesh is None and plan.method in ("kernel", "kernel_trunc"):
             # one fused kernel (K9): threshold + mask + draw
             return _kops.butterfly_sample_truncated(w, u, kpm, W=plan.W)
         tau = _tr.thresholds_from_params(w, kpm)
         wm = torch.where(w >= tau[:, None], w, torch.zeros_like(w))
         return _dist.draw(plan.build(wm), u=u)
 
+    def _replicated(self):
+        """DTensor parameters take plain operands as replicated."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        from torch.distributed.tensor.experimental import implicit_replication
+
+        return implicit_replication()
+
     def _step(self, token, pos, seeds, draw_idx, temp, kpm):
-        logits, self._caches = self.model.decode(self.params, self._caches,
-                                                 token[:, None], pos)
+        with self._replicated():
+            logits, self._caches = self.model.decode(self.params, self._caches,
+                                                     token[:, None], pos)
+        lay = self._lay
+        if lay is not None:
+            # this rank's slots (logits redistributed to the row layout)
+            B = self.max_slots
+            logits = _sharded._local_rows(lay, logits, B, "logits")
+            seeds, draw_idx, temp, kpm = (_sharded._local_rows(lay, x, B, "slots")
+                                          for x in (seeds, draw_idx, temp, kpm))
         # per-slot stream: uniform for (request seed, token index) —
-        # independent of slot id and batch mix
+        # independent of slot id, batch mix and shard count
         bits, _ = _rng.threefry2x32(seeds[:, 0], seeds[:, 1], draw_idx,
                                     torch.zeros_like(draw_idx))
         u = _rng.bits_to_uniform(bits)
         safe_t = torch.where(temp > 0, temp, torch.ones_like(temp))
         w = _dist.logits_to_weights(logits, safe_t).to(torch.float32)
-        sampled = self._draw(w, u, kpm).to(torch.int32)
+        sampled = self._draw(w, u, kpm.contiguous()).to(torch.int32)
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
-        return torch.where(temp > 0, sampled, greedy)
+        nxt = torch.where(temp > 0, sampled, greedy)
+        if lay is not None:
+            # every rank ends the step with the whole token vector
+            nxt = _sharded._draws_out(lay, nxt).full_tensor()
+        return nxt
 
     @staticmethod
     def _seed_pair(seed: int) -> np.ndarray:
@@ -281,13 +322,15 @@ class ContinuousBatchingEngine:
             sb = _bucket(prefix.size) if prefix.size else 0
             toks = np.zeros((1, sb), np.int32)
             toks[0, : prefix.size] = prefix
-            pre = self.model.prefill(self.params,
-                                     {"tokens": torch.as_tensor(toks, device=self.device)})[1]
+            with self._replicated():
+                pre = self.model.prefill(
+                    self.params, {"tokens": torch.as_tensor(toks, device=self.device)})[1]
         else:
             # single-token prompt: no prefix — the insert still resets the
             # slot's rows
             sb, pre = 0, None
-        _insert(self._caches, pre, slot)
+        with self._replicated():
+            _insert(self._caches, pre, slot)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         req.prefill_time = time.perf_counter()

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from repro_torch import sampling
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import whole
 from repro_torch.kernels import rng as _rng
 from repro_torch.models.model import Model
 from repro_torch.sampling import transforms as _tr
@@ -127,11 +128,6 @@ def _chain_for(sp: SamplingParams, sig: str):
     return tuple(out)
 
 
-def _whole(idx):
-    """A sharded draw (a DTensor) gathered whole; a tensor as it is."""
-    return idx.full_tensor() if hasattr(idx, "full_tensor") else idx
-
-
 def make_decode_step(
     model: Model,
     temperature: float = 1.0,
@@ -169,7 +165,7 @@ def make_decode_step(
     seen = {"plain": set(), "trunc": set()}
 
     def _shape(nxt, logits, caches):
-        nxt = _whole(nxt).to(torch.int32)
+        nxt = whole(nxt).to(torch.int32)
         if num_samples == 1:
             return nxt[:, None], logits, caches
         return nxt.T, logits, caches  # (B, num_samples)
@@ -288,7 +284,7 @@ def generate(
     else:
         first = first_plan.sample_logits(last_logits, temperature=temperature,
                                          transforms=tr, key=rng(0))
-    token = _whole(first).to(torch.int32)[:, None]
+    token = whole(first).to(torch.int32)[:, None]
 
     out = [token.cpu().numpy()]
     done = np.zeros((B,), bool)
@@ -333,7 +329,7 @@ def make_serve_step(
             nxt = p.sample_logits(logits, rng, temperature=temp, transforms=tr)
         else:
             nxt = p.sample_logits(logits, temperature=temp, transforms=tr, key=rng)
-        return _whole(nxt).to(torch.int32), caches
+        return whole(nxt).to(torch.int32), caches
 
     return serve_step
 

@@ -14,6 +14,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.dist.sharding import gather_dim
 from repro_torch.models.model import Model
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.train.optimizer import Optimizer
@@ -29,8 +30,11 @@ class TrainMetrics(NamedTuple):
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                   z_loss: float = 1e-4) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Masked token CE with z-loss; logits any float dtype, math in float32."""
-    logits = logits.to(torch.float32)
+    """Masked token CE with z-loss; logits any float dtype, math in float32.
+    Vocab-sharded DTensor logits are gathered along the vocab first: the
+    DTensor rule of ``torch.gather`` on a vocab shard gives a masked
+    partial that its reduction then fails on."""
+    logits = gather_dim(logits, -1).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     ce = (lse - gold) * mask

@@ -245,7 +245,9 @@ def test_cuda_default_without_card_raises(small_corpus, monkeypatch):
 
 
 def test_port_imports_no_jax():
-    """Importing every repro_torch module loads no jax and no repro module."""
+    """Importing every repro_torch module (``dist`` and ``launch`` among
+    them) loads no jax and no repro module, and brings up no process
+    group."""
     src = Path(__file__).resolve().parents[1] / "src"
     code = (
         "import importlib, json, pkgutil, sys\n"
@@ -254,10 +256,16 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')]\n"
         "n = len([m for m in sys.modules if m.startswith('repro_torch')])\n"
-        "print(json.dumps({'n': n, 'bad': bad}))\n"
+        "import torch.distributed as dist\n"
+        "walked = [m for m in ('repro_torch.dist.fault', 'repro_torch.dist.multihost',\n"
+        "                      'repro_torch.launch.mesh', 'repro_torch.launch.train',\n"
+        "                      'repro_torch.launch.serve') if m in sys.modules]\n"
+        "print(json.dumps({'n': n, 'bad': bad, 'walked': walked,\n"
+        "                  'group': dist.is_available() and dist.is_initialized()}))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          env={"PYTHONPATH": str(src), "PATH": "/usr/bin:/bin"},
                          timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == [] and res["n"] >= 81, res
+    assert len(res["walked"]) == 5 and not res["group"], res

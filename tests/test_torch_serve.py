@@ -129,12 +129,12 @@ def _tie(tm, tp, req, t, a, b) -> bool:
     return abs(_u(req.seed, t) * total - float(cdf[min(a, b)])) <= TIE_TOL * total
 
 
-def _compare_engines(kind, method, slots=3, n=10, **over):
+def _compare_engines(kind, method, slots=3, n=10, jmesh=None, tmesh=None, **over):
     jm, tm, jp, tp = _pair(kind, method, **over)
     V = tm.cfg.vocab_size
-    want = [r.output_tokens for r in JEngine(jm, jp, max_slots=slots, max_len=32).run(
-        _mixed(JRequest, JSP, V, n))]
-    eng = ContinuousBatchingEngine(tm, tp, max_slots=slots, max_len=32)
+    want = [r.output_tokens for r in JEngine(jm, jp, max_slots=slots, max_len=32,
+                                             mesh=jmesh).run(_mixed(JRequest, JSP, V, n))]
+    eng = ContinuousBatchingEngine(tm, tp, max_slots=slots, max_len=32, mesh=tmesh)
     got = eng.run(_mixed(Request, SamplingParams, V, n))
     ties = 0
     for r, w in zip(got, want):
@@ -494,10 +494,18 @@ def test_warmup_resets_metrics_and_plans_once(tiny):
     assert after["plan_stats"]["plan_misses"] == base["plan_stats"]["plan_misses"] == 1
 
 
-def test_engine_waiting_slices_raise(tiny):
+def test_engine_waiting_slices_raise(tiny, mesh1):
+    """The mesh case is the reference's
+    ``test_mesh_requires_divisible_slots``: 3 slots do not divide over a
+    (2, 1) mesh's 2 data shards (a mesh description; no collective runs
+    before the check).  Encoder/frontend configs still raise."""
+    from torch.distributed.device_mesh import DeviceMesh
+
     tm, tp = tiny
-    with pytest.raises(NotImplementedError, match="slice 14"):
-        ContinuousBatchingEngine(tm, tp, max_slots=2, mesh=object())
+    mesh = DeviceMesh("cpu", torch.arange(2).reshape(2, 1), mesh_dim_names=("data", "model"),
+                      _init_backend=False)
+    with pytest.raises(ValueError, match="divide"):
+        ContinuousBatchingEngine(tm, tp, max_slots=3, mesh=mesh)
     for arch in ("pixtral-12b", "seamless-m4t-medium"):
         m = tbuild(tget(arch, smoke=True))
         with pytest.raises(ValueError, match="encoder/frontend"):
@@ -575,3 +583,44 @@ def test_engine_state_lives_on_the_params_device(tiny):
     assert eng.device.type == "cpu"
     assert all(x.device.type == "cpu" and x.dtype == torch.float32
                for x in tree_leaves(eng._caches))
+
+
+def test_engine_on_a_one_rank_mesh_equals_the_engine_without(mesh1):
+    """``mesh=`` on a one-rank ("data",) mesh: the per-shard unfused draw
+    (threshold, mask, the u-driven plan on the per-slot counter uniforms)
+    gives the tokens of the engine without a mesh, for a ``kernel`` plan
+    (K9 without a mesh, K2 + K3 on the masked weights with one) and a
+    ``butterfly`` one; the 2-rank case is in test_torch_launch.py."""
+    for method in ("kernel", "butterfly"):
+        _, tm, _, tp = _pair("tiny", method)
+
+        def reqs():
+            return [_req(i, plen=2 + i % 3, max_new=4, temperature=0.8, top_p=0.9)
+                    for i in range(6)]
+
+        got = [r.output_tokens for r in
+               ContinuousBatchingEngine(tm, tp, max_slots=8, max_len=32, mesh=mesh1).run(reqs())]
+        want = [r.output_tokens for r in
+                ContinuousBatchingEngine(tm, tp, max_slots=8, max_len=32).run(reqs())]
+        assert got == want, method
+
+
+def test_engine_on_a_mesh_matches_reference_on_a_mesh(mesh1, monkeypatch):
+    """Both engines' ``mesh=`` routes on the same weights and requests: the
+    port's on its one-rank mesh (this rank's logits rows, threshold, mask,
+    the per-shard ``butterfly`` plan) against the reference's on a
+    one-device (1, 1) jax Mesh (the same draw inside ``shard_map``), with
+    the boundary ties of ``_compare_engines``.  The installed
+    ``jax.shard_map`` names the reference's ``check_rep`` argument
+    ``check_vma`` (ROADMAP queue 3), so the reference's call is handed
+    that name here; its code runs as it is."""
+    import repro.serve.batching as jbatching
+    from jax.sharding import Mesh
+
+    monkeypatch.setattr(jbatching, "_shard_map",
+                        lambda f, *, check_rep=True, **kw: jax.shard_map(
+                            f, check_vma=check_rep, **kw))
+    jmesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    eng = _compare_engines("tiny", "butterfly", slots=8, jmesh=jmesh, tmesh=mesh1)
+    assert eng.mesh is mesh1 and eng._lay is not None
+    assert eng.plan.method == "butterfly" and eng.plan.devices == 1
