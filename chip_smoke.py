@@ -227,10 +227,32 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    launch of each kernel held to its plain version; seconds a step,
    tokens/s and peak memory.  (c) ``launch.train --app lda`` at
    configs/lda.py's CONFIG for 2 sweeps (the ``butterfly`` method, K1).
+12. The dry-run (``launch.dryrun``, ``launch.costing``) on a fake process
+   group of 512 ranks.  (a) ``lower_cell`` traces three production cells
+   at full width under ``FakeTensorMode`` on cuda meshes: gemma2-9b
+   ``decode_32k`` and llama3-8b ``train_4k`` on the 256-rank pod, qwen3-4b
+   ``prefill_32k`` on the 512-rank two-pod mesh; each prints its
+   parameters, trace seconds, per-device memory (beside the card's 80 GB,
+   no check) and its five largest storages at the peak, FLOPs, bytes,
+   collectives by kind, the resolved sampler and the kernels traced by
+   their fake rules, and holds its parameter and AdamW-state bytes per
+   device equal to ``dist.sharding.tree_bytes_per_device`` on the same
+   mesh.  (b) One card: the dry-run without a mesh, then the same step
+   run for real on inputs of the same shapes (``dryrun.real_inputs``,
+   ``cell_step``): gemma2-9b at full width and depth, 8 sequences, 4,096
+   cache positions, bfloat16 parameters and caches, as the serve step
+   resolves its draw and under the model card's top-k 64 / top-p 0.95
+   (K9), and granite-moe-1b-a400m training at 4 x 512 with AdamW and
+   ``remat="full"``; FLOPs (``FlopCounterMode`` over the real step) and
+   kernel calls (the wrappers' launch counts) equal, the predicted peak
+   within 10% of ``max_memory_allocated`` above what was held before the
+   inputs were made, the first launch of each kernel held to its plain
+   version.
 
 The last two lines are the ``{"kernels": [...]}`` record (the 13 TPU
 kernels and S1; a kernel with several layouts also gives the one its
-rule picks at each main-path shape) and
+rule picks at each main-path shape; a kernel phase 12 traced gives its
+``traced_calls``) and
 ``{"ok": true, "device": {...}}``.  There is no CPU path: without a CUDA
 device the script exits 1 before printing a result.
 """
@@ -4361,6 +4383,149 @@ def phase_launchers(dev, seed, tally) -> tuple:
     return launches, res
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the dry-run (launch.dryrun, launch.costing) on the card
+# ---------------------------------------------------------------------------
+
+# (arch, shape, multi-pod): production cells traced on a fake group of 512
+# ranks and cuda meshes
+DRYRUN_CELLS = (("gemma2-9b", "decode_32k", False), ("llama3-8b", "train_4k", False),
+                ("qwen3-4b", "prefill_32k", True))
+H100_BYTES = 80 * 10**9
+# one card, predicted against measured: gemma2-9b decode at full width and
+# depth (as the reference's serve step resolves its draw, then under the
+# model card's truncation), granite-moe training at phase 10's geometry
+ONE_CHIP = (("gemma2-9b", ShapeConfig("decode_1chip", 4096, 8, "decode"), None),
+            ("gemma2-9b", ShapeConfig("decode_1chip", 4096, 8, "decode"),
+             dict(top_k=64, top_p=0.95)),
+            ("granite-moe-1b-a400m", ShapeConfig("train_1chip", 512, 4, "train"), None))
+PEAK_TOL = 0.10          # predicted peak within this share of the measured one
+
+
+def dryrun_cell(arch: str, shape: str, multi: bool) -> dict:
+    """One production cell through ``launch.dryrun.lower_cell`` on a cuda
+    mesh of the fake group; its parameter and optimizer-state bytes held
+    to ``dist.sharding.tree_bytes_per_device`` on the same mesh."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun
+
+    res = dryrun.lower_cell(arch, shape, multi_pod=multi, device="cuda")
+    mesh = shd.MeshDesc({"pod": 2, "data": 16, "model": 16} if multi
+                        else {"data": 16, "model": 16})   # the cell's mesh, described
+    specs = build_model(get_config(arch)).specs
+    want = {"params": shd.tree_bytes_per_device(specs, mesh, 2.0)}
+    if res.get("optimizer") == "adamw":   # float32 m and v, placed as the parameters
+        want["opt"] = 2 * shd.tree_bytes_per_device(specs, mesh, 4.0)
+    got = res["memory"]["by_argument"]
+    mem, cost, coll = res["memory"], res["cost"], res["collectives"]
+    log(f"  {arch} {shape} on {res['mesh']} ({res['devices']} ranks): {res['params']} "
+        f"parameters, trace {res['lower_s']:.1f} s; per device: arguments "
+        f"{mem['argument_bytes'] / 2**30:.3f} GiB ({ {k: v for k, v in got.items()} }), "
+        f"outputs {mem['output_bytes'] / 2**30:.3f} GiB, temporaries "
+        f"{mem['temp_bytes'] / 2**30:.3f} GiB, aliased {mem['alias_bytes'] / 2**30:.3f} GiB, "
+        f"peak {mem['peak_bytes'] / 2**30:.3f} GiB beside the card's 80 GB "
+        f"({mem['peak_bytes'] / H100_BYTES:.1%}); flops {cost['flops']:.6g}, bytes "
+        f"{cost['bytes_accessed']:.6g}; collectives "
+        f"{ {k: v for k, v in coll.items() if k != 'op_counts'} } counts {coll['op_counts']}; "
+        f"sampler {res.get('sampler')}; traced kernel calls {res['kernel_calls']}; largest "
+        f"storages at the peak {mem['peak_top']}")
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"{arch} {shape}: {k} bytes per device {got[k]} != "
+                                 f"tree_bytes_per_device's {v}")
+    res["tree_bytes_per_device"] = want
+    return res
+
+
+def one_chip(arch: str, shape, sp, dev, seed: int, tally) -> tuple:
+    """The dry-run's one-card prediction (``mesh=None`` on cuda) against the
+    same step run for real: FLOPs (``FlopCounterMode``) and kernel calls
+    equal, the peak within ``PEAK_TOL`` of ``max_memory_allocated`` above
+    the memory held before the inputs were made; the first launch of each
+    kernel held to its plain version."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+
+    cfg = get_config(arch)
+    params = serve.SamplingParams(**sp) if sp else None
+    label = f"{arch} {shape.name}" + (f" {sp}" if sp else "")
+    pred = dryrun.trace_cell(cfg, shape, None, device="cuda", sampling_params=params)
+    free_device()
+    base = torch.cuda.memory_allocated()
+    args = dryrun.real_inputs(cfg, shape, dev, seed)
+    run = dryrun.cell_step(cfg, shape, args, sampling_params=params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as fc, captured_draws() as cap:
+        out = run()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = read_counts()
+    del out
+    launched = {n: c for n, c in counts.items() if c}
+    want = pred["memory"]["peak_bytes"]
+    gap = (want - peak) / peak
+    res = {"config": arch, "shape": dataclasses.asdict(shape), "sampling": sp,
+           "flops": [pred["cost"]["flops"], float(fc.get_total_flops())],
+           "kernel_calls": [pred["kernel_calls"], launched],
+           "peak_bytes": [want, peak], "peak_gap": gap, "memory": pred["memory"],
+           "trace_s": pred["lower_s"], "step_s": step_s, "sampler": pred.get("sampler")}
+    log(f"  {label} on one card: flops traced {res['flops'][0]:.6g} / run "
+        f"{res['flops'][1]:.6g}; kernel calls traced {pred['kernel_calls']} / launched "
+        f"{launched}; peak predicted {want / 2**30:.3f} GiB (arguments "
+        f"{pred['memory']['argument_bytes'] / 2**30:.3f} + outputs "
+        f"{pred['memory']['output_bytes'] / 2**30:.3f} + temporaries "
+        f"{pred['memory']['temp_bytes'] / 2**30:.3f}) / measured {peak / 2**30:.3f} GiB "
+        f"(gap {gap:+.2%}); sampler {pred.get('sampler')}; trace {pred['lower_s']:.1f} s, "
+        f"step {step_s:.2f} s")
+    check_captured(tally, f"phase 12 {label}", cap, counts)
+    if res["flops"][0] != res["flops"][1]:
+        raise AssertionError(f"{label}: traced flops {res['flops'][0]} != run's {res['flops'][1]}")
+    if pred["kernel_calls"] != launched:
+        raise AssertionError(f"{label}: traced kernel calls {pred['kernel_calls']} != "
+                             f"launches {launched}")
+    if abs(gap) > PEAK_TOL:
+        raise AssertionError(f"{label}: predicted peak {want} is {gap:+.2%} off the "
+                             f"measured {peak}")
+    del args, run
+    free_device()
+    return counts, res
+
+
+def phase_dryrun(dev, seed, tally) -> tuple:
+    """Phase 12: (a) the production cells on a fake group of 512 ranks; (b)
+    the one-card predictions against the real steps."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    t0 = time.perf_counter()
+    res, traced, launches = {"cells": {}, "one_chip": []}, {}, {}
+    dryrun.fake_process_group(512)
+    try:
+        for arch, shape, multi in DRYRUN_CELLS:
+            cell = dryrun_cell(arch, shape, multi)
+            res["cells"][f"{arch} {shape} {cell['mesh']}"] = cell
+            add_counts(traced, cell["kernel_calls"])
+    finally:
+        dist.destroy_process_group()
+    res["cells_s"] = time.perf_counter() - t0
+    log("phase 12b: one card, predicted against measured")
+    for i, (arch, shape, sp) in enumerate(ONE_CHIP):
+        counts, one = one_chip(arch, shape, sp, dev, seed + 130 + i, tally)
+        res["one_chip"].append(one)
+        add_counts(launches, counts)
+        add_counts(traced, one["kernel_calls"][0])
+    res["seconds"] = time.perf_counter() - t0
+    res["traced_calls"] = traced
+    log(f"phase 12: {res['seconds']:.2f} s (cells {res['cells_s']:.2f} s)")
+    return launches, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4475,6 +4640,9 @@ def main(argv=None) -> int:
     log("phase 11: the launchers on the card (dist/ and launch/)")
     counts, main_res["launchers"] = phase_launchers(dev, args.seed, tally)
     add_counts(launches, counts)
+    log("phase 12: the dry-run (launch.dryrun and launch.costing) on the card")
+    counts, main_res["dryrun"] = phase_dryrun(dev, args.seed, tally)
+    add_counts(launches, counts)
 
     kernels = []
     layouts = path_layouts(corpus.docs.shape[1])
@@ -4490,6 +4658,8 @@ def main(argv=None) -> int:
         })
         if name in layouts:
             kernels[-1]["layouts"] = layouts[name]
+        if name in main_res["dryrun"]["traced_calls"]:  # phase 12's fake-rule calls
+            kernels[-1]["traced_calls"] = main_res["dryrun"]["traced_calls"][name]
         if name == "butterfly_table":  # the W = 128 call beside the chunk's
             w128 = timing["butterfly_table_w128"]
             kernels[-1].update({f"{k}_w128": w128[k] for k in (

@@ -88,10 +88,13 @@ def default_backend() -> str:
 
 
 def _tracing_active() -> bool:
-    """True while ``torch.compile`` traces or a CUDA stream captures a
-    graph: timing there measures recording, not execution, and nothing
-    concrete exists to digest."""
-    if torch.compiler.is_compiling():
+    """True while ``torch.compile`` traces, a ``FakeTensorMode`` is active
+    (the dry-run's trace) or a CUDA stream captures a graph: timing there
+    measures recording, not execution, and nothing concrete exists to
+    digest."""
+    from torch._guards import active_fake_mode
+
+    if torch.compiler.is_compiling() or active_fake_mode() is not None:
         return True
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 

@@ -23,6 +23,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import fake as _fake
+
 
 class AliasTable(NamedTuple):
     prob: torch.Tensor   # (..., K) acceptance probability of the home column
@@ -97,6 +99,7 @@ def build_alias_tables_host(weights) -> AliasTable:
     w0 = torch.as_tensor(weights)
     if w0.dim() != 2:
         raise ValueError(f"expected (B, K) weights, got shape {tuple(w0.shape)}")
+    _fake.require_real(w0, "the host alias build (Vose's pairing)")
     w = w0.detach().cpu().to(torch.float64)
     K = w.shape[1]
     tot = w.sum(dim=1, keepdim=True)

@@ -381,6 +381,39 @@ def for_cache(dst, src):
     return src if hasattr(dst, "full_tensor") else whole(src)
 
 
+def per_shard(fn, operands, axes, outs):
+    """``fn`` on each rank's own block of ``operands``, for a computation
+    that is independent along the dims the rules shard (rows, heads):
+    each operand is placed first by the rules for its logical ``axes``
+    (a DTensor redistributed, a tensor every rank holds whole narrowed to
+    this rank's block, ``None`` passed on) and ``fn`` gets the local
+    tensors.  ``outs`` gives each output's global (shape, axes); the
+    outputs come back as DTensors placed so, made without communicating.
+    The port's answer to a DTensor op the card's PyTorch cannot propagate
+    (ROADMAP.md, deliberate differences)."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = next(t.device_mesh for t in operands if isinstance(t, DTensor))
+
+    def local(t, ax):
+        if t is None:
+            return None
+        sh = named_sharding(tuple(t.shape), ax, mesh)
+        if isinstance(t, DTensor):
+            return t.redistribute(mesh, sh.placements).to_local()
+        return local_shard(t, sh) if is_sharded(sh) else t
+
+    got = fn(*(local(t, ax) for t, ax in zip(operands, axes)))
+    single = not isinstance(got, tuple)
+    wrapped = []
+    for o, (shape, ax) in zip((got,) if single else got, outs):
+        sh = named_sharding(shape, ax, mesh)
+        wrapped.append(DTensor.from_local(o.contiguous(), mesh, sh.placements, run_check=False,
+                                          shape=torch.Size(shape),
+                                          stride=torch.empty(shape, device="meta").stride()))
+    return wrapped[0] if single else tuple(wrapped)
+
+
 def gather_dim(x, dim: int):
     """A DTensor with tensor dim ``dim`` made whole (each mesh dim that
     shards it, or holds partial sums, replicated); any other tensor as it

@@ -26,7 +26,9 @@ picks one from the shape; the private :func:`_alias_assemble` takes
 device, dtype, shape and contiguity, allocates the outputs and the
 layout's scratch with ``torch.empty``, launches on the current stream and
 counts the launch in :data:`LAUNCHES` (a split call, three kernels back
-to back, counts once).
+to back, counts once).  Handed fake tensors (a dry-run trace) it
+allocates the same and runs its fake rule in place of the launch
+(:mod:`repro_torch.kernels.fake`).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import fake as _fake
 
 # launches since the last reset_launches()
 LAUNCHES: Dict[str, int] = {"alias_assemble": 0}
@@ -153,7 +156,10 @@ def _alias_assemble(s_sorted, nL, rank, layout=None) -> Tuple[torch.Tensor, torc
     _check("s_sorted", s_sorted, torch.float32, (B, Kp), s_sorted)
     _check("nL", nL, torch.int32, (B,), s_sorted)
     _check("rank", rank, torch.int32, (B, Kp), s_sorted)
-    aligned = s_sorted.data_ptr() % 16 == 0 and rank.data_ptr() % 16 == 0
+    fake = _fake.is_fake(s_sorted)
+    # a fake tensor has no address; the build's own padded copies are fresh
+    # allocations, which are aligned
+    aligned = fake or (s_sorted.data_ptr() % 16 == 0 and rank.data_ptr() % 16 == 0)
     if layout is None:
         layout = alias_layout(B, Kp) if aligned else "block"
     elif layout != "block" and not aligned:
@@ -169,6 +175,9 @@ def _alias_assemble(s_sorted, nL, rank, layout=None) -> Tuple[torch.Tensor, torc
         work = torch.empty((B, Kp), dtype=torch.float32, device=dev)
     elif layout == "split":
         work = torch.empty(_split_work_floats(B, Kp), dtype=torch.float32, device=dev)
+    if fake:
+        _fake.traced("alias_assemble", s_sorted.numel() * 16 + B * 4)
+        return prob, apos
     lib = _build.bind("alias_build", _SIGS)
     _build.launch(lib, "alias_assemble", LAUNCHES, s_sorted.data_ptr(), nL.data_ptr(),
                   rank.data_ptr(), prob.data_ptr(), apos.data_ptr(),

@@ -47,7 +47,9 @@ device cipher can be held against the plain one; no draw path calls it.
 A wrapper takes CUDA tensors only: it checks device, dtype, shape and
 contiguity, allocates its output with ``torch.empty``, launches on the
 current stream without synchronising, raises if the launch failed, and
-adds one to its count in :data:`LAUNCHES`.  Rows may be narrower than
+adds one to its count in :data:`LAUNCHES`.  Handed fake tensors (a
+dry-run trace) it allocates the same and runs its fake rule in place of
+the launch (:mod:`repro_torch.kernels.fake`).  Rows may be narrower than
 Kp = nb * W: columns at or past a row's width count as zero (the padding
 of K to a multiple of W), so nobody copies the weights to pad them.
 
@@ -77,6 +79,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import fake as _fake
 from repro_torch.kernels import rng as _rng
 from repro_torch.kernels import runtime
 
@@ -341,7 +344,11 @@ def _blocksums(w: torch.Tensor, W: int, nb: int, layout=None) -> torch.Tensor:
     ncols = _check_weights(w, nb, W)
     split = layout == "split"
     out = torch.empty((B, nb), dtype=torch.float32, device=w.device)
-    arrived = _arrival_counters(B, w.device) if split else None
+    fake = _fake.is_fake(w)
+    arrived = _arrival_counters(B, w.device, fake) if split else None
+    if fake:
+        _fake.traced("blocksums", B * ncols * w.element_size() + B * nb * 4)
+        return out
     _launch("blocksums", w.data_ptr(), out.data_ptr(), _ptr(arrived), B, ncols, nb, W,
             int(split), _DTYPES[w.dtype])
     return out
@@ -376,6 +383,9 @@ def walk(w, running, u, rows, W: int) -> torch.Tensor:
     _check_vec("u", u, torch.float32, Bt, w)
     _check_vec("rows", rows, torch.int32, Bt, w)
     out = torch.empty((Bt,), dtype=torch.int32, device=w.device)
+    if _fake.is_fake(w):  # one running row per row, one W-block per draw
+        _fake.traced("walk", running.numel() * 4 + Bt * (W * w.element_size() + 12))
+        return out
     _launch("walk", w.data_ptr(), running.data_ptr(), u.data_ptr(),
             rows.data_ptr(), out.data_ptr(), Bt, ncols, nb, W,
             int(walk_vector_loads(w)), _DTYPES[w.dtype])
@@ -408,13 +418,13 @@ def fused_draw(w, u, W: int) -> torch.Tensor:
     return _fused_draw(w, u, W)
 
 
-def _split_buffers(layout: str, B: int, nb: int, device):
+def _split_buffers(layout: str, B: int, nb: int, device, fake: bool = False):
     """Scratch (B, nb) float32 running sums and the per-row arrival
     counters of the split layout; nothing for the warp layout."""
     if layout == "warp":
         return None, None
     return (torch.empty((B, nb), dtype=torch.float32, device=device),
-            _arrival_counters(B, device))
+            _arrival_counters(B, device, fake))
 
 
 def _ptr(t) -> int:
@@ -431,8 +441,12 @@ def _fused_draw(w, u, W: int, layout=None) -> torch.Tensor:
     _check_vec("u", u, torch.float32, B, w)
     if not fused_fits(nb, W):
         raise ValueError(f"fused draw needs too much shared memory at nb={nb}, W={W}")
-    scratch, arrived = _split_buffers(layout, B, nb, w.device)
+    fake = _fake.is_fake(w)
+    scratch, arrived = _split_buffers(layout, B, nb, w.device, fake)
     out = torch.empty((B,), dtype=torch.int32, device=w.device)
+    if fake:
+        _fake.traced("fused_draw", B * ncols * w.element_size() + B * 8)
+        return out
     _launch("fused_draw", w.data_ptr(), u.data_ptr(), out.data_ptr(), _ptr(scratch),
             _ptr(arrived), B, ncols, nb, W, int(layout == "split"), _DTYPES[w.dtype])
     return out
@@ -468,8 +482,12 @@ def _fused_draw_rng(w, seed2, row_offset, W: int, hw: bool = False, layout=None
     ncols = _check_weights(w, nb, W)
     if not fused_fits(nb, W):
         raise ValueError(f"fused draw needs too much shared memory at nb={nb}, W={W}")
-    scratch, arrived = _split_buffers(layout, B, nb, w.device)
+    fake = _fake.is_fake(w)
+    scratch, arrived = _split_buffers(layout, B, nb, w.device, fake)
     out = torch.empty((B,), dtype=torch.int32, device=w.device)
+    if fake:
+        _fake.traced("fused_draw_rng", B * ncols * w.element_size() + B * 4)
+        return out
     _launch("fused_draw_rng", w.data_ptr(), out.data_ptr(), _ptr(scratch), _ptr(arrived),
             B, ncols, nb, W, int(layout == "split"), *_seed_args(seed2, row_offset),
             int(bool(hw)), _DTYPES[w.dtype])
@@ -551,6 +569,9 @@ def _fused_trunc_draw(w, u, params, W: int, iters: int, staged, threshold=None
     if staged and not fits:
         raise ValueError(f"a row of {ncols} weights does not fit shared memory")
     out = torch.empty((B,), dtype=torch.int32, device=w.device)
+    if _fake.is_fake(w):
+        _fake.traced("fused_trunc_draw", B * ncols * w.element_size() + B * (4 + 12 + 4))
+        return out
     _launch("fused_trunc_draw", w.data_ptr(), u.data_ptr(), params.data_ptr(),
             out.data_ptr(), B, ncols, nb, W, int(iters),
             int(fits if staged is None else staged), list_cap, _DTYPES[w.dtype])
@@ -568,6 +589,9 @@ def fused_trunc_draw_rng(w, seed2, row_offset, params, W: int, iters: int = 32
     B = w.shape[0]
     _check_params(params, B, w)
     out = torch.empty((B,), dtype=torch.int32, device=w.device)
+    if _fake.is_fake(w):
+        _fake.traced("fused_trunc_draw_rng", B * ncols * w.element_size() + B * (12 + 4))
+        return out
     _launch("fused_trunc_draw_rng", w.data_ptr(), params.data_ptr(), out.data_ptr(), B,
             ncols, nb, W, int(iters), int(trunc_row_staged(ncols, nb, W)),
             _TRUNC_LIST_CAP, *_seed_args(seed2, row_offset), _DTYPES[w.dtype])
@@ -611,7 +635,9 @@ def fused_trunc_draw_torch(w, u, params, W: int, iters: int = 32) -> torch.Tenso
 _ARRIVED: Dict[tuple, torch.Tensor] = {}
 
 
-def _arrival_counters(B: int, device) -> torch.Tensor:
+def _arrival_counters(B: int, device, fake: bool = False) -> torch.Tensor:
+    if fake:  # a trace's: the first call's allocation, never kept
+        return torch.zeros((max(B, 64),), dtype=torch.int32, device=device)
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     t = _ARRIVED.get(key)
     if t is None or t.numel() < B:
@@ -629,6 +655,10 @@ def masked_blocksums(w, tau, W: int, nb: int) -> torch.Tensor:
     B = w.shape[0]
     _check_vec("tau", tau, torch.float32, B, w)
     out = torch.empty((B, nb), dtype=torch.float32, device=w.device)
+    if _fake.is_fake(w):
+        _arrival_counters(B, w.device, fake=True)
+        _fake.traced("masked_blocksums", B * ncols * w.element_size() + B * 4 + B * nb * 4)
+        return out
     _launch("masked_blocksums", w.data_ptr(), tau.data_ptr(), out.data_ptr(),
             _arrival_counters(B, w.device).data_ptr(), B, ncols, nb, W,
             _DTYPES[w.dtype])
@@ -680,6 +710,9 @@ def _walk_trunc(w, running, u, tau, rows, W: int, layout=None) -> torch.Tensor:
     _check_vec("u", u, torch.float32, Bt, w)
     _check_vec("rows", rows, torch.int32, Bt, w)
     out = torch.empty((Bt,), dtype=torch.int32, device=w.device)
+    if _fake.is_fake(w):
+        _fake.traced("walk_trunc", B * nb * 4 + Bt * (W * w.element_size() + 16))
+        return out
     _launch("walk_trunc", w.data_ptr(), running.data_ptr(), u.data_ptr(),
             tau.data_ptr(), rows.data_ptr(), out.data_ptr(), Bt, ncols, nb, W,
             int(layout == "group"), _DTYPES[w.dtype])

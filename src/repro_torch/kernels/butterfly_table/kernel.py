@@ -26,6 +26,10 @@ serial order (``ref.table_split_order_torch``), so both give the same
 table bit for bit.  :func:`table_schedule` picks one from the shapes; the
 private ``_butterfly_table`` takes ``schedule=`` to force one.  Below
 W = 64 the serial schedule is the only one (32 / W groups share a warp).
+
+Handed fake tensors (a dry-run trace) the wrapper allocates its output
+and runs its fake rule in place of the launch
+(:mod:`repro_torch.kernels.fake`).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch
 
 from repro_torch.core import butterfly as _bfly
 from repro_torch.kernels import _build
+from repro_torch.kernels import fake as _fake
 from repro_torch.kernels.butterfly_sample.kernel import _DTYPES
 
 # launches since the last reset_launches() (a split call, two kernels back
@@ -119,6 +124,9 @@ def _butterfly_table(weights: torch.Tensor, W: int, layout: str = "rows",
         schedule = table_schedule(G, nb, W)
     out = torch.empty((B, K) if layout == "rows" else (G, nb, W, W),
                       dtype=torch.float32, device=weights.device)
+    if _fake.is_fake(weights):
+        _fake.traced("butterfly_table", B * K * (weights.element_size() + 4))
+        return out
     lib = _build.bind("butterfly_table", _SIGS)
     _build.launch(lib, "butterfly_table", LAUNCHES, weights.data_ptr(),
                   out.data_ptr(), G, nb, W, LAYOUTS.index(layout),

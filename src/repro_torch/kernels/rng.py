@@ -14,7 +14,8 @@ is held in an int64 tensor and masked back to 32 bits after each add and
 shift.  Seeds and outputs are int64 tensors whose values lie in
 [0, 2**32).  :func:`fold` of a host seed by integer tags runs the same
 rounds on Python integers, so the seeded draws fold their seed on the
-host once per call without ~150 small tensor operations.
+host once per call without ~150 small tensor operations.  Host seeds are
+host data: under a fake trace (the dry-run) they stay real tensors.
 
 :func:`philox4x32` is the plain version of the Philox-4x32-10 cipher that
 the seeded fused draw (K5) runs with ``hw=True`` in place of the TPU's
@@ -23,8 +24,12 @@ hardware generator (``kernels/csrc/threefry.cuh``).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+
+from repro_torch.kernels.fake import is_fake
 
 _MASK = 0xFFFFFFFF
 # Threefry-2x32 constants (Salmon et al. 2011; identical to JAX's PRNG).
@@ -47,6 +52,16 @@ TAG_STREAM_Z0 = 9  # the streaming sparse sweep's first topics, per shard
 # Philox-4x32-10 constants (Salmon et al. 2011; Random123's philox4x32)
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
+
+
+def _host(x):
+    """Compute on the host's real tensors while a fake mode is active,
+    unless ``x`` is itself a trace's fake tensor: a host seed is data."""
+    if is_fake(x):
+        return contextlib.nullcontext()
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    return unset_fake_temporarily()
 
 
 def _u32(x, device=None) -> torch.Tensor:
@@ -89,10 +104,11 @@ def threefry2x32(k0, k1, x0, x1):
 def seed_from_key(key) -> torch.Tensor:
     """(2,) seed pair from a raw uint32 key pair (or a single word, which
     is taken as ``(0, word)`` like the reference)."""
-    arr = _u32(key).reshape(-1)
-    if arr.shape[0] == 1:
-        arr = torch.cat([torch.zeros_like(arr), arr])
-    return arr[-2:]
+    with _host(key):
+        arr = _u32(key).reshape(-1)
+        if arr.shape[0] == 1:
+            arr = torch.cat([torch.zeros_like(arr), arr])
+        return arr[-2:]
 
 
 def generator_seed(g: torch.Generator) -> torch.Tensor:
@@ -113,16 +129,20 @@ def seeded_generator(seed: torch.Tensor, device) -> torch.Generator:
 def fold(seed: torch.Tensor, a, b=0) -> torch.Tensor:
     """An independent (2,) seed derived from (seed, a, b); on the seed's
     device (a host seed folded by integers stays on the host)."""
+    host = not (isinstance(seed, torch.Tensor) and (seed.is_cuda or is_fake(seed)))
+    if host and type(a) is int and type(b) is int:
+        with _host(seed):
+            return torch.tensor(threefry2x32(*_u32(seed).tolist(), a, b),
+                                dtype=torch.int64)
     seed = _u32(seed)
-    if not seed.is_cuda and type(a) is int and type(b) is int:
-        return torch.tensor(threefry2x32(*seed.tolist(), a, b), dtype=torch.int64)
     s0, s1 = threefry2x32(seed[0], seed[1], a, b)
     return torch.stack([s0.reshape(()), s1.reshape(())])
 
 
 def seed_words(seed) -> tuple:
     """A (2,) seed as two host integers (the seeded kernels' arguments)."""
-    s0, s1 = _u32(seed).reshape(-1).tolist()
+    with _host(seed):
+        s0, s1 = _u32(seed).reshape(-1).tolist()
     return s0, s1
 
 

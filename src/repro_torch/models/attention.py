@@ -12,6 +12,14 @@ attention here is plain tensor operations.
 A decode step writes its keys and values (MLA: its latents) into the
 caches it is given, in place (one row per sequence, not the whole cache),
 and returns them.
+
+On a mesh (DTensor operands) the attention core runs per shard
+(:func:`_per_shard`): queries, keys and values are placed with their rows
+on the data axes and their heads on the model axis, as the rules place a
+``("batch", None, "heads", None)`` tensor, and each rank attends its own
+rows and heads (every key of them) with the same math.  DTensor's own
+rules would flatten the sharded batch and heads into one dimension, which
+the card's PyTorch refuses (ROADMAP.md, deliberate differences).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
+from repro_torch.dist import sharding as _shd
 from repro_torch.dist.sharding import activation_mesh, constrain_activation, for_cache
 from repro_torch.models.layers import (apply_rope, einsum, head_rmsnorm,
                                        head_rmsnorm_spec, rmsnorm)
@@ -81,15 +90,33 @@ def _attend(scores, mask, v):
     return einsum("bhqs,bshv->bqhv", probs, v)
 
 
+def _per_shard(fn, q, k, v, mask=None):
+    """``fn(q, k, v, mask)`` on this rank's rows and heads of DTensor
+    operands (B, S, H, d) (``dist.sharding.per_shard``): a per-row (B, Sq,
+    Sk) mask goes with its rows, a (Sq, Sk) mask is every rank's.  Each
+    rank attends its rows and heads over every key."""
+    qkv = ("batch", None, "heads", None)
+    mask_axes = ("batch", None, None) if mask is not None and mask.dim() == 3 else (None, None)
+    return _shd.per_shard(fn, (q, k, v, mask), (qkv, qkv, qkv, mask_axes),
+                          [((q.shape[0], q.shape[1], q.shape[2], v.shape[3]), qkv)])
+
+
+def _is_dtensor(*ts) -> bool:
+    return any(hasattr(t, "full_tensor") for t in ts)
+
+
 def _sdpa(q, k, v, mask, softcap: float = 0.0, kv_sharded: bool = False):
     """q (B,Sq,H,hd)  k (B,Sk,KV,hd)  v (B,Sk,KV,hv) -> (B,Sq,H,hv).
 
     A (Sq, Sk) mask broadcasts over the batch; a (B, Sq, Sk) mask is per
     row (continuous batching: each slot attends its own prefix).
     ``kv_sharded``: pin the score matrix's key axis to the cache's seq
-    sharding (the activation hook; the identity without a mesh)."""
+    sharding (the activation hook; the identity without a mesh).
+    DTensor operands attend per shard (:func:`_per_shard`)."""
     H = q.shape[2]
     k, v = _repeat_kv(k, H), _repeat_kv(v, H)
+    if _is_dtensor(q, k, v):
+        return _per_shard(lambda ql, kl, vl, m: _sdpa(ql, kl, vl, m, softcap), q, k, v, mask)
     scores = _scores(q, k, softcap)
     if kv_sharded:
         scores = constrain_activation(scores, ("batch", None, None, "act_kv"))
@@ -103,11 +130,14 @@ def _cache_update(cache_arr, new, pos):
     tensor), or a (B,) tensor of per-row positions (continuous batching:
     each slot writes at its own sequence length).  The reference writes
     the per-row case as a one-hot ``where`` over the whole cache; an
-    indexed write of one row per sequence gives the same cache.  With an
-    activation mesh armed, the written cache is pinned to its
+    indexed write of one row per sequence gives the same cache.  A
+    DTensor cache whose sequence is sharded is written per shard
+    (:func:`_write_per_shard`).  With an activation mesh armed, the written cache is pinned to its
     ("batch", "act_kv") layout, as the reference pins it."""
     new = for_cache(cache_arr, new).to(cache_arr.dtype)
-    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+    if _is_dtensor(cache_arr) and any(p.is_shard(1) for p in cache_arr.placements):
+        _write_per_shard(cache_arr, new, pos)
+    elif isinstance(pos, torch.Tensor) and pos.dim() == 1:
         B = cache_arr.shape[0]
         cache_arr[torch.arange(B, device=cache_arr.device), pos.long()] = new[:, 0]
     else:
@@ -120,15 +150,49 @@ def _cache_update(cache_arr, new, pos):
     return cache_arr
 
 
+def _write_per_shard(cache_arr, new, pos) -> None:
+    """Write the step into this rank's block of a DTensor cache whose
+    sequence (dim 1) is sharded, in place: DTensor writes a slice of a
+    sharded dim into a gathered copy, which leaves the cache as it was.
+    ``pos`` is the write position shared by the batch."""
+    from torch.distributed.tensor import Replicate
+
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        raise ValueError("per-row positions into a sequence-sharded DTensor cache are "
+                         "not supported; place the cache with its sequence whole")
+    mesh, placements = cache_arr.device_mesh, cache_arr.placements
+    whole_seq = _shd.NamedSharding(mesh, None, tuple(
+        Replicate() if p.is_shard(1) else p for p in placements))
+    if _is_dtensor(new):
+        new = new.redistribute(mesh, whole_seq.placements).to_local()
+    else:
+        new = _shd.local_shard(new, whole_seq)
+    coords = mesh.get_coordinate()
+    S, n = cache_arr.shape[1], new.shape[1]
+    off, size = 0, S
+    for m, p in enumerate(placements):   # mesh dims in order, the first major
+        if p.is_shard(1):
+            size //= mesh.size(m)
+            off += coords[m] * size
+    start = min(max(int(pos), 0), S - n)   # dynamic_update_slice clamps the start
+    lo, hi = max(start, off), min(start + n, off + size)
+    if lo < hi:
+        cache_arr.to_local()[:, lo - off:hi - off] = new[:, lo - start:hi - start]
+
+
 def _sdpa_chunked(
     q, k, v, q_pos, k_pos, *, causal, window, k_valid=None, softcap=0.0,
     q_chunk: int = Q_CHUNK,
 ):
     """Flash-style q-chunked attention: a loop over query chunks, so the
     (Sq, Sk) score matrix never materializes.  Softmax per chunk is exact
-    (full K per chunk)."""
+    (full K per chunk).  DTensor operands attend per shard."""
     B, Sq, H, hd = q.shape
     k, v = _repeat_kv(k, H), _repeat_kv(v, H)
+    if _is_dtensor(q, k, v):
+        return _per_shard(lambda ql, kl, vl, _m: _sdpa_chunked(
+            ql, kl, vl, q_pos, k_pos, causal=causal, window=window, k_valid=k_valid,
+            softcap=softcap, q_chunk=q_chunk), q, k, v)
     outs = []
     for s0 in range(0, Sq, q_chunk):
         qi, pi = q[:, s0:s0 + q_chunk], q_pos[s0:s0 + q_chunk]

@@ -21,11 +21,118 @@ from repro_torch.models.params import ParamSpec
 
 
 def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
-    """``torch.einsum`` with JAX's promotion of mixed operand dtypes."""
+    """``torch.einsum`` with JAX's promotion of mixed operand dtypes.  Two
+    DTensor operands contract through :func:`_matmul_einsum`."""
     dt = ops[0].dtype
     for o in ops[1:]:
         dt = torch.promote_types(dt, o.dtype)
-    return torch.einsum(eq, *(o if o.dtype == dt else o.to(dt) for o in ops))
+    ops = tuple(o if o.dtype == dt else o.to(dt) for o in ops)
+    if len(ops) == 2 and any(hasattr(o, "full_tensor") for o in ops):
+        return _matmul_einsum(eq, *ops)
+    return torch.einsum(eq, *ops)
+
+
+def _matmul_einsum(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A two-operand einsum as permutes, reshapes and one (batched)
+    matmul, each group of dims (batch, ``a``'s free, contracted, ``b``'s
+    free) flattened in the order it has in ``a`` (``b``'s free dims in
+    ``b``'s order).  For DTensor operands: ``torch.einsum`` orders a group
+    its own way, and a flattened group whose sharded dim is not its first
+    is what the card's PyTorch cannot propagate (ROADMAP.md, deliberate
+    differences); the operands' layouts put a sharded dim first."""
+    ins, out = eq.replace(" ", "").split("->")
+    sa, sb = ins.split(",")
+    if "..." in eq:   # the leading dims that "..." stands for, as letters
+        spare = [c for c in "ABCDEFGHIJKLMNOPQRSTUVWXYZ" if c not in eq]
+        n = (a.dim() - len(sa) + 3) if "..." in sa else (b.dim() - len(sb) + 3)
+        dots = "".join(spare[:n])
+        sa, sb, out = (x.replace("...", dots) for x in (sa, sb, out))
+    size = {**dict(zip(sa, a.shape)), **dict(zip(sb, b.shape))}
+    batch = [c for c in sa if c in sb and c in out]
+    contract = [c for c in sa if c in sb and c not in out]
+    free_a = [c for c in sa if c not in sb]
+    free_b = [c for c in sb if c not in sa]
+
+    def n(cs):
+        r = 1
+        for c in cs:
+            r *= int(size[c])
+        return r
+
+    A = reshape(a.permute([sa.index(c) for c in batch + free_a + contract]),
+                (n(batch), n(free_a), n(contract)))
+    B = reshape(b.permute([sb.index(c) for c in batch + contract + free_b]),
+                (n(batch), n(contract), n(free_b)))
+    y = torch.bmm(A, B)
+    order = batch + free_a + free_b
+    y = reshape(y, tuple(int(size[c]) for c in order))
+    return y.permute([order.index(c) for c in out])
+
+
+def _view_groups(src, dst):
+    """The consecutive dims of shapes ``src`` and ``dst`` that a reshape
+    maps onto each other: [(src dims, dst dims)], products equal."""
+    groups, i, j = [], 0, 0
+    while i < len(src) or j < len(dst):
+        si, dj = [i] if i < len(src) else [], [j] if j < len(dst) else []
+        ps = src[i] if si else 1
+        pd = dst[j] if dj else 1
+        i, j = i + bool(si), j + bool(dj)
+        while ps != pd:
+            if ps < pd:
+                si.append(i)
+                ps *= src[i]
+                i += 1
+            else:
+                dj.append(j)
+                pd *= dst[j]
+                j += 1
+        groups.append((si, dj))
+    return groups
+
+
+def _reshapeable(x, shape):
+    """A DTensor ``x`` with the dims gathered that keep a reshape to
+    ``shape`` from keeping its sharding: a sharded dim flattened behind
+    another, or a sharded dim split into parts whose first does not divide
+    over the mesh dims that shard it.  The card's PyTorch refuses both."""
+    if not hasattr(x, "full_tensor"):
+        return x
+    mesh = x.device_mesh
+    for src, dst in _view_groups(tuple(x.shape), tuple(shape)):
+        src = [d for d in src if x.shape[d] > 1]   # size-1 dims take no part
+        first = next((shape[e] for e in dst if shape[e] > 1), 1)
+        for k, d in enumerate(src):
+            ways = 1
+            for m, p in enumerate(x.placements):
+                if p.is_shard(d):
+                    ways *= mesh.size(m)
+            if ways > 1 and (k > 0 or first % ways):
+                x = gather_dim(x, d)
+    return x
+
+
+def reshape(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x.reshape(shape)``; a DTensor through :class:`_Reshape`, which
+    gathers a dim first where the card's PyTorch cannot keep it sharded."""
+    if hasattr(x, "full_tensor"):
+        return _Reshape.apply(x, tuple(shape))
+    return x.reshape(shape)
+
+
+class _Reshape(torch.autograd.Function):
+    """``x.reshape(shape)``, a DTensor made reshapeable first, in the
+    forward pass and (the gradient, back to ``x``'s shape) in the backward
+    pass, where DTensor picks the gradient's placements itself."""
+
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return _reshapeable(x, shape).contiguous().reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reshapeable(g, ctx.shape).contiguous().reshape(ctx.shape), None
 
 
 def remat_layer(fn, remat: str):
@@ -125,18 +232,43 @@ def embedding_spec(vocab: int, d_model: int) -> Dict[str, ParamSpec]:
 
 
 def embed(params, tokens, scale: bool = False):
-    """Rows of the table.  A vocab-sharded DTensor table is gathered along
-    the vocab first: DTensor's lookup on a vocab shard gives a masked
-    partial whose mask a later op with a cached sharding decision applies
-    to a tensor of another shape (ROADMAP.md, deliberate differences)."""
-    table = gather_dim(params["table"], 0)
-    x = table[tokens.long()]
+    """Rows of the table.  A DTensor table is gathered whole first (FSDP
+    gathers a parameter before its use): DTensor's lookup on a vocab shard
+    gives a masked partial whose mask a later op with a cached sharding
+    decision applies to a tensor of another shape, and the card's PyTorch
+    has no lookup rule for a table whose embedding dim shards over the
+    mesh axes that shard the tokens' rows (ROADMAP.md, deliberate
+    differences)."""
+    table = gather_dim(gather_dim(params["table"], 0), 1)
+    if hasattr(table, "full_tensor") and hasattr(tokens, "full_tensor"):
+        x = _lookup_per_shard(table, tokens)
+    else:
+        x = table[tokens.long()]
     if scale:
         # sqrt(float32(D)) cast to the table's dtype, then the multiply (a
         # host float holding that value exactly)
         s = torch.sqrt(torch.tensor(float(table.shape[-1]), dtype=torch.float32))
         x = x * float(s.to(x.dtype))
     return x
+
+
+def _lookup_per_shard(table, tokens):
+    """The rows of a replicated DTensor table for each rank's own tokens,
+    looked up on the local tensors (the card's PyTorch has no lookup rule
+    for tokens whose rows shard over two mesh dims, pod and data); the
+    table's gradient is partial over the mesh dims that shard the
+    tokens."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = tokens.device_mesh
+    grad = [Partial() if p.is_shard() else Replicate() for p in tokens.placements]
+    local = table.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+        grad_placements=grad)
+    x = local[tokens.to_local().long()]
+    shape = tuple(tokens.shape) + (table.shape[-1],)
+    return DTensor.from_local(x, mesh, tokens.placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def unembed_spec(vocab: int, d_model: int) -> Dict[str, ParamSpec]:

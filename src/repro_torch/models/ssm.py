@@ -23,8 +23,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
-from repro_torch.dist.sharding import for_cache
-from repro_torch.models.layers import einsum, rmsnorm
+from repro_torch.dist.sharding import for_cache, per_shard
+from repro_torch.models.layers import einsum, reshape, rmsnorm
 from repro_torch.models.params import ParamSpec
 
 
@@ -79,7 +79,7 @@ def _project(params, x, cfg: ModelConfig):
 
 
 def _heads(x, H, P):
-    return x.reshape(x.shape[0], x.shape[1], H, P)
+    return reshape(x, (x.shape[0], x.shape[1], H, P))
 
 
 def ssd_chunked(xh, bh, ch, dt, a_log, chunk: int):
@@ -87,9 +87,16 @@ def ssd_chunked(xh, bh, ch, dt, a_log, chunk: int):
 
     xh (B,S,H,P) (weighted by dt inside); bh, ch (B,S,H,N); dt (B,S,H)
     float32; a_log (H,).  Returns y (B,S,H,P) float32 and the final state
-    (B,H,P,N) float32."""
+    (B,H,P,N) float32.  DTensor operands run per shard (each rank its
+    rows and heads; ``dist.sharding.per_shard``): DTensor has no rule for
+    the ``flip`` of ``cumsum``'s backward on the card's PyTorch."""
     B, S, H, P = xh.shape
     N = bh.shape[-1]
+    if any(hasattr(t, "full_tensor") for t in (xh, bh, ch, dt, a_log)):
+        heads = ("batch", None, "heads", None)
+        return per_shard(lambda *a: ssd_chunked(*a, chunk), (xh, bh, ch, dt, a_log),
+                         (heads, heads, heads, ("batch", None, "heads"), ("heads",)),
+                         [((B, S, H, P), heads), ((B, H, P, N), ("batch", "heads", None, None))])
     Q = min(chunk, S)
     if S % Q:
         raise ValueError(f"sequence {S} is not a multiple of the chunk {Q}")
@@ -166,7 +173,7 @@ def ssm_block(
     ch = _repeat_groups(c, G, N, rep)
     y, h_final = ssd_chunked(xh, bh, ch, dt, params["a_log"], s.chunk)
     y = y + params["d_skip"].to(torch.float32)[None, None, :, None] * xh.to(torch.float32)
-    y = y.reshape(B, S, H * P).to(x.dtype)
+    y = reshape(y, (B, S, H * P)).to(x.dtype)
     y = rmsnorm(params["out_norm"], y * F.silu(z), cfg.norm_eps)
     out = einsum("bse,ed->bsd", y, params["wout"])
     if pad:
@@ -203,7 +210,7 @@ def ssm_decode_step(
         "bhp,bhn->bhpn", xh.to(torch.float32) * dt0[..., None], bh.to(torch.float32))
     y = einsum("bhn,bhpn->bhp", ch.to(torch.float32), h)
     y = y + params["d_skip"].to(torch.float32)[None, :, None] * xh.to(torch.float32)
-    y = y.reshape(B, 1, H * P).to(x.dtype)
+    y = reshape(y, (B, 1, H * P)).to(x.dtype)
     y = rmsnorm(params["out_norm"], y * F.silu(z), cfg.norm_eps)
     out = einsum("bse,ed->bsd", y, params["wout"])
     for name, new in (("h", h), ("conv_x", conv_x_state), ("conv_b", conv_b_state),

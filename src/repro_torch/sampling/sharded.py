@@ -133,11 +133,15 @@ def mesh_signature(mesh, spec=None) -> Tuple:
     topologies never share a plan."""
     if mesh is None:
         return ()
-    ranks = mesh.mesh
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():   # DeviceMesh makes its rank tensor on each access
+        ranks = mesh.mesh
+        flat = tuple(int(r) for r in ranks.flatten().tolist())
     return (
         _names(mesh),
         tuple(int(s) for s in ranks.shape),
-        tuple(int(r) for r in ranks.flatten().tolist()),
+        flat,
         mesh.device_type,
         "" if spec is None else str(spec),
     )

@@ -181,6 +181,8 @@ def make_decode_step(
         sp = sp0 if sampling is _SP_UNSET else sampling
         sig = _sp_sig(sp) if sp is not None else ""
         logits, caches = model.decode(params, caches, token, pos)
+        if mesh is None:   # an unsharded draw takes DTensor logits whole
+            logits = whole(logits)
         p = _logits_plan(cfg, logits.shape[0], logits.shape[1], _dtype_name(logits),
                          draws=num_samples, mesh=mesh, transforms=sig,
                          backend=logits.device.type)
@@ -318,6 +320,8 @@ def make_serve_step(
 
     def serve_step(params, caches, token, pos, rng=None):
         logits, caches = model.decode(params, caches, token, pos)
+        if mesh is None:   # an unsharded draw takes DTensor logits whole
+            logits = whole(logits)
         p = _logits_plan(cfg, logits.shape[0], logits.shape[1], _dtype_name(logits),
                          mesh=mesh, transforms=sig, backend=logits.device.type)
         temp, tr = temperature, None
@@ -335,17 +339,25 @@ def make_serve_step(
 
 
 def make_prefill_step(model: Model, temperature: float = 1.0,
-                      batch_size: Optional[int] = None):
-    """Prefill target: (params, batch, generator) -> (first_token, caches)."""
+                      batch_size: Optional[int] = None, mesh=None):
+    """Prefill target: (params, batch, generator) -> (first_token, caches).
+    ``mesh`` shards the first draw like :func:`make_serve_step` (the third
+    argument is then the counter-RNG key)."""
     cfg = model.cfg
     if batch_size is not None:
-        _logits_plan(cfg, batch_size, cfg.padded_vocab, "float32")
+        _logits_plan(cfg, batch_size, cfg.padded_vocab, "float32", mesh=mesh)
 
     def prefill_step(params, batch, generator=None):
         last_logits, caches = model.prefill(params, batch)
+        if mesh is None:   # an unsharded draw takes DTensor logits whole
+            last_logits = whole(last_logits)
         p = _logits_plan(cfg, last_logits.shape[0], last_logits.shape[1],
-                         _dtype_name(last_logits), backend=last_logits.device.type)
-        nxt = p.sample_logits(last_logits, generator, temperature=temperature)
-        return nxt.to(torch.int32), caches
+                         _dtype_name(last_logits), mesh=mesh,
+                         backend=last_logits.device.type)
+        if mesh is None:
+            nxt = p.sample_logits(last_logits, generator, temperature=temperature)
+        else:
+            nxt = p.sample_logits(last_logits, temperature=temperature, key=generator)
+        return whole(nxt).to(torch.int32), caches
 
     return prefill_step

@@ -14,7 +14,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.dist.sharding import gather_dim
+from repro_torch.dist.sharding import gather_dim, local_shard, named_sharding
 from repro_torch.models.model import Model
 from repro_torch.models.params import tree_leaves, tree_map
 from repro_torch.train.optimizer import Optimizer
@@ -31,16 +31,42 @@ class TrainMetrics(NamedTuple):
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, mask: torch.Tensor,
                   z_loss: float = 1e-4) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked token CE with z-loss; logits any float dtype, math in float32.
-    Vocab-sharded DTensor logits are gathered along the vocab first: the
-    DTensor rule of ``torch.gather`` on a vocab shard gives a masked
-    partial that its reduction then fails on."""
-    logits = gather_dim(logits, -1).to(torch.float32)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    DTensor logits give their log-sum-exp and gold logits per shard
+    (:func:`_lse_gold_per_shard`)."""
+    if hasattr(logits, "full_tensor"):
+        lse, gold = _lse_gold_per_shard(logits, labels)
+    else:
+        logits = logits.to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     ce = (lse - gold) * mask
     zl = z_loss * (lse ** 2) * mask
     denom = torch.clamp_min(mask.sum(), 1.0)
     return (ce.sum() + zl.sum()) / denom, ce.sum() / denom
+
+
+def _lse_gold_per_shard(logits, labels):
+    """Log-sum-exp and gold logit of DTensor logits (B, S, V), each rank on
+    its own rows with the whole vocabulary: the logits are gathered along
+    the vocab (DTensor's ``torch.gather`` on a vocab shard gives a masked
+    partial that its reduction fails on), and the gather runs on local
+    tensors (DTensor's backward of ``torch.gather`` makes a zero gradient
+    of the global shape on every rank).  Both come back as DTensors
+    sharded as the rows."""
+    from torch.distributed.tensor import DTensor
+
+    mesh = logits.device_mesh
+    rows = named_sharding(tuple(labels.shape), ("batch", None), mesh)
+    whole_vocab = rows.placements   # the rows' placements, dim 2 whole
+    lg = gather_dim(logits, -1).redistribute(mesh, whole_vocab).to_local()
+    lab = labels.redistribute(mesh, rows.placements).to_local() \
+        if hasattr(labels, "full_tensor") else local_shard(labels, rows)
+    lg = lg.to(torch.float32)
+    lse = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, lab[..., None].long())[..., 0]
+    stride = (labels.shape[1], 1)
+    return tuple(DTensor.from_local(t, mesh, rows.placements, run_check=False,
+                                    shape=labels.shape, stride=stride) for t in (lse, gold))
 
 
 def _batch_labels(batch: Dict):

@@ -259,7 +259,8 @@ def test_port_imports_no_jax():
         "import torch.distributed as dist\n"
         "walked = [m for m in ('repro_torch.dist.fault', 'repro_torch.dist.multihost',\n"
         "                      'repro_torch.launch.mesh', 'repro_torch.launch.train',\n"
-        "                      'repro_torch.launch.serve') if m in sys.modules]\n"
+        "                      'repro_torch.launch.serve', 'repro_torch.launch.dryrun',\n"
+        "                      'repro_torch.launch.costing') if m in sys.modules]\n"
         "print(json.dumps({'n': n, 'bad': bad, 'walked': walked,\n"
         "                  'group': dist.is_available() and dist.is_initialized()}))\n"
     )
@@ -268,4 +269,4 @@ def test_port_imports_no_jax():
                          timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == [] and res["n"] >= 81, res
-    assert len(res["walked"]) == 5 and not res["group"], res
+    assert len(res["walked"]) == 7 and not res["group"], res
