@@ -228,16 +228,20 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    tokens/s and peak memory.  (c) ``launch.train --app lda`` at
    configs/lda.py's CONFIG for 2 sweeps (the ``butterfly`` method, K1).
 12. The dry-run (``launch.dryrun``, ``launch.costing``) on a fake process
-   group of 512 ranks.  (a) ``lower_cell`` traces three production cells
+   group of 512 ranks.  (a) ``lower_cell`` traces four production cells
    at full width under ``FakeTensorMode`` on cuda meshes: gemma2-9b
-   ``decode_32k`` and llama3-8b ``train_4k`` on the 256-rank pod, qwen3-4b
-   ``prefill_32k`` on the 512-rank two-pod mesh; each prints its
-   parameters, trace seconds, per-device memory (beside the card's 80 GB,
-   no check) and its five largest storages at the peak, FLOPs, bytes,
-   collectives by kind, the resolved sampler and the kernels traced by
-   their fake rules, and holds its parameter and AdamW-state bytes per
-   device equal to ``dist.sharding.tree_bytes_per_device`` on the same
-   mesh.  (b) One card: the dry-run without a mesh, then the same step
+   ``decode_32k``, llama3-8b and seamless-m4t-medium ``train_4k`` on the
+   256-rank pod, qwen3-4b ``prefill_32k`` on the 512-rank two-pod mesh;
+   each prints its parameters, trace seconds, per-device memory (beside
+   the card's 80 GB) and its five largest storages at the peak, FLOPs and
+   the ops that hold the most of them, bytes, collectives by kind, the
+   resolved sampler and the kernels traced by their fake rules, and holds
+   its parameter and AdamW-state bytes per device equal to
+   ``dist.sharding.tree_bytes_per_device`` on the same mesh.  llama3-8b
+   ``train_4k`` (the sharded loss and unembedding) must hold no float32
+   logits over the whole vocabulary at its peak, peak under 40 GiB a
+   device and count at most 1.25x the reference's 2.87e14 FLOPs a device
+   (XLA's count of the reference's dry-run on a CPU host).  (b) One card: the dry-run without a mesh, then the same step
    run for real on inputs of the same shapes (``dryrun.real_inputs``,
    ``cell_step``): gemma2-9b at full width and depth, 8 sequences, 4,096
    cache positions, bfloat16 parameters and caches, as the serve step
@@ -4390,8 +4394,16 @@ def phase_launchers(dev, seed, tally) -> tuple:
 # (arch, shape, multi-pod): production cells traced on a fake group of 512
 # ranks and cuda meshes
 DRYRUN_CELLS = (("gemma2-9b", "decode_32k", False), ("llama3-8b", "train_4k", False),
-                ("qwen3-4b", "prefill_32k", True))
+                ("qwen3-4b", "prefill_32k", True), ("seamless-m4t-medium", "train_4k", False))
 H100_BYTES = 80 * 10**9
+# llama3-8b train_4k on pod16x16, per device: the reference's FLOPs
+# (``corrected.flops_total`` of ``repro.launch.dryrun --arch llama3-8b
+# --shape train_4k``, XLA's count on a CPU host of 256 virtual devices),
+# the share above it the port may take, and the peak the port must stay
+# under (the sharded loss and unembedding; ROADMAP.md, F4)
+LLAMA_TRAIN_REF_FLOPS = 2.87e14
+LLAMA_TRAIN_FLOPS_RATIO = 1.25
+LLAMA_TRAIN_PEAK = 40 * 2**30
 # one card, predicted against measured: gemma2-9b decode at full width and
 # depth (as the reference's serve step resolves its draw, then under the
 # model card's truncation), granite-moe training at phase 10's geometry
@@ -4434,7 +4446,33 @@ def dryrun_cell(arch: str, shape: str, multi: bool) -> dict:
             raise AssertionError(f"{arch} {shape}: {k} bytes per device {got[k]} != "
                                  f"tree_bytes_per_device's {v}")
     res["tree_bytes_per_device"] = want
+    log(f"    ops of the most flops: {res['flops_top']}")
+    if (arch, shape) == ("llama3-8b", "train_4k"):
+        check_sharded_loss(res, get_config(arch))
     return res
+
+
+def check_sharded_loss(res: dict, cfg) -> None:
+    """llama3-8b train_4k: no float32 logits over the whole vocabulary
+    among the largest storages at the peak, the peak under
+    ``LLAMA_TRAIN_PEAK``, the FLOPs within ``LLAMA_TRAIN_FLOPS_RATIO`` of
+    the reference's."""
+    V = cfg.padded_vocab
+    whole = [t for t in res["memory"]["peak_top"] if t[2] == "float32" and t[1][-1] == V]
+    if whole:
+        raise AssertionError(f"llama3-8b train_4k holds float32 logits over the whole "
+                             f"vocabulary at its peak: {whole}")
+    peak = res["memory"]["peak_bytes"]
+    if peak >= LLAMA_TRAIN_PEAK:
+        raise AssertionError(f"llama3-8b train_4k peaks at {peak / 2**30:.2f} GiB a device, "
+                             f"not under {LLAMA_TRAIN_PEAK / 2**30:.0f}")
+    flops = res["corrected"]["flops_total"]
+    if flops > LLAMA_TRAIN_FLOPS_RATIO * LLAMA_TRAIN_REF_FLOPS:
+        raise AssertionError(f"llama3-8b train_4k: {flops:.4g} FLOPs a device, over "
+                             f"{LLAMA_TRAIN_FLOPS_RATIO} x the reference's "
+                             f"{LLAMA_TRAIN_REF_FLOPS:.3g}")
+    log(f"    sharded loss: peak {peak / 2**30:.3f} GiB, {flops / LLAMA_TRAIN_REF_FLOPS:.3f} x "
+        f"the reference's FLOPs")
 
 
 def one_chip(arch: str, shape, sp, dev, seed: int, tally) -> tuple:

@@ -250,6 +250,22 @@ def local_shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     return x
 
 
+def shard_offset(size: int, dim: int, mesh, placements) -> Tuple[int, int]:
+    """(offset, length) of this rank's block of a dim of ``size`` that
+    ``placements`` split (``Shard(dim)``, mesh dims in order, each split
+    as ``torch.chunk`` splits, as DTensor splits an uneven dim), from the
+    mesh coordinates alone (host integers, also under a fake trace)."""
+    coords = mesh.get_coordinate()
+    offset = 0
+    for md, p in enumerate(placements):
+        if p.is_shard(dim):
+            chunk = -(-size // int(mesh.size(md)))
+            start = min(coords[md] * chunk, size)
+            offset += start
+            size = min(chunk, size - start)
+    return offset, size
+
+
 def is_sharded(sharding: Optional[NamedSharding]) -> bool:
     """Does the sharding split its tensor over some mesh dim?"""
     return sharding is not None and any(p.is_shard() for p in sharding.placements)

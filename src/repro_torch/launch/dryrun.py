@@ -31,7 +31,8 @@ partitioned module's are:
 * ``cost``: ``flops`` by ``torch.utils.flop_counter``'s formulas on the
   local ops; ``bytes_accessed`` every op's inputs read and outputs written
   once (eager PyTorch fuses nothing), plus the bytes each hand-written
-  kernel's fake rule reckons (``kernels.fake``).
+  kernel's fake rule reckons (``kernels.fake``).  ``flops_top`` names the
+  ops (with their local input shapes) that hold the most FLOPs.
 * ``collectives``: every functional collective DTensor issues, as
   :func:`collective_bytes` sums them (the reference's keys).  The port's
   gather sites (ROADMAP.md, deliberate differences) show here as
@@ -187,6 +188,7 @@ class StepTally:
 
     def __init__(self):
         self.flops = 0
+        self.flops_by: Dict[str, int] = {}   # "op input shapes" -> FLOPs
         self.bytes = 0
         self.collectives: List[tuple] = []
         self.live = 0
@@ -273,7 +275,11 @@ class StepTally:
 
         packet = func._overloadpacket
         if packet in flop_registry:
-            self.flops += int(flop_registry[packet](*args, **kwargs, out_val=out))
+            n = int(flop_registry[packet](*args, **kwargs, out_val=out))
+            self.flops += n
+            if n:
+                key = f"{packet} {[tuple(t.shape) for t in _tensors(args)]}"
+                self.flops_by[key] = self.flops_by.get(key, 0) + n
         ns = func.namespace
         name = packet.__name__
         # a meta tensor (a shape's strides, say) holds no memory and moves nothing
@@ -297,6 +303,12 @@ class StepTally:
                         self.written[key] = self.known[key]
         for t in outs:
             self._made(t, str(packet))
+
+    def flops_top(self, n: int = 8) -> List[list]:
+        """The ``n`` (op, input shapes) groups of the most FLOPs: [FLOPs,
+        "op [shapes]", share of the step's]."""
+        top = sorted(self.flops_by.items(), key=lambda kv: -kv[1])[:n]
+        return [[f, k, f / max(self.flops, 1)] for k, f in top]
 
     def result(self, outputs) -> Dict:
         """The memory fields the step's storages give, ``outputs`` held."""
@@ -630,6 +642,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *, device="cuda"
     result["cost"] = {"flops": float(tally.flops),
                       "bytes_accessed": float(tally.bytes + sum(_fake.TRACED_BYTES.values()))}
     result["kernel_bytes"] = dict(_fake.TRACED_BYTES)
+    result["flops_top"] = tally.flops_top()
     return result
 
 

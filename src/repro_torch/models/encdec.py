@@ -59,12 +59,7 @@ def encdec_specs(cfg: ModelConfig) -> Dict:
 
 
 def _masked_unembed(cfg: ModelConfig, params, h):
-    logits = unembed(params["unembed"], h)
-    if cfg.padded_vocab != cfg.vocab_size:
-        valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
-        logits = torch.where(valid, logits, torch.tensor(-1e30, dtype=logits.dtype,
-                                                         device=logits.device))
-    return logits
+    return unembed(params["unembed"], h, vocab_size=cfg.vocab_size)
 
 
 def _enc_layer(cfg, lp, x, positions):

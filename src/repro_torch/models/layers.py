@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import gather_dim
+from repro_torch.dist.sharding import gather_dim, named_sharding, shard_offset
 from repro_torch.models.params import ParamSpec
 
 
@@ -128,11 +128,25 @@ class _Reshape(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, shape):
         ctx.shape = tuple(x.shape)
-        return _reshapeable(x, shape).contiguous().reshape(shape)
+        return _contiguous(_reshapeable(x, shape)).reshape(shape)
 
     @staticmethod
     def backward(ctx, g):
-        return _reshapeable(g, ctx.shape).contiguous().reshape(ctx.shape), None
+        return _contiguous(_reshapeable(g, ctx.shape)).reshape(ctx.shape), None
+
+
+def _contiguous(x):
+    """``x.contiguous()``, a DTensor's local tensor made contiguous too:
+    DTensor's ``contiguous`` looks at the global strides only, so a
+    gradient whose local shard is a transposed view (one local head, say)
+    stays one, and the local view of the reshape that follows fails."""
+    x = x.contiguous()
+    if not hasattr(x, "full_tensor") or x.to_local().is_contiguous():
+        return x
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(x.to_local().contiguous(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape, stride=x.stride())
 
 
 def remat_layer(fn, remat: str):
@@ -275,16 +289,77 @@ def unembed_spec(vocab: int, d_model: int) -> Dict[str, ParamSpec]:
     return {"table": ParamSpec((d_model, vocab), ("embed", "vocab"))}
 
 
-def unembed(params, x, tied_table=None, softcap: float = 0.0):
+def unembed(params, x, tied_table=None, softcap: float = 0.0, vocab_size=None):
     """Project to vocab logits (kept in compute dtype).  ``tied_table``
-    (V, D) overrides; the softcap is computed in float32 and cast back."""
+    (V, D) overrides; the softcap is computed in float32 and cast back;
+    columns from ``vocab_size`` on (a padded table's) are masked to -1e30,
+    so loss and sampling see exactly the real vocabulary.  DTensor
+    operands are projected on each rank's own block
+    (:func:`_unembed_per_shard`)."""
+    table = params["table"] if tied_table is None else tied_table
+    if hasattr(x, "full_tensor") or hasattr(table, "full_tensor"):
+        return _unembed_per_shard(x, table, tied_table is not None, softcap, vocab_size)
     if tied_table is not None:
         logits = einsum("...d,vd->...v", x, tied_table)
     else:
         logits = einsum("...d,dv->...v", x, params["table"])
+    return _cap_and_mask(logits, softcap, vocab_size, 0)
+
+
+def _cap_and_mask(logits, softcap: float, vocab_size, v0: int):
+    """The final softcap, then the padded columns masked: ``logits``' last
+    dim holds the vocabulary's columns from ``v0`` on."""
     if softcap > 0:
         logits = (torch.tanh(logits.to(torch.float32) / softcap) * softcap).to(logits.dtype)
+    if vocab_size is not None and v0 + logits.shape[-1] > vocab_size:
+        valid = torch.arange(v0, v0 + logits.shape[-1], device=logits.device) < vocab_size
+        logits = torch.where(valid, logits, torch.tensor(-1e30, dtype=logits.dtype,
+                                                         device=logits.device))
     return logits
+
+
+def logits_sharding(shape, mesh):
+    """The rules' sharding of logits of ``shape`` (..., S, V) on ``mesh``:
+    rows over the data axes, the vocabulary over ``model`` where it divides
+    (the ``vocab`` rule), else the positions (the ``seq`` rule), so no two
+    ranks compute the same logits where either divides."""
+    axes = ("batch", "vocab") if len(shape) == 2 else \
+        ("batch",) + (None,) * (len(shape) - 3) + ("seq", "vocab")
+    return named_sharding(tuple(shape), axes, mesh)
+
+
+def _unembed_per_shard(x, table, tied: bool, softcap: float, vocab_size):
+    """The unembedding of DTensor operands on local tensors: each rank
+    projects its rows (and positions) of ``x`` onto its columns of the
+    table, placed as :func:`logits_sharding`; the table is gathered along
+    ``embed`` only, ``x`` along ``model`` where the vocabulary shards
+    over it.  So a rank computes 1/N of the logits over N ranks and holds
+    no whole vocabulary.  The gradients come back partial where a rank saw
+    part of the sum: ``x``'s over the vocabulary's mesh dims, the table's
+    over the rows'.  The softcap and the padded columns' mask run on the
+    local logits, at their global column offset."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = (x if hasattr(x, "full_tensor") else table).device_mesh
+    x, table = (t if hasattr(t, "full_tensor") else
+                DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+                for t in (x, table))
+    vdim = 0 if tied else 1
+    shape = tuple(x.shape[:-1]) + (table.shape[vdim],)
+    out = logits_sharding(shape, mesh).placements
+    last = len(shape) - 1
+    vocab = [p.is_shard(last) for p in out]
+    x_pl = [Replicate() if v else p for p, v in zip(out, vocab)]
+    x_grad = [Partial() if v else p for p, v in zip(out, vocab)]
+    w_pl = [Shard(vdim) if v else Replicate() for v in vocab]
+    w_grad = [w if v or p.is_replicate() else Partial() for w, p, v in zip(w_pl, out, vocab)]
+    xl = x.redistribute(mesh, x_pl).to_local(grad_placements=x_grad)
+    wl = table.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+    logits = einsum("...d,vd->...v" if tied else "...d,dv->...v", xl, wl)
+    v0, _ = shard_offset(shape[-1], last, mesh, out)
+    logits = _cap_and_mask(logits, softcap, vocab_size, v0)
+    return DTensor.from_local(logits, mesh, out, run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -269,14 +269,8 @@ def _input_embeddings(cfg, params, tokens, frontend_embeds=None):
 def _logits(cfg, params, x):
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     tied = params["embed"]["table"] if cfg.tie_embeddings else None
-    logits = unembed(params.get("unembed"), h, tied_table=tied, softcap=cfg.final_softcap)
-    if cfg.padded_vocab != cfg.vocab_size:
-        # mask padded columns, so loss and sampling see exactly the real
-        # vocabulary
-        valid = torch.arange(cfg.padded_vocab, device=logits.device) < cfg.vocab_size
-        logits = torch.where(valid, logits, torch.tensor(-1e30, dtype=logits.dtype,
-                                                         device=logits.device))
-    return logits
+    return unembed(params.get("unembed"), h, tied_table=tied, softcap=cfg.final_softcap,
+                   vocab_size=cfg.vocab_size)
 
 
 def lm_apply(cfg: ModelConfig, params: Dict, tokens: torch.Tensor,

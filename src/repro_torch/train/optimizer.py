@@ -91,6 +91,10 @@ def _blocks(flat: torch.Tensor) -> torch.Tensor:
 
 def _q8(x: torch.Tensor):
     """Quantize to int8 with per-block absmax scales.  x flattened."""
+    return _per_block_shard(_q8_whole, x)
+
+
+def _q8_whole(x: torch.Tensor):
     blocks = _blocks(x.reshape(-1))
     scale = _div(torch.amax(torch.abs(blocks), dim=1, keepdim=True), 127.0)
     q = torch.round(blocks / torch.clamp_min(scale, 1e-20)).to(torch.int8)
@@ -98,6 +102,10 @@ def _q8(x: torch.Tensor):
 
 
 def _dq8(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
+    return _from_block_shard(_dq8_whole, q, scale, shape)
+
+
+def _dq8_whole(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
     flat = (q.to(torch.float32) * scale).reshape(-1)
     return flat[: int(np.prod(shape))].reshape(shape)
 
@@ -107,6 +115,10 @@ def _q8_sqrt(v: torch.Tensor):
     tensor.  Storing sqrt(v) halves the dynamic range, so small second
     moments don't collapse to zero (which would explode m/sqrt(v)
     updates)."""
+    return _per_block_shard(_q8_sqrt_whole, v)
+
+
+def _q8_sqrt_whole(v: torch.Tensor):
     blocks = _blocks(_sqrt(torch.clamp_min(v, 0.0)).reshape(-1))
     scale = _div(torch.amax(blocks, dim=1, keepdim=True), 255.0)
     q = torch.round(blocks / torch.clamp_min(scale, 1e-20)).to(torch.uint8)
@@ -114,8 +126,109 @@ def _q8_sqrt(v: torch.Tensor):
 
 
 def _dq8_sqrt(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
+    return _from_block_shard(_dq8_sqrt_whole, q, scale, shape)
+
+
+def _dq8_sqrt_whole(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
     flat = (q.to(torch.float32) * scale).reshape(-1)
     return torch.square(flat[: int(np.prod(shape))].reshape(shape))
+
+
+# ---------------------------------------------------------------------------
+# 8-bit moments of DTensor leaves
+# ---------------------------------------------------------------------------
+#
+# The blocks follow the global row-major flatten of a leaf, as the
+# reference's do.  The ``qblocks`` rule splits a state's blocks over the
+# data axes; a leaf whose rows split over the same mesh dims into whole
+# blocks a rank (arctic's (32000, 7168) table: 2,000 rows, 56,000 blocks
+# a data rank) is quantized on each rank's rows, with no other
+# communication than placing the leaf so.  The card's PyTorch cannot
+# flatten a leaf whose sharded dim is not its first.
+
+
+def _block_rows(shape, mesh):
+    """The state's sharding of a leaf of ``shape`` (the ``qblocks`` rule)
+    and the placements that give each rank the rows whose flatten is its
+    blocks (``Shard(0)`` over the mesh dims that split the blocks), or
+    None where no such split exists."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.dist.sharding import is_sharded, named_sharding
+
+    n = int(np.prod(shape))
+    state = named_sharding((-(-n // QBLOCK), QBLOCK), ("qblocks", None), mesh)
+    ways = int(np.prod([mesh.size(m) for m, p in enumerate(state.placements) if p.is_shard(0)]))
+    rows = None
+    if is_sharded(state) and len(shape) and shape[0] % ways == 0 and n % (QBLOCK * ways) == 0:
+        rows = tuple(Shard(0) if p.is_shard(0) else Replicate() for p in state.placements)
+    return state, rows, ways
+
+
+def _placed_as(t: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``t`` placed as the parameter ``p``: a DTensor redistributed to
+    ``p``'s placements (a gradient that DTensor's backward left partial is
+    reduce-scattered), or made a tensor where ``p`` is one.  The 8-bit
+    moments come back by rows or whole, so without this the update's
+    ops would pick placements of their own, a partial one among them,
+    that the weight decay's parameter cannot take on the card's
+    PyTorch."""
+    if not hasattr(t, "full_tensor"):
+        return t
+    if not hasattr(p, "full_tensor"):
+        return t.full_tensor()
+    if tuple(t.placements) == tuple(p.placements):
+        return t
+    return t.redistribute(p.device_mesh, p.placements)
+
+
+def _as_dtensor(t: torch.Tensor, mesh, placements, shape):
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(t.contiguous(), mesh, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+
+
+def _per_block_shard(fn, x: torch.Tensor):
+    """``fn(x) -> (codes, scales)``; a DTensor ``x`` quantized on each
+    rank's rows (:func:`_block_rows`) into codes and scales placed as the
+    ``qblocks`` rule places the state.  Where no rank's rows are whole
+    blocks the leaf is gathered whole first (an all-gather the dry-run
+    counts) and each rank keeps its blocks."""
+    if not hasattr(x, "full_tensor"):
+        return fn(x)
+    from repro_torch.dist.sharding import local_shard
+
+    mesh = x.device_mesh
+    state, rows, _ = _block_rows(tuple(x.shape), mesh)
+    if rows is not None:
+        q, s = fn(x.redistribute(mesh, rows).to_local())
+    else:   # no split of the flatten into whole blocks a rank: gathered whole
+        q, s = fn(x.full_tensor())
+        q, s = local_shard(q, state), local_shard(s, state)
+    nb = -(-x.numel() // QBLOCK)
+    return (_as_dtensor(q, mesh, state.placements, (nb, QBLOCK)),
+            _as_dtensor(s, mesh, state.placements, (nb, 1)))
+
+
+def _from_block_shard(fn, q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
+    """``fn(q, scale, shape)``; DTensor codes placed as the ``qblocks``
+    rule places them give each rank's rows of the leaf (placed as
+    :func:`_block_rows` gives them), or, where no rank's blocks are whole
+    rows, the leaf whole on every rank (the codes gathered)."""
+    if not hasattr(q, "full_tensor"):
+        return fn(q, scale, shape)
+    from torch.distributed.tensor import Replicate
+
+    mesh = q.device_mesh
+    shape = tuple(shape)
+    state, rows, ways = _block_rows(shape, mesh)
+    if rows is not None and tuple(q.placements) == tuple(scale.placements) == state.placements:
+        local = (shape[0] // ways,) + shape[1:]
+        return _as_dtensor(fn(q.to_local(), scale.to_local(), local), mesh, rows, shape)
+    whole = fn(q.full_tensor(), scale.full_tensor(), shape)
+    return _as_dtensor(whole, mesh, [Replicate()] * mesh.ndim, shape)
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -159,6 +272,7 @@ def make_adamw(
             if bits8:
                 m = _dq8(s["m_q"], s["m_s"], g.shape)
                 v = _dq8_sqrt(s["v_q"], s["v_s"], g.shape)
+                g, m, v = (_placed_as(t, p) for t in (g, m, v))
             else:
                 m, v = s["m"], s["v"]
             m = b1 * m + (1 - b1) * g

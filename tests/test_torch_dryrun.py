@@ -10,6 +10,7 @@ production cells and the one-card prediction against a real step run on
 the card (``chip_smoke.py`` phase 12).
 """
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -238,6 +239,114 @@ def test_reshape_gathers_what_cannot_stay_sharded(mesh_cell):
     assert tuple(kept.placements) == (Shard(0), Shard(1)) and kept.shape == (8, 24)
     assert flat.placements[0] == Shard(0) and not flat.placements[1].is_shard()
     assert flat.to_local().shape == (8, 6)
+
+
+# ---------------------------------------------------------------------------
+# the loss and the unembedding on the (4, 2) mesh (ROADMAP F4)
+# ---------------------------------------------------------------------------
+
+
+def _vocab_cfg(V: int):
+    """llama3-8b's SMOKE config with a vocabulary of ``V``: 1,000 splits
+    over ``model`` (2), 999 does not, so the positions split instead."""
+    return dataclasses.replace(get_config("llama3-8b", smoke=True), vocab_size=V)
+
+
+@pytest.mark.parametrize("V", [1000, 999], ids=["vocab", "positions"])
+def test_mesh_train_holds_no_whole_vocabulary(V, mesh_cell, port_tuner):
+    """No logits over a rank's rows, every position and the whole
+    vocabulary are among the largest storages at the peak, in any dtype
+    (the gathered vocabulary of the loss held five float32 ones, 33.6 GB
+    each, in llama3-8b's train_4k on the card): each rank holds its block
+    of the logits."""
+    mesh = mesh_cell[0]
+    res = dryrun.trace_cell(_vocab_cfg(V), smoke_shape("train"), mesh, device="cpu")
+    rows, S = 8 // 4, 64
+    top = res["memory"]["peak_top"]
+    assert top, res["memory"]
+    for _, shape, dtype, op in top:
+        whole = shape[-1] == V and np.prod(shape[:-1]) >= rows * (S - 1)
+        assert not whole, (shape, dtype, op)
+    assert res["collectives"]["op_counts"].get("all-reduce", 0) >= 3
+
+
+@pytest.mark.parametrize("V,tied", [(1000, False), (999, False), (1000, True)],
+                         ids=["vocab", "positions", "tied"])
+def test_unembedding_flops_are_one_eighth(V, tied, mesh_cell):
+    """The unembedding and the loss, forward and backward, count 1/8 of
+    their one-device FLOPs per device on the (4, 2) mesh: every rank
+    projects its own rows onto its own columns (or positions)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.models import layers
+    from repro_torch.train.train_step import _loss
+
+    mesh = mesh_cell[0]
+    Bs, S, D = 8, 64, 64
+
+    def flops(m):
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            h = dryrun._place(torch.empty((Bs, S, D), dtype=torch.bfloat16),
+                              ("batch", None, None), m, shd.DEFAULT_RULES)
+            shape, axes = ((V, D), ("vocab", "embed")) if tied else ((D, V), ("embed", "vocab"))
+            table = dryrun._place(torch.empty(shape, dtype=torch.bfloat16), axes, m,
+                                  shd.DEFAULT_RULES)
+            toks = dryrun._place(torch.zeros((Bs, S), dtype=torch.int32), ("batch", None), m,
+                                 shd.DEFAULT_RULES)
+            for t in (h, table):
+                t.requires_grad_(True)
+            tally = dryrun.StepTally()
+            repl = implicit_replication() if m is not None else contextlib.nullcontext()
+            with repl, tally.counting():
+                logits = layers.unembed(None if tied else {"table": table}, h,
+                                        tied_table=table if tied else None, vocab_size=V - 1)
+                loss, _, _ = _loss(logits, {"tokens": toks}, 1e-4)
+                torch.autograd.grad(loss, [h, table])
+        return tally.flops
+
+    one = flops(None)
+    assert one == 3 * 2 * Bs * S * D * V
+    assert flops(mesh) * 8 == one
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "seamless-m4t-medium"])
+def test_mesh_train_4k_traces(arch, mesh_cell, port_tuner, monkeypatch):
+    """The two train_4k cells that failed on the card (PERF.md §5) trace
+    at their SMOKE widths on the (4, 2) mesh: arctic-480b with 8-bit AdamW
+    (its moments flattened in the reference's row-major blocks, each rank
+    its own), seamless-m4t-medium with one head a ``model`` rank, as 16
+    heads on 16 ranks give (a gradient whose local shard is a transposed
+    view)."""
+    from repro_torch.configs.base import SHAPES_BY_NAME
+
+    mesh = mesh_cell[0]
+    cfg = get_config(arch, smoke=True)
+    if arch == "arctic-480b":
+        monkeypatch.setattr(dryrun, "pick_optimizer_name", lambda c: "adamw8bit")
+    else:
+        cfg = dataclasses.replace(cfg, num_heads=2, num_kv_heads=2)
+    res = dryrun.trace_cell(cfg, SHAPES_BY_NAME["train_4k"], mesh, device="cpu")
+    assert res["cost"]["flops"] > 0 and res["memory"]["peak_bytes"] > 0
+    if arch == "arctic-480b":
+        from repro_torch.models import build_model, logical_axes
+        from repro_torch.train.optimizer import make_optimizer
+
+        assert res["optimizer"] == "adamw8bit"
+        specs = build_model(cfg).specs
+        state = make_optimizer("adamw8bit").state_specs(specs)
+        axes = shd.optimizer_state_axes("adamw8bit", logical_axes(specs))
+        desc = shd.MeshDesc({"data": 4, "model": 2})
+        want = sum(t.numel() * t.element_size() // shd.shard_fraction(t.shape, ax, desc)
+                   for t, ax in zip(_leaves(state), _leaves(axes)))
+        assert res["memory"]["by_argument"]["opt"] == want
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
 
 
 # ---------------------------------------------------------------------------
