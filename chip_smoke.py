@@ -228,21 +228,34 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    tokens/s and peak memory.  (c) ``launch.train --app lda`` at
    configs/lda.py's CONFIG for 2 sweeps (the ``butterfly`` method, K1).
 12. The dry-run (``launch.dryrun``, ``launch.costing``) on a fake process
-   group of 512 ranks.  (a) ``lower_cell`` traces four production cells
+   group of 512 ranks.  (a) ``lower_cell`` traces eight production cells
    at full width under ``FakeTensorMode`` on cuda meshes: gemma2-9b
-   ``decode_32k``, llama3-8b and seamless-m4t-medium ``train_4k`` on the
-   256-rank pod, qwen3-4b ``prefill_32k`` on the 512-rank two-pod mesh;
-   each prints its parameters, trace seconds, per-device memory (beside
-   the card's 80 GB) and its five largest storages at the peak, FLOPs and
-   the ops that hold the most of them, bytes, collectives by kind, the
+   ``decode_32k``, llama3-8b and seamless-m4t-medium ``train_4k``,
+   hymba-1.5b ``decode_32k`` (the cache's keys split over ``model``,
+   combined by log-sum-exp) and ``prefill_32k`` (the chunked path, a
+   window and meta tokens, the queries split over ``model``) and
+   minicpm3-4b ``train_4k`` (MLA, the backward) on the 256-rank pod,
+   qwen3-4b ``prefill_32k`` and minicpm3-4b ``decode_32k`` (MLA decode,
+   ROADMAP.md F6) on the 512-rank two-pod mesh; each prints its
+   parameters, trace seconds, per-device memory (beside the card's 80 GB)
+   and its five largest storages at the peak, FLOPs and the ops that hold
+   the most of them, bytes, collectives by kind, the
    resolved sampler and the kernels traced by their fake rules, and holds
    its parameter and AdamW-state bytes per device equal to
    ``dist.sharding.tree_bytes_per_device`` on the same mesh.  llama3-8b
    ``train_4k`` (the sharded loss and unembedding) must hold no float32
    logits over the whole vocabulary at its peak, peak under 40 GiB a
    device and count at most 1.25x the reference's 2.87e14 FLOPs a device
-   (XLA's count of the reference's dry-run on a CPU host).  (b) One card: the dry-run without a mesh, then the same step
-   run for real on inputs of the same shapes (``dryrun.real_inputs``,
+   (XLA's count of the reference's dry-run on a CPU host).  The four
+   cells whose heads the ``model`` degree does not divide count at most
+   1.25x the reference's FLOPs a device (minicpm3-4b ``train_4k`` 1.3x,
+   its excess outside attention; ``ATTN_REF_FLOPS``, the same source);
+   hymba-1.5b ``decode_32k`` moves no all-gather with the cache's
+   length and under a tenth of the 5.416e10 bytes of collectives it moved
+   while it gathered its cache, and peaks under the 3.919 GiB it took
+   then; minicpm3-4b ``train_4k`` peaks under the
+   card's 80 GB.  (b) One card: the dry-run without a mesh, then the same
+   step run for real on inputs of the same shapes (``dryrun.real_inputs``,
    ``cell_step``): gemma2-9b at full width and depth, 8 sequences, 4,096
    cache positions, bfloat16 parameters and caches, as the serve step
    resolves its draw and under the model card's top-k 64 / top-p 0.95
@@ -4394,8 +4407,28 @@ def phase_launchers(dev, seed, tally) -> tuple:
 # (arch, shape, multi-pod): production cells traced on a fake group of 512
 # ranks and cuda meshes
 DRYRUN_CELLS = (("gemma2-9b", "decode_32k", False), ("llama3-8b", "train_4k", False),
-                ("qwen3-4b", "prefill_32k", True), ("seamless-m4t-medium", "train_4k", False))
+                ("qwen3-4b", "prefill_32k", True), ("seamless-m4t-medium", "train_4k", False),
+                ("hymba-1.5b", "decode_32k", False), ("hymba-1.5b", "prefill_32k", False),
+                ("minicpm3-4b", "train_4k", False), ("minicpm3-4b", "decode_32k", True))
 H100_BYTES = 80 * 10**9
+# The cells of heads that the model degree (16) does not divide (ROADMAP.md,
+# F5 (a) and F6), per device: the reference's FLOPs (``corrected.flops_total``
+# of ``repro.launch.dryrun --arch A --shape S --mesh single|multi``, XLA's
+# count on a CPU host of 256 / 512 virtual devices) and the share of them
+# the port's may take.  minicpm3-4b train_4k's bound is wider: its attention
+# products are 1/16 of what they were with every head on every model rank,
+# and the excess left (1.265x on the card, PERF.md §6) is in weight
+# gradients outside attention (ROADMAP.md, F5)
+ATTN_REF_FLOPS = {("hymba-1.5b", "decode_32k", False): (1.169e10, 1.25),
+                  ("hymba-1.5b", "prefill_32k", False): (4.124e13, 1.25),
+                  ("minicpm3-4b", "train_4k", False): (1.96e14, 1.3),
+                  ("minicpm3-4b", "decode_32k", True): (3.292e10, 1.25)}
+# hymba-1.5b decode_32k while every model rank gathered its cache (the
+# dry-run on the card, ROADMAP.md F5): 5.416e10 bytes of collectives a step,
+# a peak of 3.919 GiB a device.  The step must move under a tenth of those
+# bytes and peak below that peak.
+HYMBA_DECODE_COLLECTIVES = 5.416e10 / 10
+HYMBA_DECODE_PEAK = 3.919 * 2**30
 # llama3-8b train_4k on pod16x16, per device: the reference's FLOPs
 # (``corrected.flops_total`` of ``repro.launch.dryrun --arch llama3-8b
 # --shape train_4k``, XLA's count on a CPU host of 256 virtual devices),
@@ -4447,9 +4480,46 @@ def dryrun_cell(arch: str, shape: str, multi: bool) -> dict:
                                  f"tree_bytes_per_device's {v}")
     res["tree_bytes_per_device"] = want
     log(f"    ops of the most flops: {res['flops_top']}")
+    log(f"    collectives of the most bytes: {list(res['collectives_by'].items())[:4]}")
     if (arch, shape) == ("llama3-8b", "train_4k"):
         check_sharded_loss(res, get_config(arch))
+    if (arch, shape, multi) in ATTN_REF_FLOPS:
+        check_attention_cell(res, arch, shape, multi)
     return res
+
+
+def check_attention_cell(res: dict, arch: str, shape: str, multi: bool) -> None:
+    """A cell whose heads ``model`` does not divide: FLOPs within its
+    share of the reference's (``ATTN_REF_FLOPS``); hymba-1.5b ``decode_32k``
+    moves no all-gather with the cache's length (or a rank's block of it)
+    in its output and under ``HYMBA_DECODE_COLLECTIVES`` bytes, and peaks
+    under ``HYMBA_DECODE_PEAK``; minicpm3-4b ``train_4k`` fits the card."""
+    from repro_torch.configs.base import SHAPES_BY_NAME
+
+    ref, ratio = ATTN_REF_FLOPS[(arch, shape, multi)]
+    flops, peak = res["corrected"]["flops_total"], res["memory"]["peak_bytes"]
+    if flops > ratio * ref:
+        raise AssertionError(f"{arch} {shape}: {flops:.4g} FLOPs a device, over "
+                             f"{ratio} x the reference's {ref:.4g}")
+    msg = f"    {arch} {shape}: {flops / ref:.3f} x the reference's FLOPs"
+    if (arch, shape) == ("hymba-1.5b", "decode_32k"):
+        sh = SHAPES_BY_NAME[shape]
+        caches = build_model(get_config(arch)).cache_specs(sh.global_batch, sh.seq_len)
+        T = caches["attn"]["k"].shape[2]   # (layers, B, T, kv heads, head)
+        cache = [k for k in res["collectives_by"] if k.startswith("all-gather")
+                 and (f"{T}," in k or f"{T // 16}," in k)]
+        if cache:
+            raise AssertionError(f"{arch} {shape} gathers its cache: {cache}")
+        moved = res["collectives"]["total_bytes"]
+        if moved >= HYMBA_DECODE_COLLECTIVES or peak >= HYMBA_DECODE_PEAK:
+            raise AssertionError(f"{arch} {shape}: {moved:.4g} bytes of collectives (limit "
+                                 f"{HYMBA_DECODE_COLLECTIVES:.4g}), peak {peak / 2**30:.3f} GiB "
+                                 f"(limit {HYMBA_DECODE_PEAK / 2**30:.3f})")
+        msg += f", {moved:.4g} bytes of collectives, no cache gathered"
+    if (arch, shape) == ("minicpm3-4b", "train_4k") and peak >= H100_BYTES:
+        raise AssertionError(f"{arch} {shape} peaks at {peak / 2**30:.2f} GiB a device, "
+                             f"over the card's 80 GB")
+    log(f"{msg}, peak {peak / 2**30:.3f} GiB")
 
 
 def check_sharded_loss(res: dict, cfg) -> None:

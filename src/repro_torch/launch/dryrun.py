@@ -33,8 +33,9 @@ partitioned module's are:
   once (eager PyTorch fuses nothing), plus the bytes each hand-written
   kernel's fake rule reckons (``kernels.fake``).  ``flops_top`` names the
   ops (with their local input shapes) that hold the most FLOPs.
-* ``collectives``: every functional collective DTensor issues, as
-  :func:`collective_bytes` sums them (the reference's keys).  The port's
+* ``collectives``: every functional collective DTensor (or the port)
+  issues, as :func:`collective_bytes` sums them (the reference's keys);
+  ``collectives_by`` groups them by kind and output shapes.  The port's
   gather sites (ROADMAP.md, deliberate differences) show here as
   all-gathers that XLA's partitioner does not emit.
 
@@ -366,6 +367,17 @@ def collective_bytes(records) -> Dict[str, float]:
     return out
 
 
+def collectives_by(records) -> Dict[str, list]:
+    """The tally's collective records grouped by kind and output shapes:
+    ``{"kind [shapes]": [count, bytes]}``, the most bytes first."""
+    by: Dict[str, list] = {}
+    for kind, shapes, b in records:
+        c = by.setdefault(f"{kind} {shapes}", [0, 0])
+        c[0] += 1
+        c[1] += b
+    return dict(sorted(by.items(), key=lambda kv: -kv[1][1]))
+
+
 # ---------------------------------------------------------------------------
 # abstract inputs
 # ---------------------------------------------------------------------------
@@ -633,6 +645,7 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mesh=None, *, device="cuda"
         shd.set_activation_sharding(*old_act)
     result["kernel_calls"] = dict(_fake.TRACED)
     result["collectives"] = collective_bytes(tally.collectives)
+    result["collectives_by"] = collectives_by(tally.collectives)
     if not compile_:
         return result
     top = mem.pop("peak_top")

@@ -13,17 +13,35 @@ A decode step writes its keys and values (MLA: its latents) into the
 caches it is given, in place (one row per sequence, not the whole cache),
 and returns them.
 
-On a mesh (DTensor operands) the attention core runs per shard
-(:func:`_per_shard`): queries, keys and values are placed with their rows
-on the data axes and their heads on the model axis, as the rules place a
-``("batch", None, "heads", None)`` tensor, and each rank attends its own
-rows and heads (every key of them) with the same math.  DTensor's own
-rules would flatten the sharded batch and heads into one dimension, which
-the card's PyTorch refuses (ROADMAP.md, deliberate differences).
+On a mesh (DTensor operands) the attention core runs per shard, its
+operands placed by this module (:func:`_sdpa_mesh`), with rows on the data
+axes and, by what the ``model`` degree divides:
+
+* the heads (:func:`_per_shard`), as the rules place a ``("batch", None,
+  "heads", None)`` tensor: each rank attends its own rows and heads over
+  every key;
+* else, in train and prefill, the query positions (:func:`_query_blocks`,
+  the ``seq`` rule): each rank attends its block of positions, all heads,
+  over every key, and the output comes back with its positions over
+  ``model``;
+* else, in decode, the cache's keys as the cache is placed
+  (:func:`_key_blocks`, flash-decoding): each rank attends all heads over
+  its own block of keys, and the blocks combine by log-sum-exp, two
+  all-reduces of (B, H)- and (B, H, hv)-sized tensors a layer
+  (:func:`_lse_combine`; MLA's absorbed decode likewise,
+  :func:`_mla_ctx_blocks`).  The values match the unsharded path within
+  float32 rounding, not bit for bit (ROADMAP.md, deliberate differences).
+
+Where neither the heads nor the positions divide, every ``model`` rank
+attends every head of its rows, whole (``MESH_PATHS["whole"]``).
+DTensor's own rules would flatten the sharded batch and heads into one
+dimension, which the card's PyTorch refuses (ROADMAP.md, deliberate
+differences).  ``MESH_PATHS`` counts the calls that took each path.
 """
 
 from __future__ import annotations
 
+from collections import Counter
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -40,6 +58,10 @@ NEG_INF = -2.0e38
 
 CHUNKED_THRESHOLD = 4096  # q lengths above this use the chunked path
 Q_CHUNK = 256
+
+# calls on a mesh by the path they took (module docstring): "heads",
+# "queries", "keys", "whole"
+MESH_PATHS: Counter = Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -105,21 +127,200 @@ def _is_dtensor(*ts) -> bool:
     return any(hasattr(t, "full_tensor") for t in ts)
 
 
+def _mesh_of(*ts):
+    return next(t.device_mesh for t in ts if hasattr(t, "device_mesh"))
+
+
+def _free_model_dim(mesh, H: int) -> Optional[int]:
+    """The ``model`` mesh dim when it is larger than 1 and the ``heads``
+    rule leaves it unused (``H`` does not divide it), else None."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names or mesh.size(names.index("model")) <= 1:
+        return None
+    md = names.index("model")
+    heads = _shd.named_sharding((1, 1, H, 1), (None, None, "heads", None), mesh)
+    return None if heads.placements[md].is_shard() else md
+
+
+def _local(t, mesh, placements, grad_placements=None):
+    """This rank's block of ``t`` placed by ``placements``: a DTensor
+    redistributed, a tensor every rank holds whole taken as replicated
+    first; ``grad_placements`` as ``DTensor.to_local`` takes them."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not hasattr(t, "full_tensor"):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    return t.redistribute(mesh, tuple(placements)).to_local(grad_placements=grad_placements)
+
+
+def _wrap(local, mesh, placements, shape):
+    """A local result as the DTensor of global ``shape`` placed so (made
+    without communicating)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    return DTensor.from_local(local.contiguous(), mesh, tuple(placements), run_check=False,
+                              shape=shape, stride=torch.empty(shape, device="meta").stride())
+
+
+def _sdpa_mesh(core, q, k, v, mask=None, q_pos=None, softcap: float = 0.0,
+               kv_sharded: bool = False):
+    """``core(q, k, v, mask, q_pos)`` (the plain attention) on DTensor
+    operands, each rank on its own block: over the heads where ``model``
+    divides them, else over the query positions, or in decode
+    (``kv_sharded``) over the cache's keys (module docstring)."""
+    mesh = _mesh_of(q, k, v)
+    H = q.shape[2]
+    md = _free_model_dim(mesh, H)
+    if md is not None and kv_sharded:
+        MESH_PATHS["keys"] += 1
+        return _key_blocks(q, k, v, mask, softcap, mesh)
+    if md is not None:
+        qsh = _shd.named_sharding(tuple(q.shape), ("batch", "seq", None, None), mesh)
+        if qsh.placements[md].is_shard(1):
+            MESH_PATHS["queries"] += 1
+            return _query_blocks(core, q, k, v, mask, q_pos, mesh, qsh.placements)
+        # Neither the heads nor the positions divide the model degree: the
+        # rules replicate both, so every model rank gathers the keys and
+        # values of its rows and attends every head of them
+        MESH_PATHS["whole"] += 1
+    else:
+        MESH_PATHS["heads"] += 1
+    k, v = _repeat_kv(k, H), _repeat_kv(v, H)
+    return _per_shard(lambda ql, kl, vl, m: core(ql, kl, vl, m, q_pos), q, k, v, mask)
+
+
+def _query_blocks(core, q, k, v, mask, q_pos, mesh, q_pl):
+    """Train and prefill where ``model`` does not divide the heads: each
+    rank attends its rows' block of query positions (``q_pl``: rows over
+    the data axes, positions over ``model``), all heads, over every key;
+    the mask's rows and ``q_pos`` are the block's.  The output comes back
+    placed as ``q_pl``.  Keys and values are whole along the sequence, so
+    their gradients are partial sums over the mesh dims that split the
+    positions."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    kv_pl = [p if p.is_shard(0) else Replicate() for p in q_pl]
+    kv_grad = [Partial() if p.is_shard(1) else kv for p, kv in zip(q_pl, kv_pl)]
+    ql = _local(q, mesh, q_pl)
+    kl, vl = (_local(t, mesh, kv_pl, kv_grad) for t in (k, v))
+    ml = pl = None
+    if mask is not None:   # (Sq, Sk) or per row (B, Sq, Sk): the block's rows
+        m_pl = [Shard(0) if p.is_shard(1) else Replicate() for p in q_pl] \
+            if mask.dim() == 2 else q_pl
+        ml = _local(mask, mesh, m_pl)
+    if q_pos is not None:
+        pl = _local(q_pos, mesh, [Shard(0) if p.is_shard(1) else Replicate() for p in q_pl])
+    out = core(ql, kl, vl, ml, pl)
+    return _wrap(out, mesh, q_pl, (q.shape[0], q.shape[1], q.shape[2], v.shape[3]))
+
+
+def _kv_blocks(mesh, k):
+    """The placements of a decode cache's blocks as the cache is placed,
+    (rows, sequence) only, and this rank's offset and length along the
+    sequence; a cache every rank holds whole splits its rows by the
+    rules."""
+    from torch.distributed.tensor import Replicate
+
+    if hasattr(k, "full_tensor"):
+        kv_pl = [p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in k.placements]
+    else:
+        kv_pl = list(_shd.named_sharding(tuple(k.shape), ("batch",) + (None,) * (k.dim() - 1),
+                                         mesh).placements)
+    return kv_pl, _shd.shard_offset(k.shape[1], 1, mesh, kv_pl)
+
+
+def _key_blocks(q, k, v, mask, softcap: float, mesh):
+    """Decode where ``model`` does not divide the heads (flash-decoding):
+    each rank attends its rows, all heads, over its own block of the
+    cache's keys (the cache's local shard, as ``_write_per_shard``
+    addresses it), and the blocks combine by log-sum-exp
+    (:func:`_lse_combine`).  ``mask`` is (Sq, Sk) or per row (B, Sq, Sk)."""
+    kv_pl, row_pl = _kv_blocks(mesh, k)
+    ql = _local(q, mesh, row_pl)
+    kl, vl = (_local(t, mesh, kv_pl) for t in (k, v))
+    valid = _mask_block(mask, mesh, kv_pl)
+    H = q.shape[2]
+    kl, vl = _repeat_kv(kl, H), _repeat_kv(vl, H)
+    scores = torch.where(valid, _scores(ql, kl, softcap), NEG_INF)
+    out = _lse_combine(*_block_softmax(scores, valid), vl, "bhqs,bshv->bqhv", mesh, kv_pl)
+    return _wrap(out, mesh, row_pl, (q.shape[0], q.shape[1], H, v.shape[3]))
+
+
+def _kv_blocks(mesh, k):
+    """The placements of a decode cache's blocks as the cache is placed,
+    its rows and sequence only (a cache every rank holds whole: its rows
+    by the rules), and of the queries' rows that go with them."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if hasattr(k, "full_tensor"):
+        kv_pl = [p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in k.placements]
+    else:
+        kv_pl = list(_shd.named_sharding(tuple(k.shape), ("batch",) + (None,) * (k.dim() - 1),
+                                         mesh).placements)
+    return kv_pl, [Shard(0) if p.is_shard(0) else Replicate() for p in kv_pl]
+
+
+def _mask_block(mask, mesh, kv_pl):
+    """This rank's block of a decode mask, (Sq, Sk) or per row (B, Sq, Sk),
+    broadcast to the scores' (B, H, Sq, Sk): the block's keys (and rows)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if mask.dim() == 2:
+        pl = [Shard(1) if p.is_shard(1) else Replicate() for p in kv_pl]
+    else:
+        pl = [Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(1) else Replicate()
+              for p in kv_pl]
+    m = _local(mask, mesh, pl)
+    return m[None, None] if m.dim() == 2 else m[:, None]
+
+
+def _block_softmax(scores, valid):
+    """A block's masked float32 scores (B, H, Sq, Sk) -> (max m, the
+    unnormalized probabilities exp(s - m), their sum l).  A block with no
+    valid key adds exactly 0 (its m is ``NEG_INF``)."""
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(scores - m), 0.0)
+    return m, p, p.sum(dim=-1, keepdim=True)
+
+
+def _lse_combine(m, p, l, v, eq: str, mesh, kv_pl):
+    """Combine the blocks of keys by log-sum-exp: ``o = einsum(eq, p, v)``
+    (B, Sq, H, d) of this rank's block, then over every mesh dim that
+    splits the keys an all-reduce (max) of ``m``, ``l`` and ``o`` rescaled
+    by exp(m - max), one all-reduce (sum) of both, and ``o / l`` (a tensor
+    by a tensor), in ``v``'s dtype."""
+    import torch.distributed._functional_collectives as funcol
+
+    def reduce(t, op, md):
+        t = funcol.all_reduce(t, op, (mesh, md))
+        return t.wait() if isinstance(t, funcol.AsyncCollectiveTensor) else t
+
+    dims = [md for md, pl in enumerate(kv_pl) if pl.is_shard(1)]
+    o = einsum(eq, p.to(v.dtype), v).to(torch.float32)
+    m_all = m
+    for md in dims:
+        m_all = reduce(m_all, "max", md)
+    alpha = torch.exp(m - m_all).permute(0, 2, 1, 3)   # (B, Sq, H, 1); NEG_INF blocks: 0
+    lo = torch.cat([o * alpha, l.permute(0, 2, 1, 3) * alpha], dim=-1)
+    for md in dims:
+        lo = reduce(lo, "sum", md)
+    return (lo[..., :-1] / lo[..., -1:]).to(v.dtype)
+
+
 def _sdpa(q, k, v, mask, softcap: float = 0.0, kv_sharded: bool = False):
     """q (B,Sq,H,hd)  k (B,Sk,KV,hd)  v (B,Sk,KV,hv) -> (B,Sq,H,hv).
 
     A (Sq, Sk) mask broadcasts over the batch; a (B, Sq, Sk) mask is per
     row (continuous batching: each slot attends its own prefix).
-    ``kv_sharded``: pin the score matrix's key axis to the cache's seq
-    sharding (the activation hook; the identity without a mesh).
-    DTensor operands attend per shard (:func:`_per_shard`)."""
+    ``kv_sharded``: a decode step against the cache.  DTensor operands
+    attend per shard (:func:`_sdpa_mesh`)."""
+    if _is_dtensor(q, k, v):
+        return _sdpa_mesh(lambda ql, kl, vl, m, _p: _sdpa(ql, kl, vl, m, softcap),
+                          q, k, v, mask, softcap=softcap, kv_sharded=kv_sharded)
     H = q.shape[2]
     k, v = _repeat_kv(k, H), _repeat_kv(v, H)
-    if _is_dtensor(q, k, v):
-        return _per_shard(lambda ql, kl, vl, m: _sdpa(ql, kl, vl, m, softcap), q, k, v, mask)
     scores = _scores(q, k, softcap)
-    if kv_sharded:
-        scores = constrain_activation(scores, ("batch", None, None, "act_kv"))
     return _attend(scores, mask[None, None] if mask.dim() == 2 else mask[:, None], v)
 
 
@@ -186,13 +387,14 @@ def _sdpa_chunked(
 ):
     """Flash-style q-chunked attention: a loop over query chunks, so the
     (Sq, Sk) score matrix never materializes.  Softmax per chunk is exact
-    (full K per chunk).  DTensor operands attend per shard."""
+    (full K per chunk).  DTensor operands attend per shard
+    (:func:`_sdpa_mesh`)."""
     B, Sq, H, hd = q.shape
-    k, v = _repeat_kv(k, H), _repeat_kv(v, H)
     if _is_dtensor(q, k, v):
-        return _per_shard(lambda ql, kl, vl, _m: _sdpa_chunked(
-            ql, kl, vl, q_pos, k_pos, causal=causal, window=window, k_valid=k_valid,
-            softcap=softcap, q_chunk=q_chunk), q, k, v)
+        return _sdpa_mesh(lambda ql, kl, vl, _m, pl: _sdpa_chunked(
+            ql, kl, vl, pl, k_pos, causal=causal, window=window, k_valid=k_valid,
+            softcap=softcap, q_chunk=q_chunk), q, k, v, q_pos=q_pos)
+    k, v = _repeat_kv(k, H), _repeat_kv(v, H)
     outs = []
     for s0 in range(0, Sq, q_chunk):
         qi, pi = q[:, s0:s0 + q_chunk], q_pos[s0:s0 + q_chunk]
@@ -420,18 +622,40 @@ def mla_attend_decode(params, x, cache, cache_pos, cfg: ModelConfig):
     q_nope, q_pe = _mla_queries(params, x, positions, cfg)
     q_c = einsum("bsnh,rnh->bsnr", q_nope, params["wuk"])
     scale = float(np.float32(1.0) / np.sqrt(np.float32(m.qk_nope_head_dim + m.qk_rope_head_dim)))
-    scores = (einsum("bsnr,btr->bnst", q_c, c_kv)
-              + einsum("bsnh,bth->bnst", q_pe, k_pe)).to(torch.float32) * scale
     k_pos = torch.arange(c_kv.shape[1], device=c_kv.device)
     if per_row:
-        valid = (k_pos[None, :] <= cache_pos[:, None])[:, None, None, :]   # (B,1,1,T)
+        mask = k_pos[None, None, :] <= cache_pos[:, None, None]   # (B,1,T)
     else:
-        valid = (k_pos <= int(cache_pos))[None, None, None, :]
-    probs = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1).to(c_kv.dtype)
-    ctx = einsum("bnst,btr->bsnr", probs, c_kv)
+        mask = (k_pos <= int(cache_pos))[None, :]                 # (1,T)
+    if _is_dtensor(q_c, c_kv) and _free_model_dim(_mesh_of(q_c, c_kv), q_c.shape[2]) is not None:
+        ctx = _mla_ctx_blocks(q_c, q_pe, c_kv, k_pe, mask, scale, _mesh_of(q_c, c_kv))
+    else:
+        scores = (einsum("bsnr,btr->bnst", q_c, c_kv)
+                  + einsum("bsnh,bth->bnst", q_pe, k_pe)).to(torch.float32) * scale
+        valid = mask[None, None] if mask.dim() == 2 else mask[:, None]   # (B|1,1,1,T)
+        probs = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1).to(c_kv.dtype)
+        ctx = einsum("bnst,btr->bsnr", probs, c_kv)
     out = einsum("bsnr,rnh->bsnh", ctx, params["wuv"])
     y = einsum("bsnh,nhd->bsd", out, params["wo"])
     return y, {"c_kv": c_kv, "k_pe": k_pe}
+
+
+def _mla_ctx_blocks(q_c, q_pe, c_kv, k_pe, mask, scale: float, mesh):
+    """The absorbed decode's context where ``model`` does not divide the
+    heads: each rank scores its rows, all heads, against its own block of
+    the latent cache (``c_kv``, ``k_pe``), and ``ctx = probs . c_kv``
+    combines over the blocks by log-sum-exp (:func:`_lse_combine`), before
+    ``wuv`` and ``wo``."""
+    MESH_PATHS["keys"] += 1
+    kv_pl, row_pl = _kv_blocks(mesh, c_kv)
+    qc, qp = (_local(t, mesh, row_pl) for t in (q_c, q_pe))
+    cl, kl = (_local(t, mesh, kv_pl) for t in (c_kv, k_pe))
+    valid = _mask_block(mask, mesh, kv_pl)
+    scores = (einsum("bsnr,btr->bnst", qc, cl)
+              + einsum("bsnh,bth->bnst", qp, kl)).to(torch.float32) * scale
+    scores = torch.where(valid, scores, NEG_INF)
+    ctx = _lse_combine(*_block_softmax(scores, valid), cl, "bnst,btr->bsnr", mesh, kv_pl)
+    return _wrap(ctx, mesh, row_pl, tuple(q_c.shape))
 
 
 def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int):

@@ -9,6 +9,7 @@ casts both sides first, where ``torch.einsum`` would refuse.
 
 from __future__ import annotations
 
+import math
 from functools import partial
 from typing import Dict
 
@@ -95,19 +96,36 @@ def _reshapeable(x, shape):
     """A DTensor ``x`` with the dims gathered that keep a reshape to
     ``shape`` from keeping its sharding: a sharded dim flattened behind
     another, or a sharded dim split into parts whose first does not divide
-    over the mesh dims that shard it.  The card's PyTorch refuses both."""
+    over the mesh dims that shard it.  The card's PyTorch refuses both.
+    Partial sums are reduced first where the reshape flattens or splits a
+    group of dims whose first does not divide over the partial mesh dims:
+    DTensor's view rule would scatter the sums along that dim and then
+    refuse to flatten it unevenly (ROADMAP.md, F6)."""
     if not hasattr(x, "full_tensor"):
         return x
     mesh = x.device_mesh
-    for src, dst in _view_groups(tuple(x.shape), tuple(shape)):
-        src = [d for d in src if x.shape[d] > 1]   # size-1 dims take no part
-        first = next((shape[e] for e in dst if shape[e] > 1), 1)
+
+    def ways(d):
+        n = 1
+        for m, p in enumerate(x.placements):
+            if p.is_shard(d):
+                n *= mesh.size(m)
+        return n
+
+    # size-1 dims take no part
+    groups = [([d for d in src if x.shape[d] > 1], [e for e in dst if shape[e] > 1])
+              for src, dst in _view_groups(tuple(x.shape), tuple(shape))]
+    sums = math.prod(mesh.size(m) for m, p in enumerate(x.placements) if p.is_partial())
+    if sums > 1 and any((len(src) > 1 or len(dst) > 1) and x.shape[src[0]] % (ways(src[0]) * sums)
+                        for src, dst in groups if src):
+        from torch.distributed.tensor import Replicate
+
+        x = x.redistribute(mesh, [Replicate() if p.is_partial() else p for p in x.placements])
+    for src, dst in groups:
+        first = shape[dst[0]] if dst else 1
         for k, d in enumerate(src):
-            ways = 1
-            for m, p in enumerate(x.placements):
-                if p.is_shard(d):
-                    ways *= mesh.size(m)
-            if ways > 1 and (k > 0 or first % ways):
+            n = ways(d)
+            if n > 1 and (k > 0 or first % n):
                 x = gather_dim(x, d)
     return x
 
