@@ -57,7 +57,9 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    there and on edge rows (zero weights, all light, all pads) at Kp = 256
    and 4,096.  Each kernel and its plain version are timed with CUDA
    events (and, where one PyTorch computation does the same work, its
-   library yardstick); the truncated routes end to end at (64, 256000);
+   library yardstick: for the draws from given uniforms, K3, K4, K7, K8
+   and K12, ``torch.searchsorted`` over ``torch.cumsum`` of the weights
+   they draw from); the truncated routes end to end at (64, 256000);
    K9's radix select against its bisection body there and, with its rows
    staged in shared memory and read from L2, at (64, 32000) and (64,
    56000); K11 also at B = 8.  The seeded draws (phase 2f): K5
@@ -228,13 +230,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    tokens/s and peak memory.  (c) ``launch.train --app lda`` at
    configs/lda.py's CONFIG for 2 sweeps (the ``butterfly`` method, K1).
 12. The dry-run (``launch.dryrun``, ``launch.costing``) on a fake process
-   group of 512 ranks.  (a) ``lower_cell`` traces eight production cells
+   group of 512 ranks.  (a) ``lower_cell`` traces eleven production cells
    at full width under ``FakeTensorMode`` on cuda meshes: gemma2-9b
    ``decode_32k``, llama3-8b and seamless-m4t-medium ``train_4k``,
    hymba-1.5b ``decode_32k`` (the cache's keys split over ``model``,
    combined by log-sum-exp) and ``prefill_32k`` (the chunked path, a
-   window and meta tokens, the queries split over ``model``) and
-   minicpm3-4b ``train_4k`` (MLA, the backward) on the 256-rank pod,
+   window and meta tokens, the queries split over ``model``),
+   minicpm3-4b ``train_4k`` (MLA, the backward), granite-moe-1b-a400m
+   ``train_4k`` (the MoE dispatch over its experts), pixtral-12b
+   ``train_4k`` (the MLP with its d_ff over ``model``) and mamba2-370m
+   ``decode_32k`` (50,280 columns split unevenly) on the 256-rank pod,
    qwen3-4b ``prefill_32k`` and minicpm3-4b ``decode_32k`` (MLA decode,
    ROADMAP.md F6) on the 512-rank two-pod mesh; each prints its
    parameters, trace seconds, per-device memory (beside the card's 80 GB)
@@ -254,7 +259,11 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    length and under a tenth of the 5.416e10 bytes of collectives it moved
    while it gathered its cache, and peaks under the 3.919 GiB it took
    then; minicpm3-4b ``train_4k`` peaks under the
-   card's 80 GB.  (b) One card: the dry-run without a mesh, then the same
+   card's 80 GB.  The three cells of the MoE dispatch, the MLP and the
+   odd vocabulary (ROADMAP.md F5 (b)-(d)) count at most 1.25x the
+   reference's FLOPs a device (``LAYER_REF_FLOPS``, the same source) and
+   peak under the card's 80 GB; mamba2-370m ``decode_32k``'s ops hold no
+   product over the whole vocabulary.  (b) One card: the dry-run without a mesh, then the same
    step run for real on inputs of the same shapes (``dryrun.real_inputs``,
    ``cell_step``): gemma2-9b at full width and depth, 8 sequences, 4,096
    cache positions, bfloat16 parameters and caches, as the serve step
@@ -948,16 +957,22 @@ def phase_timing(corpus, dev, seed, inputs):
     def bound(name, s=1):
         return lambda idx: bounds(name, th, ph, d, w, idx, W, nb, S=s)
 
+    dl, wl = d.long(), w.long()
+
+    def product():
+        return th[dl] * ph[wl]
+
     return time_kernels({
         "lda_fused_draw": (lambda: KL.lda_fused_draw(th, ph, d, w, u, W),
-                           lambda: KL.lda_fused_draw_torch(th, ph, d, w, u, W), None,
-                           bound("lda_fused_draw")),
+                           lambda: KL.lda_fused_draw_torch(th, ph, d, w, u, W),
+                           searchsorted_library(product, u), bound("lda_fused_draw")),
         "lda_blocksums": (lambda: KL.lda_blocksums(th, ph, d, w, W, nb),
                           lambda: KL.lda_blocksums_torch(th, ph, d, w, W, nb),
                           k6_library(th, ph, d, w, W, nb),
                           bound("lda_blocksums")),
         "lda_walk": (lambda: KL.lda_walk(th, ph, run, uf, rows4, d4, w4, W),
-                     lambda: KL.lda_walk_torch(th, ph, run, uf, rows4, d4, w4, W), None,
+                     lambda: KL.lda_walk_torch(th, ph, run, uf, rows4, d4, w4, W),
+                     searchsorted_library(product, u4.t().contiguous()),
                      bound("lda_walk", S)),
     })
 
@@ -970,6 +985,19 @@ def k6_library(th, ph, d, w, W, nb):
     pad = nb * W - th.shape[1]
     return lambda: torch.nn.functional.pad(th[dl] * ph[wl], (0, pad)).view(
         dl.numel(), nb, W).sum(-1).cumsum(1)
+
+
+def searchsorted_library(weights, u):
+    """The draws' library yardstick, one PyTorch expression (never called by
+    the port): each row's running sum, then the index of u x its total in
+    it (``torch.searchsorted``), the index the kernels draw from the same
+    uniforms.  ``weights`` makes the (B, K) weights inside the call (a
+    gathered product, a mask); ``u`` is (B,) or (B, S)."""
+    def call():
+        cs = torch.cumsum(weights(), dim=-1)
+        q = u * cs[:, -1:] if u.dim() == 2 else (u * cs[:, -1])[:, None]
+        return torch.searchsorted(cs, q, right=True)
+    return call
 
 
 def given_bounds(name, wts, W, nb, out_idx, rows):
@@ -1025,9 +1053,11 @@ def phase_given_timing(corpus, dev, seed, inputs):
                       lambda: torch.cumsum(wts.view(B, nb, W).sum(-1), dim=1),
                       bound("blocksums")),
         "walk": (lambda: KB.walk(wts, run, uf, rows4, W),
-                 lambda: KB.walk_torch(wts, run, uf, rows4, W), None, bound("walk")),
+                 lambda: KB.walk_torch(wts, run, uf, rows4, W),
+                 searchsorted_library(lambda: wts, u4.t().contiguous()), bound("walk")),
         "fused_draw": (lambda: KB.fused_draw(wts, u, W),
-                       lambda: KB.fused_draw_torch(wts, u, W), None, bound("fused_draw")),
+                       lambda: KB.fused_draw_torch(wts, u, W),
+                       searchsorted_library(lambda: wts, u), bound("fused_draw")),
     })
 
 
@@ -1505,7 +1535,8 @@ def phase_new_timing(dev, seed, phi):
                                                   .view(B, nb, W).sum(-1), dim=1),
                              lambda idx: trunc_bounds("masked_blocksums", w, W, nb)),
         "walk_trunc": (lambda: KB.walk_trunc(w, run, u, tau, rows, W),
-                       lambda: KB.walk_trunc_torch(w, run, u, tau, rows, W), None,
+                       lambda: KB.walk_trunc_torch(w, run, u, tau, rows, W),
+                       searchsorted_library(lambda: torch.where(w >= tau[:, None], w, 0.0), u),
                        lambda idx: trunc_bounds("walk_trunc", w, W, nb)),
     })
     # the two routes end to end, and tau in PyTorch alone
@@ -4409,7 +4440,9 @@ def phase_launchers(dev, seed, tally) -> tuple:
 DRYRUN_CELLS = (("gemma2-9b", "decode_32k", False), ("llama3-8b", "train_4k", False),
                 ("qwen3-4b", "prefill_32k", True), ("seamless-m4t-medium", "train_4k", False),
                 ("hymba-1.5b", "decode_32k", False), ("hymba-1.5b", "prefill_32k", False),
-                ("minicpm3-4b", "train_4k", False), ("minicpm3-4b", "decode_32k", True))
+                ("minicpm3-4b", "train_4k", False), ("minicpm3-4b", "decode_32k", True),
+                ("granite-moe-1b-a400m", "train_4k", False), ("pixtral-12b", "train_4k", False),
+                ("mamba2-370m", "decode_32k", False))
 H100_BYTES = 80 * 10**9
 # The cells of heads that the model degree (16) does not divide (ROADMAP.md,
 # F5 (a) and F6), per device: the reference's FLOPs (``corrected.flops_total``
@@ -4423,6 +4456,15 @@ ATTN_REF_FLOPS = {("hymba-1.5b", "decode_32k", False): (1.169e10, 1.25),
                   ("hymba-1.5b", "prefill_32k", False): (4.124e13, 1.25),
                   ("minicpm3-4b", "train_4k", False): (1.96e14, 1.3),
                   ("minicpm3-4b", "decode_32k", True): (3.292e10, 1.25)}
+# The cells of the MoE dispatch, the MLP and the unembedding of a vocabulary
+# that the model degree does not divide (ROADMAP.md F5 (b)-(d)), per device
+# on pod16x16: the reference's FLOPs (``corrected.flops_total`` of
+# ``repro.launch.dryrun --arch A --shape S``, XLA's count on a CPU host of
+# 256 virtual devices), and the share of them the port's may take
+LAYER_REF_FLOPS = {("granite-moe-1b-a400m", "train_4k", False): 8.49e13,
+                   ("pixtral-12b", "train_4k", False): 4.35e14,
+                   ("mamba2-370m", "decode_32k", False): 8.310e8}
+LAYER_FLOPS_RATIO = 1.25
 # hymba-1.5b decode_32k while every model rank gathered its cache (the
 # dry-run on the card, ROADMAP.md F5): 5.416e10 bytes of collectives a step,
 # a peak of 3.919 GiB a device.  The step must move under a tenth of those
@@ -4485,7 +4527,34 @@ def dryrun_cell(arch: str, shape: str, multi: bool) -> dict:
         check_sharded_loss(res, get_config(arch))
     if (arch, shape, multi) in ATTN_REF_FLOPS:
         check_attention_cell(res, arch, shape, multi)
+    if (arch, shape, multi) in LAYER_REF_FLOPS:
+        check_layer_cell(res, arch, shape, multi)
     return res
+
+
+def check_layer_cell(res: dict, arch: str, shape: str, multi: bool) -> None:
+    """A cell of the MoE dispatch, the MLP or an odd vocabulary: FLOPs a
+    device within ``LAYER_FLOPS_RATIO`` of the reference's
+    (``LAYER_REF_FLOPS``), the peak under the card's 80 GB, and in a decode
+    step no op of the most FLOPs over every column of a vocabulary that
+    ``model`` does not divide."""
+    from repro_torch.configs.base import SHAPES_BY_NAME
+
+    ref = LAYER_REF_FLOPS[(arch, shape, multi)]
+    flops, peak = res["corrected"]["flops_total"], res["memory"]["peak_bytes"]
+    if flops > LAYER_FLOPS_RATIO * ref:
+        raise AssertionError(f"{arch} {shape}: {flops:.4g} FLOPs a device, over "
+                             f"{LAYER_FLOPS_RATIO} x the reference's {ref:.4g}")
+    if peak >= H100_BYTES:
+        raise AssertionError(f"{arch} {shape} peaks at {peak / 2**30:.2f} GiB a device, "
+                             f"over the card's 80 GB")
+    V = get_config(arch).padded_vocab
+    whole = [op for _, op, _ in res["flops_top"]
+             if any(f in op for f in (f", {V})", f", {V},", f"({V},"))]
+    if SHAPES_BY_NAME[shape].kind == "decode" and V % 16 and whole:
+        raise AssertionError(f"{arch} {shape} projects every column of its {V}: {whole}")
+    log(f"    {arch} {shape}: {flops / ref:.3f} x the reference's FLOPs, peak "
+        f"{peak / 2**30:.3f} GiB")
 
 
 def check_attention_cell(res: dict, arch: str, shape: str, multi: bool) -> None:

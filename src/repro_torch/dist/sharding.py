@@ -239,14 +239,11 @@ def tree_shardings(tree, axes_tree, mesh, rules: Optional[List[Rule]] = None):
 def local_shard(x: torch.Tensor, sharding: NamedSharding) -> torch.Tensor:
     """This rank's block of a tensor every rank holds whole: the slice its
     coordinates select along each sharded dim (mesh dims in order, so a
-    fused group splits first-dim major)."""
-    mesh = sharding.mesh
-    coords = mesh.get_coordinate()
-    for md, p in enumerate(sharding.placements):
-        if p.is_shard():
-            n = int(mesh.size(md))
-            size = x.shape[p.dim] // n
-            x = x.narrow(p.dim, coords[md] * size, size)
+    fused group splits first-dim major; an uneven dim as ``torch.chunk``
+    splits it, :func:`shard_offset`)."""
+    for d in sorted({p.dim for p in sharding.placements if p.is_shard()}):
+        offset, size = shard_offset(x.shape[d], d, sharding.mesh, sharding.placements)
+        x = x.narrow(d, offset, size)
     return x
 
 
@@ -428,6 +425,64 @@ def per_shard(fn, operands, axes, outs):
                                           shape=torch.Size(shape),
                                           stride=torch.empty(shape, device="meta").stride()))
     return wrapped[0] if single else tuple(wrapped)
+
+
+def model_dim(mesh) -> Optional[int]:
+    """The index of a DeviceMesh's ``model`` dim where it is larger than
+    1, else None."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if "model" not in names or mesh.size(names.index("model")) <= 1:
+        return None
+    return names.index("model")
+
+
+def mesh_of(*ts):
+    """The DeviceMesh of the first DTensor among ``ts``, else None."""
+    return next((t.device_mesh for t in ts if hasattr(t, "device_mesh")), None)
+
+
+def activation_layout(shape, mesh):
+    """The rules' placements of an activation (B, S, D) on ``mesh``: its
+    rows over the data axes and every position on each rank (``rows``),
+    and the layout of the residual stream between layers, the positions
+    also over ``model`` where they divide (``out``, the ``act_seq`` rule; a
+    decode step's one position stays whole)."""
+    rest = (None,) * (len(shape) - 2)
+    rows = named_sharding(tuple(shape), ("batch", None) + rest, mesh).placements
+    out = named_sharding(tuple(shape), ("batch", "act_seq") + rest, mesh).placements
+    return rows, out
+
+
+def local_block(t, mesh, placements, grad_placements=None) -> torch.Tensor:
+    """This rank's block of ``t`` placed by ``placements`` (a tensor every
+    rank holds whole is taken as replicated).  The mesh dims that go from
+    replicated to split are split first, on the local tensor, and only then
+    are the others gathered, so a gather moves only this rank's part of
+    what the split keeps.  ``grad_placements`` as ``DTensor.to_local``
+    takes them: the placements of the gradient the local computation
+    gives."""
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if not isinstance(t, DTensor):
+        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    placements = tuple(placements)
+    split = tuple(q if p.is_replicate() and q.is_shard() else p
+                  for p, q in zip(t.placements, placements))
+    if split != tuple(t.placements):
+        t = t.redistribute(mesh, split)
+    if placements != tuple(t.placements):
+        t = t.redistribute(mesh, placements)
+    return t.to_local(grad_placements=grad_placements)
+
+
+def from_local_block(local: torch.Tensor, mesh, placements, shape):
+    """Every rank's ``local`` block as the DTensor of global ``shape``
+    placed by ``placements``, made without communicating."""
+    from torch.distributed.tensor import DTensor
+
+    shape = torch.Size(shape)
+    return DTensor.from_local(local.contiguous(), mesh, tuple(placements), run_check=False,
+                              shape=shape, stride=torch.empty(shape, device="meta").stride())
 
 
 def gather_dim(x, dim: int):

@@ -17,7 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.dist.sharding import gather_dim, named_sharding, shard_offset
+from repro_torch.dist.sharding import (NamedSharding, PartitionSpec, activation_layout,
+                                      from_local_block, gather_dim, local_block, mesh_of,
+                                      model_dim, named_sharding, shard_offset)
 from repro_torch.models.params import ParamSpec
 
 
@@ -249,9 +251,46 @@ def _act(name: str):
 
 
 def mlp(params, x, act: str = "silu"):
+    """The gated MLP.  On a mesh (a DTensor operand) whose ``model`` degree
+    divides d_ff it runs per shard (:func:`_mlp_per_shard`), the dense MLP,
+    arctic's dense residual and hymba's alike."""
+    mesh = mesh_of(x, *params.values())
+    if mesh is not None and x.dim() == 3:
+        md = model_dim(mesh)
+        if md is not None and params["w_gate"].shape[1] % mesh.size(md) == 0:
+            return _mlp_per_shard(params, x, act, mesh, md)
     g = _act(act)(einsum("...d,df->...f", x, params["w_gate"]))
     u = einsum("...d,df->...f", x, params["w_up"])
     return einsum("...f,fd->...d", g * u, params["w_down"])
+
+
+def _mlp_per_shard(params, x, act: str, mesh, md: int):
+    """Megatron's MLP with sequence parallelism, on local tensors: each rank
+    takes its rows with every position (``x`` gathered over ``model``; its
+    gradient comes back as partial sums over ``model``), projects them
+    onto its columns of ``w_gate`` and ``w_up`` (d_ff split over ``model``,
+    the ``mlp`` rule) and back through its rows of ``w_down``, each weight
+    gathered along ``embed`` only (FSDP).  The partial outputs are
+    reduce-scattered to the positions over ``model`` where they divide,
+    else (a decode step) all-reduced.  A weight's gradient comes back split
+    over ``model`` as the weight is, and partial over the mesh dims that
+    split the rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    rows, out = activation_layout(x.shape, mesh)
+    part = [Partial() if m == md else p for m, p in enumerate(rows)]
+    summed = [Partial() if p.is_shard() else Replicate() for p in rows]
+
+    def weight(w, dim):
+        pl = [Shard(dim) if m == md else Replicate() for m in range(mesh.ndim)]
+        return local_block(w, mesh, pl, [Shard(dim) if m == md else q
+                                         for m, q in enumerate(summed)])
+
+    xl = local_block(x, mesh, rows, part)
+    g = _act(act)(einsum("...d,df->...f", xl, weight(params["w_gate"], 1)))
+    u = einsum("...d,df->...f", xl, weight(params["w_up"], 1))
+    y = einsum("...f,fd->...d", g * u, weight(params["w_down"], 0))
+    return from_local_block(y, mesh, part, x.shape).redistribute(mesh, out)
 
 
 # ---------------------------------------------------------------------------
@@ -337,31 +376,40 @@ def _cap_and_mask(logits, softcap: float, vocab_size, v0: int):
 
 
 def logits_sharding(shape, mesh):
-    """The rules' sharding of logits of ``shape`` (..., S, V) on ``mesh``:
-    rows over the data axes, the vocabulary over ``model`` where it divides
-    (the ``vocab`` rule), else the positions (the ``seq`` rule), so no two
-    ranks compute the same logits where either divides."""
+    """The sharding of logits of ``shape`` (..., S, V) on ``mesh``: rows
+    over the data axes, the vocabulary over ``model`` where it divides (the
+    ``vocab`` rule), else the positions (the ``seq`` rule), else (a decode
+    step's one position) the vocabulary unevenly, as ``torch.chunk``
+    splits it (DTensor's uneven ``Shard``: ceil(V / N) columns a rank, fewer
+    on the last), so no two ``model`` ranks compute the same logits."""
     axes = ("batch", "vocab") if len(shape) == 2 else \
         ("batch",) + (None,) * (len(shape) - 3) + ("seq", "vocab")
-    return named_sharding(tuple(shape), axes, mesh)
+    sh = named_sharding(tuple(shape), axes, mesh)
+    md = model_dim(mesh)
+    if md is None or not sh.placements[md].is_replicate() or shape[-1] < mesh.size(md):
+        return sh
+    from torch.distributed.tensor import Shard
+
+    pl = list(sh.placements)
+    pl[md] = Shard(len(shape) - 1)
+    return NamedSharding(mesh, PartitionSpec(*sh.spec[:-1], "model"), tuple(pl))
 
 
 def _unembed_per_shard(x, table, tied: bool, softcap: float, vocab_size):
     """The unembedding of DTensor operands on local tensors: each rank
     projects its rows (and positions) of ``x`` onto its columns of the
-    table, placed as :func:`logits_sharding`; the table is gathered along
-    ``embed`` only, ``x`` along ``model`` where the vocabulary shards
-    over it.  So a rank computes 1/N of the logits over N ranks and holds
-    no whole vocabulary.  The gradients come back partial where a rank saw
-    part of the sum: ``x``'s over the vocabulary's mesh dims, the table's
-    over the rows'.  The softcap and the padded columns' mask run on the
-    local logits, at their global column offset."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    table, placed as :func:`logits_sharding`; the table is split into its
+    columns first and gathered along ``embed`` only, so a rank moves its
+    own columns (``dist.sharding.local_block``), ``x`` along ``model``
+    where the vocabulary shards over it.  So a rank computes 1/N of the
+    logits over N ranks (ceil(V / N) columns where N does not divide V) and
+    holds no whole vocabulary.  The gradients come back partial where a
+    rank saw part of the sum: ``x``'s over the vocabulary's mesh dims, the
+    table's over the rows'.  The softcap and the padded columns' mask run
+    on the local logits, at their global column offset."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
 
-    mesh = (x if hasattr(x, "full_tensor") else table).device_mesh
-    x, table = (t if hasattr(t, "full_tensor") else
-                DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-                for t in (x, table))
+    mesh = mesh_of(x, table)
     vdim = 0 if tied else 1
     shape = tuple(x.shape[:-1]) + (table.shape[vdim],)
     out = logits_sharding(shape, mesh).placements
@@ -371,13 +419,11 @@ def _unembed_per_shard(x, table, tied: bool, softcap: float, vocab_size):
     x_grad = [Partial() if v else p for p, v in zip(out, vocab)]
     w_pl = [Shard(vdim) if v else Replicate() for v in vocab]
     w_grad = [w if v or p.is_replicate() else Partial() for w, p, v in zip(w_pl, out, vocab)]
-    xl = x.redistribute(mesh, x_pl).to_local(grad_placements=x_grad)
-    wl = table.redistribute(mesh, w_pl).to_local(grad_placements=w_grad)
+    xl = local_block(x, mesh, x_pl, x_grad)
+    wl = local_block(table, mesh, w_pl, w_grad)
     logits = einsum("...d,vd->...v" if tied else "...d,dv->...v", xl, wl)
     v0, _ = shard_offset(shape[-1], last, mesh, out)
-    logits = _cap_and_mask(logits, softcap, vocab_size, v0)
-    return DTensor.from_local(logits, mesh, out, run_check=False, shape=torch.Size(shape),
-                              stride=torch.empty(shape, device="meta").stride())
+    return from_local_block(_cap_and_mask(logits, softcap, vocab_size, v0), mesh, out, shape)
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:

@@ -5,7 +5,8 @@ the unsharded port and the reference on the same numpy-seeded inputs.
 * The vocab-parallel loss (``train_step._lse_gold_per_shard``) and the
   per-shard unembedding (``layers._unembed_per_shard``), in each layout
   the rules give the logits (vocabulary split over ``model``; positions
-  split where the vocabulary does not divide; neither), with a padded
+  split where the vocabulary does not divide; where neither divides, the
+  vocabulary split unevenly), with a padded
   vocabulary, gemma2's final softcap, a tied table and a z-loss: the loss,
   the CE and every gradient within rtol 1e-5 (atol 1e-7 on gradients) of
   the unsharded ``cross_entropy`` and of ``repro.train.train_step.
@@ -34,7 +35,7 @@ B, S, D = 4, 6, 8
 LOSS_CASES = {
     "vocab": dict(V=12, kind="logits"),                     # 12 columns split over model
     "positions": dict(V=11, kind="logits"),                 # 11 does not divide: positions
-    "neither": dict(V=11, S=5, kind="logits"),              # neither divides: replicated
+    "neither": dict(V=11, S=5, kind="logits"),              # neither divides: 6 + 5 columns
     "bf16": dict(V=12, kind="logits", dtype="bfloat16"),
     "unembed": dict(V=12, kind="unembed"),
     "padded": dict(V=12, vocab=10, kind="unembed"),         # columns 10, 11 masked
