@@ -230,13 +230,16 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    tokens/s and peak memory.  (c) ``launch.train --app lda`` at
    configs/lda.py's CONFIG for 2 sweeps (the ``butterfly`` method, K1).
 12. The dry-run (``launch.dryrun``, ``launch.costing``) on a fake process
-   group of 512 ranks.  (a) ``lower_cell`` traces eleven production cells
-   at full width under ``FakeTensorMode`` on cuda meshes: gemma2-9b
+   group of 512 ranks.  (a) ``lower_cell`` traces fourteen production cells
+   at full width under ``FakeTensorMode`` on cuda meshes, ``DRYRUN_WORKERS``
+   processes at a time, each with its own fake group: gemma2-9b
    ``decode_32k``, llama3-8b and seamless-m4t-medium ``train_4k``,
    hymba-1.5b ``decode_32k`` (the cache's keys split over ``model``,
    combined by log-sum-exp) and ``prefill_32k`` (the chunked path, a
    window and meta tokens, the queries split over ``model``),
-   minicpm3-4b ``train_4k`` (MLA, the backward), granite-moe-1b-a400m
+   minicpm3-4b, hymba-1.5b and arctic-480b ``train_4k`` (attention's
+   projections on each rank's own positions, the backward),
+   llama3-8b ``decode_32k`` (the MLP's weights in place), granite-moe-1b-a400m
    ``train_4k`` (the MoE dispatch over its experts), pixtral-12b
    ``train_4k`` (the MLP with its d_ff over ``model``) and mamba2-370m
    ``decode_32k`` (50,280 columns split unevenly) on the 256-rank pod,
@@ -251,15 +254,19 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    ``train_4k`` (the sharded loss and unembedding) must hold no float32
    logits over the whole vocabulary at its peak, peak under 40 GiB a
    device and count at most 1.25x the reference's 2.87e14 FLOPs a device
-   (XLA's count of the reference's dry-run on a CPU host).  The four
+   (XLA's count of the reference's dry-run on a CPU host).  The six
    cells whose heads the ``model`` degree does not divide count at most
-   1.25x the reference's FLOPs a device (minicpm3-4b ``train_4k`` 1.3x,
-   its excess outside attention; ``ATTN_REF_FLOPS``, the same source);
-   hymba-1.5b ``decode_32k`` moves no all-gather with the cache's
-   length and under a tenth of the 5.416e10 bytes of collectives it moved
-   while it gathered its cache, and peaks under the 3.919 GiB it took
-   then; minicpm3-4b ``train_4k`` peaks under the
-   card's 80 GB.  The three cells of the MoE dispatch, the MLP and the
+   1.25x the reference's FLOPs a device (``ATTN_REF_FLOPS``, the same
+   source); hymba-1.5b ``decode_32k`` moves no all-gather with the
+   cache's length and under a tenth of the 5.416e10 bytes of collectives
+   it moved while it gathered its cache, and peaks under the 3.919 GiB it
+   took then; the three ``train_4k`` cells print the local shapes of
+   their three ops of the most FLOPs, none of which may take a projection
+   of attention over every position of a rank's rows, and minicpm3-4b's
+   and hymba-1.5b's peak under the card's 80 GB (arctic-480b's peak is
+   printed: neither package fits it).  llama3-8b ``decode_32k`` moves at
+   most 9.9e9 bytes of collectives a step and all-gathers no block of an
+   MLP weight.  The three cells of the MoE dispatch, the MLP and the
    odd vocabulary (ROADMAP.md F5 (b)-(d)) count at most 1.25x the
    reference's FLOPs a device (``LAYER_REF_FLOPS``, the same source) and
    peak under the card's 80 GB; mamba2-370m ``decode_32k``'s ops hold no
@@ -4436,26 +4443,39 @@ def phase_launchers(dev, seed, tally) -> tuple:
 # ---------------------------------------------------------------------------
 
 # (arch, shape, multi-pod): production cells traced on a fake group of 512
-# ranks and cuda meshes
-DRYRUN_CELLS = (("gemma2-9b", "decode_32k", False), ("llama3-8b", "train_4k", False),
-                ("qwen3-4b", "prefill_32k", True), ("seamless-m4t-medium", "train_4k", False),
-                ("hymba-1.5b", "decode_32k", False), ("hymba-1.5b", "prefill_32k", False),
-                ("minicpm3-4b", "train_4k", False), ("minicpm3-4b", "decode_32k", True),
-                ("granite-moe-1b-a400m", "train_4k", False), ("pixtral-12b", "train_4k", False),
-                ("mamba2-370m", "decode_32k", False))
+# ranks and cuda meshes, the longest traces first (38-84 s each on the card's
+# host down to 6 s), as the worker processes take them in this order
+DRYRUN_CELLS = (("qwen3-4b", "prefill_32k", True), ("hymba-1.5b", "train_4k", False),
+                ("minicpm3-4b", "train_4k", False), ("arctic-480b", "train_4k", False),
+                ("hymba-1.5b", "prefill_32k", False), ("pixtral-12b", "train_4k", False),
+                ("llama3-8b", "train_4k", False), ("minicpm3-4b", "decode_32k", True),
+                ("granite-moe-1b-a400m", "train_4k", False),
+                ("seamless-m4t-medium", "train_4k", False), ("hymba-1.5b", "decode_32k", False),
+                ("mamba2-370m", "decode_32k", False), ("gemma2-9b", "decode_32k", False),
+                ("llama3-8b", "decode_32k", False))
+# processes that trace phase 12a's cells at once (the card's host has 8 cores;
+# one trace is a single host thread)
+DRYRUN_WORKERS = 4
 H100_BYTES = 80 * 10**9
 # The cells of heads that the model degree (16) does not divide (ROADMAP.md,
 # F5 (a) and F6), per device: the reference's FLOPs (``corrected.flops_total``
 # of ``repro.launch.dryrun --arch A --shape S --mesh single|multi``, XLA's
 # count on a CPU host of 256 / 512 virtual devices) and the share of them
-# the port's may take.  minicpm3-4b train_4k's bound is wider: its attention
-# products are 1/16 of what they were with every head on every model rank,
-# and the excess left (1.265x on the card, PERF.md §6) is in weight
-# gradients outside attention (ROADMAP.md, F5)
+# the port's may take.  The train_4k cells run attention's projections on
+# each rank's own positions (ROADMAP.md, F5 (a')), so none of their ops of
+# the most FLOPs may be a projection over every position of a rank's rows
+# (``ATTN_TRAIN``)
 ATTN_REF_FLOPS = {("hymba-1.5b", "decode_32k", False): (1.169e10, 1.25),
                   ("hymba-1.5b", "prefill_32k", False): (4.124e13, 1.25),
-                  ("minicpm3-4b", "train_4k", False): (1.96e14, 1.3),
-                  ("minicpm3-4b", "decode_32k", True): (3.292e10, 1.25)}
+                  ("minicpm3-4b", "train_4k", False): (1.96e14, 1.25),
+                  ("minicpm3-4b", "decode_32k", True): (3.292e10, 1.25),
+                  ("hymba-1.5b", "train_4k", False): (6.998e13, 1.25),
+                  ("arctic-480b", "train_4k", False): (7.906e14, 1.25)}
+ATTN_TRAIN = ("minicpm3-4b", "hymba-1.5b", "arctic-480b")
+# llama3-8b decode_32k's collective bytes a step before the per-shard MLP
+# gathered its weights (the dry-run on the card, PERF.md §5: 9.812e9), with
+# room for the activations the MLP moves instead
+LLAMA_DECODE_COLLECTIVES = 9.9e9
 # The cells of the MoE dispatch, the MLP and the unembedding of a vocabulary
 # that the model degree does not divide (ROADMAP.md F5 (b)-(d)), per device
 # on pod16x16: the reference's FLOPs (``corrected.flops_total`` of
@@ -4489,14 +4509,13 @@ ONE_CHIP = (("gemma2-9b", ShapeConfig("decode_1chip", 4096, 8, "decode"), None),
 PEAK_TOL = 0.10          # predicted peak within this share of the measured one
 
 
-def dryrun_cell(arch: str, shape: str, multi: bool) -> dict:
-    """One production cell through ``launch.dryrun.lower_cell`` on a cuda
-    mesh of the fake group; its parameter and optimizer-state bytes held
-    to ``dist.sharding.tree_bytes_per_device`` on the same mesh."""
+def dryrun_cell(res: dict, arch: str, shape: str, multi: bool) -> dict:
+    """One production cell as ``launch.dryrun.lower_cell`` traced it on a
+    cuda mesh of a fake group (``res``), printed and checked: its parameter
+    and optimizer-state bytes held to ``dist.sharding.tree_bytes_per_device``
+    on the same mesh, and the checks of its cell."""
     from repro_torch.dist import sharding as shd
-    from repro_torch.launch import dryrun
 
-    res = dryrun.lower_cell(arch, shape, multi_pod=multi, device="cuda")
     mesh = shd.MeshDesc({"pod": 2, "data": 16, "model": 16} if multi
                         else {"data": 16, "model": 16})   # the cell's mesh, described
     specs = build_model(get_config(arch)).specs
@@ -4527,6 +4546,8 @@ def dryrun_cell(arch: str, shape: str, multi: bool) -> dict:
         check_sharded_loss(res, get_config(arch))
     if (arch, shape, multi) in ATTN_REF_FLOPS:
         check_attention_cell(res, arch, shape, multi)
+    if (arch, shape, multi) == ("llama3-8b", "decode_32k", False):
+        check_decode_mlp(res, get_config(arch))
     if (arch, shape, multi) in LAYER_REF_FLOPS:
         check_layer_cell(res, arch, shape, multi)
     return res
@@ -4562,7 +4583,11 @@ def check_attention_cell(res: dict, arch: str, shape: str, multi: bool) -> None:
     share of the reference's (``ATTN_REF_FLOPS``); hymba-1.5b ``decode_32k``
     moves no all-gather with the cache's length (or a rank's block of it)
     in its output and under ``HYMBA_DECODE_COLLECTIVES`` bytes, and peaks
-    under ``HYMBA_DECODE_PEAK``; minicpm3-4b ``train_4k`` fits the card."""
+    under ``HYMBA_DECODE_PEAK``; the ``train_4k`` cells of ``ATTN_TRAIN``
+    take no projection of attention over every position of a rank's rows
+    among their three ops of the most FLOPs
+    (:func:`whole_width_projections`), and minicpm3-4b's and hymba-1.5b's
+    fit the card (arctic-480b's peak is printed only)."""
     from repro_torch.configs.base import SHAPES_BY_NAME
 
     ref, ratio = ATTN_REF_FLOPS[(arch, shape, multi)]
@@ -4585,10 +4610,74 @@ def check_attention_cell(res: dict, arch: str, shape: str, multi: bool) -> None:
                                  f"{HYMBA_DECODE_COLLECTIVES:.4g}), peak {peak / 2**30:.3f} GiB "
                                  f"(limit {HYMBA_DECODE_PEAK / 2**30:.3f})")
         msg += f", {moved:.4g} bytes of collectives, no cache gathered"
-    if (arch, shape) == ("minicpm3-4b", "train_4k") and peak >= H100_BYTES:
-        raise AssertionError(f"{arch} {shape} peaks at {peak / 2**30:.2f} GiB a device, "
-                             f"over the card's 80 GB")
+    if arch in ATTN_TRAIN and shape == "train_4k":
+        top = res["flops_top"][:3]
+        log(f"    three ops of the most flops (local shapes): "
+            f"{[(op, round(share, 4)) for _, op, share in top]}")
+        whole = whole_width_projections(top, get_config(arch), multi)
+        if whole:
+            raise AssertionError(f"{arch} {shape} projects every position of a rank's rows: "
+                                 f"{whole}")
+        if arch != "arctic-480b" and peak >= H100_BYTES:
+            raise AssertionError(f"{arch} {shape} peaks at {peak / 2**30:.2f} GiB a device, "
+                                 f"over the card's 80 GB")
+        msg += ", no projection over every position among its three largest ops"
     log(f"{msg}, peak {peak / 2**30:.3f} GiB")
+
+
+def _op_shapes(key: str) -> list:
+    """The shapes in a ``flops_top`` or ``collectives_by`` key, "op
+    [(shape), ...]"."""
+    import ast
+
+    return [tuple(s) for s in ast.literal_eval(key.split(" ", 1)[1])]
+
+
+def whole_width_projections(top, cfg, multi: bool) -> list:
+    """The ops of ``top`` (``flops_top`` entries of a ``train_4k`` cell)
+    that are a gradient of attention's projections over every position of
+    a rank's rows: a ``bmm`` whose contracted dim is the rows' positions
+    (16 rows x 4,096 on pod16x16, hymba's meta tokens included) and whose
+    other dims are widths of attention's weights (d_model, the heads',
+    MLA's latent ranks).  The MLP's weight gradients (d_ff split over
+    ``model``) are not among them."""
+    from repro_torch.configs.base import SHAPES_BY_NAME
+
+    sh = SHAPES_BY_NAME["train_4k"]
+    positions = sh.global_batch // (32 if multi else 16) * (sh.seq_len + cfg.meta_tokens)
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    widths = {cfg.d_model, H * hd, cfg.num_kv_heads * hd}
+    if cfg.mla is not None:
+        m = cfg.mla
+        widths |= {m.q_lora_rank, m.kv_lora_rank, m.kv_lora_rank + m.qk_rope_head_dim,
+                   H * (m.qk_nope_head_dim + m.qk_rope_head_dim), H * m.qk_nope_head_dim,
+                   H * m.v_head_dim}
+    found = []
+    for _, op, _ in top:
+        shapes = _op_shapes(op)
+        if len(shapes) != 2 or len(shapes[0]) != 3:
+            continue
+        (_, m_, k), (_, _, n) = shapes
+        if k == positions and m_ in widths and n in widths:
+            found.append(op)
+    return found
+
+
+def check_decode_mlp(res: dict, cfg) -> None:
+    """llama3-8b ``decode_32k``: collectives a step under
+    ``LLAMA_DECODE_COLLECTIVES`` bytes, and no all-gather of a block of
+    an MLP weight (d_model x d_ff over 16 ranks, or whole): the decode
+    MLP moves its activations, not its weights."""
+    moved = res["collectives"]["total_bytes"]
+    blocks = {cfg.d_model * cfg.d_ff // 16, cfg.d_model * cfg.d_ff}
+    gathered = [k for k in res["collectives_by"] if k.startswith("all-gather")
+                and any(int(np.prod(s)) in blocks for s in _op_shapes(k))]
+    if gathered or moved > LLAMA_DECODE_COLLECTIVES:
+        raise AssertionError(f"llama3-8b decode_32k: {moved:.4g} bytes of collectives a step "
+                             f"(limit {LLAMA_DECODE_COLLECTIVES:.4g}), MLP weights gathered: "
+                             f"{gathered}")
+    log(f"    llama3-8b decode_32k: {moved:.4g} bytes of collectives a step, no MLP weight "
+        f"gathered")
 
 
 def check_sharded_loss(res: dict, cfg) -> None:
@@ -4674,22 +4763,29 @@ def one_chip(arch: str, shape, sp, dev, seed: int, tally) -> tuple:
 
 
 def phase_dryrun(dev, seed, tally) -> tuple:
-    """Phase 12: (a) the production cells on a fake group of 512 ranks; (b)
-    the one-card predictions against the real steps."""
-    import torch.distributed as dist
+    """Phase 12: (a) the production cells, each traced on a fake group of
+    512 ranks in one of ``DRYRUN_WORKERS`` spawned processes and checked
+    here in ``DRYRUN_CELLS``' order; (b) the one-card predictions against
+    the real steps."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
 
     from repro_torch.launch import dryrun
 
     t0 = time.perf_counter()
     res, traced, launches = {"cells": {}, "one_chip": []}, {}, {}
-    dryrun.fake_process_group(512)
-    try:
-        for arch, shape, multi in DRYRUN_CELLS:
-            cell = dryrun_cell(arch, shape, multi)
-            res["cells"][f"{arch} {shape} {cell['mesh']}"] = cell
-            add_counts(traced, cell["kernel_calls"])
-    finally:
-        dist.destroy_process_group()
+    with ProcessPoolExecutor(DRYRUN_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+                             initializer=dryrun.fake_process_group, initargs=(512,)) as pool:
+        lowered = [pool.submit(dryrun.lower_cell, arch, shape, multi_pod=multi, device="cuda")
+                   for arch, shape, multi in DRYRUN_CELLS]
+        try:
+            for (arch, shape, multi), fut in zip(DRYRUN_CELLS, lowered):
+                cell = dryrun_cell(fut.result(), arch, shape, multi)
+                res["cells"][f"{arch} {shape} {cell['mesh']}"] = cell
+                add_counts(traced, cell["kernel_calls"])
+        finally:
+            for fut in lowered:
+                fut.cancel()
     res["cells_s"] = time.perf_counter() - t0
     log("phase 12b: one card, predicted against measured")
     for i, (arch, shape, sp) in enumerate(ONE_CHIP):

@@ -13,19 +13,28 @@ A decode step writes its keys and values (MLA: its latents) into the
 caches it is given, in place (one row per sequence, not the whole cache),
 and returns them.
 
-On a mesh (DTensor operands) the attention core runs per shard, its
-operands placed by this module (:func:`_sdpa_mesh`), with rows on the data
-axes and, by what the ``model`` degree divides:
+On a mesh (DTensor operands) attention runs per shard, its operands
+placed by this module, with rows on the data axes and, by what the
+``model`` degree divides:
 
-* the heads (:func:`_per_shard`), as the rules place a ``("batch", None,
-  "heads", None)`` tensor: each rank attends its own rows and heads over
-  every key;
-* else, in train and prefill, the query positions (:func:`_query_blocks`,
-  the ``seq`` rule): each rank attends its block of positions, all heads,
-  over every key, and the output comes back with its positions over
-  ``model``;
+* the heads (:func:`_sdpa_mesh`, :func:`_per_shard`), as the rules
+  place a ``("batch", None, "heads", None)`` tensor: each rank attends
+  its own rows and heads over every key;
+* else, in train and prefill, the query positions (the ``act_seq`` rule):
+  each rank takes its rows' block of positions of the layer's input, as
+  the residual stream is placed, and runs the whole branch on local
+  tensors (:class:`_OwnPositions`): the queries' projection (qk-norm and
+  RoPE on the block's positions; MLA's ``wdq``, ``q_norm``, ``wuq``),
+  the keys' and values' on its own positions (MLA's latents and their
+  expansion), gathered over ``model`` for the core (their gradients
+  reduce-scattered back), the core of its block over every key, and
+  ``wo``; the output comes back with its positions over ``model``.  The
+  weights are gathered whole (no head is split), so each projection and
+  both its gradients cost 1/``model`` of the positions' work.
+  Cross-attention takes its memory's keys and values whole along their
+  sequence;
 * else, in decode, the cache's keys as the cache is placed
-  (:func:`_key_blocks`, flash-decoding): each rank attends all heads over
+  (:func:`_sdpa_mesh`, :func:`_key_blocks`, flash-decoding): each rank attends all heads over
   its own block of keys, and the blocks combine by log-sum-exp, two
   all-reduces of (B, H)- and (B, H, hv)-sized tensors a layer
   (:func:`_lse_combine`; MLA's absorbed decode likewise,
@@ -127,62 +136,33 @@ def _is_dtensor(*ts) -> bool:
     return any(hasattr(t, "full_tensor") for t in ts)
 
 
-def _mesh_of(*ts):
-    return next(t.device_mesh for t in ts if hasattr(t, "device_mesh"))
-
-
 def _free_model_dim(mesh, H: int) -> Optional[int]:
     """The ``model`` mesh dim when it is larger than 1 and the ``heads``
     rule leaves it unused (``H`` does not divide it), else None."""
-    names = tuple(mesh.mesh_dim_names or ())
-    if "model" not in names or mesh.size(names.index("model")) <= 1:
+    md = _shd.model_dim(mesh)
+    if md is None:
         return None
-    md = names.index("model")
     heads = _shd.named_sharding((1, 1, H, 1), (None, None, "heads", None), mesh)
     return None if heads.placements[md].is_shard() else md
-
-
-def _local(t, mesh, placements, grad_placements=None):
-    """This rank's block of ``t`` placed by ``placements``: a DTensor
-    redistributed, a tensor every rank holds whole taken as replicated
-    first; ``grad_placements`` as ``DTensor.to_local`` takes them."""
-    from torch.distributed.tensor import DTensor, Replicate
-
-    if not hasattr(t, "full_tensor"):
-        t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
-    return t.redistribute(mesh, tuple(placements)).to_local(grad_placements=grad_placements)
-
-
-def _wrap(local, mesh, placements, shape):
-    """A local result as the DTensor of global ``shape`` placed so (made
-    without communicating)."""
-    from torch.distributed.tensor import DTensor
-
-    shape = torch.Size(shape)
-    return DTensor.from_local(local.contiguous(), mesh, tuple(placements), run_check=False,
-                              shape=shape, stride=torch.empty(shape, device="meta").stride())
 
 
 def _sdpa_mesh(core, q, k, v, mask=None, q_pos=None, softcap: float = 0.0,
                kv_sharded: bool = False):
     """``core(q, k, v, mask, q_pos)`` (the plain attention) on DTensor
     operands, each rank on its own block: over the heads where ``model``
-    divides them, else over the query positions, or in decode
-    (``kv_sharded``) over the cache's keys (module docstring)."""
-    mesh = _mesh_of(q, k, v)
+    divides them, else in decode (``kv_sharded``) over the cache's keys
+    (module docstring)."""
+    mesh = _shd.mesh_of(q, k, v)
     H = q.shape[2]
     md = _free_model_dim(mesh, H)
     if md is not None and kv_sharded:
         MESH_PATHS["keys"] += 1
         return _key_blocks(q, k, v, mask, softcap, mesh)
     if md is not None:
-        qsh = _shd.named_sharding(tuple(q.shape), ("batch", "seq", None, None), mesh)
-        if qsh.placements[md].is_shard(1):
-            MESH_PATHS["queries"] += 1
-            return _query_blocks(core, q, k, v, mask, q_pos, mesh, qsh.placements)
-        # Neither the heads nor the positions divide the model degree: the
-        # rules replicate both, so every model rank gathers the keys and
-        # values of its rows and attends every head of them
+        # The heads do not divide the model degree.  A full block whose
+        # positions divide it never comes here: its callers run it on each
+        # rank's own positions (_OwnPositions).  So every model rank gathers
+        # the keys and values of its rows and attends every head of them
         MESH_PATHS["whole"] += 1
     else:
         MESH_PATHS["heads"] += 1
@@ -190,44 +170,84 @@ def _sdpa_mesh(core, q, k, v, mask=None, q_pos=None, softcap: float = 0.0,
     return _per_shard(lambda ql, kl, vl, m: core(ql, kl, vl, m, q_pos), q, k, v, mask)
 
 
-def _query_blocks(core, q, k, v, mask, q_pos, mesh, q_pl):
-    """Train and prefill where ``model`` does not divide the heads: each
-    rank attends its rows' block of query positions (``q_pl``: rows over
-    the data axes, positions over ``model``), all heads, over every key;
-    the mask's rows and ``q_pos`` are the block's.  The output comes back
-    placed as ``q_pl``.  Keys and values are whole along the sequence, so
-    their gradients are partial sums over the mesh dims that split the
-    positions."""
-    from torch.distributed.tensor import Partial, Replicate, Shard
+class _OwnPositions:
+    """The ``queries`` path with its projections on local tensors: each
+    rank takes its rows' block of positions of ``x`` (B, S, D), as the
+    residual stream is placed between layers (``activation_layout``), and
+    the weights named ``names`` whole (every mesh dim gathered: ``model``
+    splits no head, so only ``embed`` and MLA's latent ranks are split).
+    A weight's gradient is this rank's partial sum over its rows and
+    positions, reduced over ``model`` and the mesh dims that split the
+    rows into the weight's own placements in the backward pass.
+    :meth:`gather` gives keys and values every position of the rank's
+    rows, their gradients reduce-scattered back; :meth:`wrap` makes a
+    local result a DTensor with its positions over ``model``."""
 
-    kv_pl = [p if p.is_shard(0) else Replicate() for p in q_pl]
-    kv_grad = [Partial() if p.is_shard(1) else kv for p, kv in zip(q_pl, kv_pl)]
-    ql = _local(q, mesh, q_pl)
-    kl, vl = (_local(t, mesh, kv_pl, kv_grad) for t in (k, v))
-    ml = pl = None
-    if mask is not None:   # (Sq, Sk) or per row (B, Sq, Sk): the block's rows
-        m_pl = [Shard(0) if p.is_shard(1) else Replicate() for p in q_pl] \
-            if mask.dim() == 2 else q_pl
-        ml = _local(mask, mesh, m_pl)
-    if q_pos is not None:
-        pl = _local(q_pos, mesh, [Shard(0) if p.is_shard(1) else Replicate() for p in q_pl])
-    out = core(ql, kl, vl, ml, pl)
-    return _wrap(out, mesh, q_pl, (q.shape[0], q.shape[1], q.shape[2], v.shape[3]))
+    def __init__(self, params, x, mesh, md: int, names):
+        from torch.distributed.tensor import Partial, Replicate
+
+        MESH_PATHS["queries"] += 1
+        self.mesh, self.lead = mesh, tuple(x.shape[:2])
+        self.rows, self.own = _shd.activation_layout(x.shape, mesh)
+        self.rows_grad = [Partial() if d == md else p for d, p in enumerate(self.rows)]
+        summed = [Partial() if d == md or p.is_shard() else Replicate()
+                  for d, p in enumerate(self.rows)]
+        whole = [Replicate()] * mesh.ndim
+
+        def local(w):
+            if isinstance(w, dict):
+                return {k: local(v) for k, v in w.items()}
+            return _shd.local_block(w, mesh, whole, summed)
+
+        self.params = {k: local(params[k]) for k in names}
+        self.x = _shd.local_block(x, mesh, self.own)
+        self.s0, self.n = _shd.shard_offset(x.shape[1], 1, mesh, self.own)
+
+    def positions(self, pos):
+        """The block's own positions of ``pos`` (..., S)."""
+        return _shd.whole(pos)[..., self.s0:self.s0 + self.n]
+
+    def gather(self, t):
+        """A local tensor of the block's positions (B_l, S_l, ...) with
+        every position of the rank's rows; its gradient reduce-scattered
+        back."""
+        full = _shd.from_local_block(t, self.mesh, self.own, self.lead + tuple(t.shape[2:]))
+        return self.rows_of(full)
+
+    def rows_of(self, t):
+        """The rank's rows of ``t`` (B, Sk, ...), every position; its
+        gradient a partial sum over ``model``."""
+        return _shd.local_block(t, self.mesh, self.rows, self.rows_grad)
+
+    def wrap(self, t):
+        """A local result of the block's positions as a DTensor placed as
+        the residual stream."""
+        return _shd.from_local_block(t, self.mesh, self.own, self.lead + tuple(t.shape[2:]))
 
 
-def _kv_blocks(mesh, k):
-    """The placements of a decode cache's blocks as the cache is placed,
-    (rows, sequence) only, and this rank's offset and length along the
-    sequence; a cache every rank holds whole splits its rows by the
-    rules."""
-    from torch.distributed.tensor import Replicate
+def _own_positions(params, x, H: int, names) -> Optional[_OwnPositions]:
+    """An :class:`_OwnPositions` where a full block takes the ``queries``
+    path (a mesh whose ``model`` dim the heads leave free and the
+    positions divide), else None."""
+    mesh = _shd.mesh_of(x, *(params[k] for k in names if not isinstance(params[k], dict)))
+    if mesh is None or x.dim() != 3:
+        return None
+    md = _free_model_dim(mesh, H)
+    if md is None or not _shd.activation_layout(x.shape, mesh)[1][md].is_shard(1):
+        return None
+    return _OwnPositions(params, x, mesh, md, names)
 
-    if hasattr(k, "full_tensor"):
-        kv_pl = [p if p.is_shard(0) or p.is_shard(1) else Replicate() for p in k.placements]
-    else:
-        kv_pl = list(_shd.named_sharding(tuple(k.shape), ("batch",) + (None,) * (k.dim() - 1),
-                                         mesh).placements)
-    return kv_pl, _shd.shard_offset(k.shape[1], 1, mesh, kv_pl)
+
+def _block_core(q, k, v, q_pos, k_pos, S: int, *, causal: bool, window: int = 0,
+                k_valid=None, softcap: float = 0.0):
+    """Attention of a full block of queries (positions ``q_pos``) over keys
+    at ``k_pos``: q-chunked where the block's whole sequence ``S`` exceeds
+    ``CHUNKED_THRESHOLD``."""
+    if S > CHUNKED_THRESHOLD:
+        return _sdpa_chunked(q, k, v, q_pos, k_pos, causal=causal, window=window,
+                             k_valid=k_valid, softcap=softcap)
+    mask = attention_mask(q_pos, k_pos, causal=causal, window=window, k_valid=k_valid)
+    return _sdpa(q, k, v, mask, softcap)
 
 
 def _key_blocks(q, k, v, mask, softcap: float, mesh):
@@ -237,14 +257,14 @@ def _key_blocks(q, k, v, mask, softcap: float, mesh):
     addresses it), and the blocks combine by log-sum-exp
     (:func:`_lse_combine`).  ``mask`` is (Sq, Sk) or per row (B, Sq, Sk)."""
     kv_pl, row_pl = _kv_blocks(mesh, k)
-    ql = _local(q, mesh, row_pl)
-    kl, vl = (_local(t, mesh, kv_pl) for t in (k, v))
+    ql = _shd.local_block(q, mesh, row_pl)
+    kl, vl = (_shd.local_block(t, mesh, kv_pl) for t in (k, v))
     valid = _mask_block(mask, mesh, kv_pl)
     H = q.shape[2]
     kl, vl = _repeat_kv(kl, H), _repeat_kv(vl, H)
     scores = torch.where(valid, _scores(ql, kl, softcap), NEG_INF)
     out = _lse_combine(*_block_softmax(scores, valid), vl, "bhqs,bshv->bqhv", mesh, kv_pl)
-    return _wrap(out, mesh, row_pl, (q.shape[0], q.shape[1], H, v.shape[3]))
+    return _shd.from_local_block(out, mesh, row_pl, (q.shape[0], q.shape[1], H, v.shape[3]))
 
 
 def _kv_blocks(mesh, k):
@@ -271,7 +291,7 @@ def _mask_block(mask, mesh, kv_pl):
     else:
         pl = [Shard(0) if p.is_shard(0) else Shard(2) if p.is_shard(1) else Replicate()
               for p in kv_pl]
-    m = _local(mask, mesh, pl)
+    m = _shd.local_block(mask, mesh, pl)
     return m[None, None] if m.dim() == 2 else m[:, None]
 
 
@@ -450,20 +470,21 @@ def gqa_attend(
     Full block: returns ``(y, (k, v))``.  Decode: ``cache`` holds (k, v)
     of length S_max, ``cache_pos`` is the write position (an int, a 0-d
     tensor, or (B,) per row); returns ``(y, cache)`` with the step written
-    into the cache in place."""
+    into the cache in place.  A full block on the ``queries`` path runs
+    on each rank's own positions (:class:`_OwnPositions`): its keys and
+    values are gathered over ``model`` for the core, and the output and
+    the returned keys and values keep their positions over ``model``."""
     B, S, _ = x.shape
-    q, k, v = gqa_project_qkv(params, x, positions, cfg)
     if cache is None:
-        if S > CHUNKED_THRESHOLD:
-            out = _sdpa_chunked(
-                q, k, v, positions, positions, causal=causal, window=window,
-                softcap=cfg.attn_softcap,
-            )
-        else:
-            mask = attention_mask(positions, positions, causal=causal, window=window)
-            out = _sdpa(q, k, v, mask, cfg.attn_softcap)
-        y = einsum("bsnh,nhd->bsd", out, params["wo"])
-        return y, (k, v)
+        own = _own_positions(params, x, cfg.num_heads, tuple(params))
+        p, xl, q_pos = (own.params, own.x, own.positions(positions)) if own else \
+            (params, x, positions)
+        q, k, v = gqa_project_qkv(p, xl, q_pos, cfg)
+        out = _block_core(q, *((own.gather(k), own.gather(v)) if own else (k, v)), q_pos,
+                          positions, S, causal=causal, window=window, softcap=cfg.attn_softcap)
+        y = einsum("bsnh,nhd->bsd", out, p["wo"])
+        return (own.wrap(y), (own.wrap(k), own.wrap(v))) if own else (y, (k, v))
+    q, k, v = gqa_project_qkv(params, x, positions, cfg)
     ck = _cache_update(cache["k"], k, cache_pos)
     cv = _cache_update(cache["v"], v, cache_pos)
     k_pos = torch.arange(ck.shape[1], device=ck.device)
@@ -510,22 +531,21 @@ def cross_attention_spec(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def cross_attend(params, x, memory_kv, cfg: ModelConfig, memory_valid=None):
-    """x (B,Sq,D) attends to precomputed memory (k, v) (B,Sk,KV,hd)."""
+    """x (B,Sq,D) attends to precomputed memory (k, v) (B,Sk,KV,hd).  On
+    the ``queries`` path the queries and the output are each rank's own
+    positions (:class:`_OwnPositions`), over the memory's every key."""
     B, S, _ = x.shape
-    q = einsum("bsd,dnh->bsnh", x, params["wq"])
     k, v = memory_kv
-    Sk = k.shape[1]
-    if S > CHUNKED_THRESHOLD:
-        out = _sdpa_chunked(
-            q, k, v, torch.arange(S, device=x.device), torch.arange(Sk, device=x.device),
-            causal=False, window=0, k_valid=memory_valid, softcap=cfg.attn_softcap,
-        )
-    else:
-        mask = torch.ones((S, Sk), dtype=torch.bool, device=x.device)
-        if memory_valid is not None:
-            mask = mask & memory_valid[None, :]
-        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
-    return einsum("bsnh,nhd->bsd", out, params["wo"])
+    q_pos = torch.arange(S, device=x.device)
+    own = _own_positions(params, x, cfg.num_heads, ("wq", "wo"))
+    p, xl = (own.params, own.x) if own else (params, x)
+    if own:
+        k, v, q_pos = own.rows_of(k), own.rows_of(v), own.positions(q_pos)
+    q = einsum("bsd,dnh->bsnh", xl, p["wq"])
+    out = _block_core(q, k, v, q_pos, torch.arange(k.shape[1], device=x.device), S,
+                      causal=False, k_valid=memory_valid, softcap=cfg.attn_softcap)
+    y = einsum("bsnh,nhd->bsd", out, p["wo"])
+    return own.wrap(y) if own else y
 
 
 def cross_memory(params, memory, cfg: ModelConfig):
@@ -581,23 +601,29 @@ def _mla_queries(params, x, positions, cfg: ModelConfig):
 
 def mla_attend_full(params, x, positions, cfg: ModelConfig):
     """Prefill/train: expand latents to per-head k/v (the 'naive' mode).
-    Returns ``(y, {"c_kv", "k_pe"})``, the latents being the decode cache."""
+    Returns ``(y, {"c_kv", "k_pe"})``, the latents being the decode cache.
+    On the ``queries`` path each rank projects and expands its own
+    positions (:class:`_OwnPositions`) and gathers its keys and values
+    over ``model``."""
     m: MLAConfig = cfg.mla
     B, S, _ = x.shape
-    c_kv, k_pe = _mla_latents(params, x, positions, cfg)
-    q_nope, q_pe = _mla_queries(params, x, positions, cfg)
-    k_nope = einsum("bsr,rnh->bsnh", c_kv, params["wuk"])
-    v = einsum("bsr,rnh->bsnh", c_kv, params["wuv"])
+    own = _own_positions(params, x, cfg.num_heads, tuple(params))
+    p, xl, q_pos = (own.params, own.x, own.positions(positions)) if own else \
+        (params, x, positions)
+    c_kv, k_pe = _mla_latents(p, xl, q_pos, cfg)
+    q_nope, q_pe = _mla_queries(p, xl, q_pos, cfg)
+    k_nope = einsum("bsr,rnh->bsnh", c_kv, p["wuk"])
+    v = einsum("bsr,rnh->bsnh", c_kv, p["wuv"])
+    kp = k_pe
+    if own:
+        k_nope, v, kp = own.gather(k_nope), own.gather(v), own.gather(k_pe)
     q = torch.cat([q_nope, q_pe], -1)
-    k_pe_h = k_pe[:, :, None, :].expand(*k_nope.shape[:3], m.qk_rope_head_dim)
+    k_pe_h = kp[:, :, None, :].expand(*k_nope.shape[:3], m.qk_rope_head_dim)
     k = torch.cat([k_nope, k_pe_h], -1)
-    if S > CHUNKED_THRESHOLD:
-        out = _sdpa_chunked(q, k, v, positions, positions, causal=True, window=0,
-                            softcap=cfg.attn_softcap)
-    else:
-        mask = attention_mask(positions, positions, causal=True)
-        out = _sdpa(q, k, v, mask, cfg.attn_softcap)
-    y = einsum("bsnh,nhd->bsd", out, params["wo"])
+    out = _block_core(q, k, v, q_pos, positions, S, causal=True, softcap=cfg.attn_softcap)
+    y = einsum("bsnh,nhd->bsd", out, p["wo"])
+    if own:
+        return own.wrap(y), {"c_kv": own.wrap(c_kv), "k_pe": own.wrap(k_pe)}
     return y, {"c_kv": c_kv, "k_pe": k_pe}
 
 
@@ -627,8 +653,9 @@ def mla_attend_decode(params, x, cache, cache_pos, cfg: ModelConfig):
         mask = k_pos[None, None, :] <= cache_pos[:, None, None]   # (B,1,T)
     else:
         mask = (k_pos <= int(cache_pos))[None, :]                 # (1,T)
-    if _is_dtensor(q_c, c_kv) and _free_model_dim(_mesh_of(q_c, c_kv), q_c.shape[2]) is not None:
-        ctx = _mla_ctx_blocks(q_c, q_pe, c_kv, k_pe, mask, scale, _mesh_of(q_c, c_kv))
+    mesh = _shd.mesh_of(q_c, c_kv)
+    if mesh is not None and _free_model_dim(mesh, q_c.shape[2]) is not None:
+        ctx = _mla_ctx_blocks(q_c, q_pe, c_kv, k_pe, mask, scale, mesh)
     else:
         scores = (einsum("bsnr,btr->bnst", q_c, c_kv)
                   + einsum("bsnh,bth->bnst", q_pe, k_pe)).to(torch.float32) * scale
@@ -648,14 +675,14 @@ def _mla_ctx_blocks(q_c, q_pe, c_kv, k_pe, mask, scale: float, mesh):
     ``wuv`` and ``wo``."""
     MESH_PATHS["keys"] += 1
     kv_pl, row_pl = _kv_blocks(mesh, c_kv)
-    qc, qp = (_local(t, mesh, row_pl) for t in (q_c, q_pe))
-    cl, kl = (_local(t, mesh, kv_pl) for t in (c_kv, k_pe))
+    qc, qp = (_shd.local_block(t, mesh, row_pl) for t in (q_c, q_pe))
+    cl, kl = (_shd.local_block(t, mesh, kv_pl) for t in (c_kv, k_pe))
     valid = _mask_block(mask, mesh, kv_pl)
     scores = (einsum("bsnr,btr->bnst", qc, cl)
               + einsum("bsnh,bth->bnst", qp, kl)).to(torch.float32) * scale
     scores = torch.where(valid, scores, NEG_INF)
     ctx = _lse_combine(*_block_softmax(scores, valid), cl, "bnst,btr->bsnr", mesh, kv_pl)
-    return _wrap(ctx, mesh, row_pl, tuple(q_c.shape))
+    return _shd.from_local_block(ctx, mesh, row_pl, tuple(q_c.shape))
 
 
 def mla_cache_spec(cfg: ModelConfig, batch: int, max_len: int):

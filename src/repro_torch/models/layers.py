@@ -271,13 +271,15 @@ def _mlp_per_shard(params, x, act: str, mesh, md: int):
     onto its columns of ``w_gate`` and ``w_up`` (d_ff split over ``model``,
     the ``mlp`` rule) and back through its rows of ``w_down``, each weight
     gathered along ``embed`` only (FSDP).  The partial outputs are
-    reduce-scattered to the positions over ``model`` where they divide,
-    else (a decode step) all-reduced.  A weight's gradient comes back split
-    over ``model`` as the weight is, and partial over the mesh dims that
-    split the rows."""
+    reduce-scattered to the positions over ``model``.  A weight's gradient
+    comes back split over ``model`` as the weight is, and partial over the
+    mesh dims that split the rows.  Where the positions do not divide
+    ``model`` (a decode step) the weights stay (:func:`_mlp_stationary`)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
 
     rows, out = activation_layout(x.shape, mesh)
+    if not out[md].is_shard():
+        return _mlp_stationary(params, x, act, mesh, md)
     part = [Partial() if m == md else p for m, p in enumerate(rows)]
     summed = [Partial() if p.is_shard() else Replicate() for p in rows]
 
@@ -291,6 +293,54 @@ def _mlp_per_shard(params, x, act: str, mesh, md: int):
     u = einsum("...d,df->...f", xl, weight(params["w_up"], 1))
     y = einsum("...f,fd->...d", g * u, weight(params["w_down"], 0))
     return from_local_block(y, mesh, part, x.shape).redistribute(mesh, out)
+
+
+def _mlp_stationary(params, x, act: str, mesh, md: int):
+    """The MLP of a step whose positions do not divide ``model`` (a decode
+    step: one position a row), with the weights where the ``embed`` and
+    ``mlp`` rules put them, as ``moe._stationary_ffn`` runs the experts:
+    the rows move to this rank's columns of D (every row of the mesh dims
+    that split D), each rank contracts its columns with its block of
+    ``w_gate`` and ``w_up``, the gate and up products are all-reduced over
+    those dims in float32, the down product (its block of ``w_down``) is
+    reduced over ``model`` and its columns go back to the rows' layout.
+    So a rank moves activations, not weights.  The weights' gradients
+    come back split as the weights are (partial over a mesh dim that
+    splits the rows and not D)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    B, S, D = x.shape
+    F = params["w_gate"].shape[1]
+    rows, out = activation_layout(x.shape, mesh)
+    rule = named_sharding((D, F), ("embed", "mlp"), mesh).placements
+    cols = [d != md and p.is_shard(0) for d, p in enumerate(rule)]   # the dims that split D
+
+    def pl(at_model, at_cols):
+        """Placements: ``at_model`` on ``model``, ``at_cols`` on the dims
+        that split D, the rows' elsewhere."""
+        return [at_model if d == md else at_cols if cols[d] else rows[d]
+                for d in range(mesh.ndim)]
+
+    def weight(w, f):
+        """This rank's block of a weight whose d_ff dim is ``f``, in place."""
+        at = [Shard(f) if d == md else Shard(1 - f) if cols[d] else Replicate()
+              for d in range(mesh.ndim)]
+        grad = [Partial() if rows[d].is_shard() and not cols[d] and d != md else p
+                for d, p in enumerate(at)]
+        return local_block(w, mesh, at, grad)
+
+    def whole(t):
+        """A float32 product of this rank's columns, summed over the dims
+        that split D, in ``x``'s dtype."""
+        t = from_local_block(t.to(torch.float32), mesh, pl(Shard(2), Partial()), (B, S, F))
+        return local_block(t, mesh, pl(Shard(2), Replicate()),
+                           pl(Shard(2), Partial())).to(x.dtype)
+
+    xs = local_block(x, mesh, pl(Replicate(), Shard(2)), pl(Partial(), Shard(2)))
+    g = _act(act)(whole(einsum("bsd,df->bsf", xs, weight(params["w_gate"], 1))))
+    u = whole(einsum("bsd,df->bsf", xs, weight(params["w_up"], 1)))
+    y = einsum("bsf,fd->bsd", g * u, weight(params["w_down"], 0))
+    return from_local_block(y, mesh, pl(Partial(), Shard(2)), (B, S, D)).redistribute(mesh, out)
 
 
 # ---------------------------------------------------------------------------

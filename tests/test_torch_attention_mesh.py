@@ -14,7 +14,8 @@ over the blocks).  Rank 0 writes its results; the tests hold them to the
 unsharded port and to the reference's ``repro.models.attention``
 functions (hymba's forward: ``repro.models``) on the same numpy-seeded
 inputs and parameters (``params_from_numpy`` carries them to the port),
-and the train path's gradients to the unsharded port's.
+and the train path's gradients to the unsharded port's (four cases' to
+the reference's too: GQA, chunked, cross-attention, MLA).
 
 Tolerance: float32, rtol 1e-5 and atol 1e-6 in units of the compared
 tensor's largest magnitude (``_close``).  The blocks sum in another order
@@ -29,9 +30,10 @@ branch too) is held at rtol and atol 1e-4, as tests/test_torch_models.py
 holds the models.
 
 On a fake process group (``FakeTensorMode``, as ``test_torch_dryrun.py``
-traces): the attention FLOPs a device are the unsharded count over the
-ranks that share it, a decode step issues no all-gather of a cache-shaped
-tensor, and minicpm3-4b's SMOKE config with 6 heads traces a decode step
+traces): the attention FLOPs a device, a decode step's core's and the
+whole train branch's with its projections, are the unsharded count over
+the ranks that share it, a decode step issues no all-gather of a
+cache-shaped tensor, and minicpm3-4b's SMOKE config with 6 heads traces a decode step
 on a 3-D (pod, data, model) mesh (F6).  ``layers.reshape`` of a
 ``Partial`` DTensor gives the reduced tensor (on the gloo ranks).
 """
@@ -74,6 +76,7 @@ CASES = {
     "decode_2x2": dict(fam="gqa", H=3, KV=1, mesh="2x2", kind="decode", pos=12),
     "mla_1x4": dict(fam="mla", H=6, KV=6, mesh="1x4", kind="full"),
     "mla_chunked_2x2": dict(fam="mla", H=3, KV=3, mesh="2x2", kind="full", chunked=True),
+    "mla_gather_kv_2x2": dict(fam="mla", H=3, KV=3, mesh="2x2", kind="full"),
     "mla_decode_first_block": dict(fam="mla", H=6, KV=6, mesh="1x4", kind="decode", pos=1),
     "mla_decode_middle_block": dict(fam="mla", H=6, KV=6, mesh="1x4", kind="decode", pos=6),
     "mla_decode_last_block": dict(fam="mla", H=6, KV=6, mesh="1x4", kind="decode", pos=14),
@@ -272,6 +275,36 @@ def _reference(name, monkeypatch):
     return out
 
 
+def _reference_grads(name, monkeypatch):
+    """The gradients of a full-block case's loss by the reference's
+    functions (``jax.grad``), keyed as :func:`_port` keys them: ``grad.0``
+    the input's, then every parameter's in sorted key order."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import attention as jattn
+
+    c, jcfg, a = CASES[name], _cfg(name, port=False), _arrays(name)
+    if c.get("chunked"):
+        monkeypatch.setattr(jattn, "CHUNKED_THRESHOLD", CHUNK_AT)
+    s = c.get("S", S)
+
+    def loss(p, x):
+        if c["kind"] == "cross":
+            y = jattn.cross_attend(p, x, tuple(map(jnp.asarray, a["memory"])), jcfg,
+                                   memory_valid=jnp.asarray(a["memory_valid"]))
+        elif c["fam"] == "mla":
+            y, _ = jattn.mla_attend_full(p, x, jnp.arange(s), jcfg)
+        else:
+            y, _ = jattn.gqa_attend(p, x, jnp.arange(s), jcfg, causal=c.get("causal", True),
+                                    window=c.get("window", 0))
+        return jnp.sum(y * jnp.asarray(a["w"]))
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(jax.tree.map(jnp.asarray, a["params"]),
+                                            jnp.asarray(a["x"]))
+    return {f"grad.{i}": np.asarray(g) for i, g in enumerate([gx] + jax.tree.leaves(gp))}
+
+
 # ---------------------------------------------------------------------------
 # the gloo group: every case on its mesh, once for the module
 # ---------------------------------------------------------------------------
@@ -358,6 +391,21 @@ def test_mesh_attention_matches_unsharded_and_reference(name, ranks_out, monkeyp
         _close(got[k], want, f"{name} {k}: mesh vs reference", *tol)
 
 
+@pytest.mark.parametrize("name", ["gqa_2x2", "gqa_chunked_1x4", "cross_1x4",
+                                  "mla_gather_kv_2x2"])
+def test_mesh_gradients_match_the_reference(name, ranks_out, monkeypatch):
+    """Cases whose projections run on the ranks' own positions (GQA whole
+    and chunked, cross-attention, MLA): the input's
+    gradient and every used weight's match the reference's (every train
+    case's match the unsharded port's, above)."""
+    with np.load(ranks_out / f"{name}.npz") as z:
+        got = {k: z[k] for k in z.files if k.startswith("grad.")}
+    want = _reference_grads(name, monkeypatch)
+    assert "grad.0" in got and set(got) <= set(want)
+    for k in got:
+        _close(got[k], want[k], f"{name} {k}: mesh vs reference")
+
+
 def test_partial_reshape_reduces_the_sums(ranks_out):
     """The ranks reshaped a DTensor of partial sums on both meshes
     (``_partial_reshape``); the group's exit is the check."""
@@ -418,36 +466,73 @@ CACHE = ("batch", "kv_seq", "kv_heads", "head")
 F32 = torch.float32
 
 
+def _branch_flops(kind, mesh, monkeypatch):
+    """(FLOPs on one device, FLOPs a device on ``mesh``, the mesh's
+    ``MESH_PATHS``) of a train layer's whole attention branch
+    (projections, core, ``wo``), forward and backward, with 6 heads:
+    ``gqa_attend`` ("gqa"; "train" with a softcap; "chunked"; the
+    non-causal "encoder"), ``mla_attend_full`` ("mla_kv"; "mla_train"
+    chunked) or ``cross_attend`` ("cross")."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.params import tree_leaves
+
+    case = {"train": "gqa_window_softcap", "cross": "cross_1x4"}.get(kind, "gqa_1x4")
+    cfg = _cfg("mla_1x4" if kind.startswith("mla") else case)
+    if kind in ("chunked", "mla_train"):
+        monkeypatch.setattr(attn, "CHUNKED_THRESHOLD", CHUNK_AT)
+    Bf, Sf, Sk = 4, 64, 24
+    specs = attn.mla_spec(cfg) if kind.startswith("mla") else attn.gqa_spec(cfg)
+    if kind == "cross":   # its keys and values are the memory's
+        specs = {k: specs[k] for k in ("wo", "wq")}
+    pos = torch.arange(Sf)
+    args = [((Bf, Sf, cfg.d_model), ("batch", "act_seq", None), F32)] + \
+        [(sp.shape, sp.axes, F32) for sp in tree_leaves(specs)]
+    if kind == "cross":
+        kv = ((Bf, Sk, cfg.num_kv_heads, cfg.resolved_head_dim), ("batch", None, "kv_heads",
+                                                                   "head"), F32)
+        args += [kv, kv]
+
+    def params_of(ws):   # one leaf each (a norm's scale), in the leaves' order
+        it = iter(ws)
+        return {k: {"scale": next(it)} if isinstance(specs[k], dict) else next(it)
+                for k in sorted(specs)}
+
+    def fn(x, *ws):
+        if kind == "cross":
+            return attn.cross_attend(params_of(ws[:-2]), x, ws[-2:], cfg)
+        if kind.startswith("mla"):
+            return attn.mla_attend_full(params_of(ws), x, pos, cfg)[0]
+        return attn.gqa_attend(params_of(ws), x, pos, cfg, causal=kind != "encoder",
+                               window=24)[0]
+
+    one = _traced(fn, None, *args, grad=True)
+    attn.MESH_PATHS.clear()
+    per_device = _traced(fn, mesh, *args, grad=True)
+    return one, per_device, dict(attn.MESH_PATHS)
+
+
 @pytest.mark.parametrize("kind", ["train", "chunked", "encoder", "decode", "mla_train",
                                   "mla_decode"])
-def test_attention_flops_are_split_over_the_ranks(kind, fake_meshes):
-    """On the (2, 4) mesh with 6 heads, the attention core counts 1/8 of
-    its one-device FLOPs a device (forward and backward in train): each
-    rank attends its rows' block of positions, or its block of the
-    cache's keys, with every head."""
+def test_attention_flops_are_split_over_the_ranks(kind, fake_meshes, monkeypatch):
+    """On the (2, 4) mesh with 6 heads, attention counts 1/8 of its
+    one-device FLOPs a device: in train (forward and backward) the whole
+    branch (:func:`_branch_flops`), each rank on its rows' block of
+    positions; in decode the core, each rank on its block of the cache's
+    keys with every head."""
     from repro_torch.models import attention as attn
 
     mesh = fake_meshes[0]
+    if "decode" not in kind:
+        one, per_device, paths = _branch_flops(kind, mesh, monkeypatch)
+        assert one > 0 and per_device * 8 == one, (per_device, one)
+        assert paths == {"queries": 1}
+        return
     Bf, Sf, H, KV, hd = 4, 64, 6, 2, 16
-    pos = torch.arange(Sf)
-    mask = attn.attention_mask(pos, pos, window=24)
-    if kind in ("train", "mla_train", "encoder"):
-        kv = H if kind == "mla_train" else KV
-        fn = (lambda q, k, v: attn._sdpa(q, k, v, mask, 5.0)) if kind != "encoder" else \
-            (lambda q, k, v: attn._sdpa(q, k, v, torch.ones(Sf, Sf, dtype=torch.bool)))
-        args = [((Bf, Sf, H, hd), QKV, F32)] + [((Bf, Sf, kv, hd), QKV, F32)] * 2
-    elif kind == "chunked":
-        def fn(q, k, v):
-            return attn._sdpa_chunked(q, k, v, pos, pos, causal=True, window=24, q_chunk=8)
-
-        args = [((Bf, Sf, H, hd), QKV, F32)] + [((Bf, Sf, KV, hd), QKV, F32)] * 2
-    elif kind == "decode":
-        dmask = (torch.arange(Sf) <= 40)[None, :]
+    dmask = (torch.arange(Sf) <= 40)[None, :]
+    if kind == "decode":
         fn = lambda q, k, v: attn._sdpa(q, k, v, dmask, 5.0, kv_sharded=True)  # noqa: E731
         args = [((Bf, 1, H, hd), QKV, F32)] + [((Bf, Sf, KV, hd), CACHE, F32)] * 2
     else:   # the absorbed MLA decode's scores and context, r = 16, rope = 8
-        dmask = (torch.arange(Sf) <= 40)[None, :]
-
         def fn(q_c, q_pe, c_kv, k_pe):
             if not hasattr(c_kv, "full_tensor"):
                 s = (attn.einsum("bsnr,btr->bnst", q_c, c_kv)
@@ -458,12 +543,22 @@ def test_attention_flops_are_split_over_the_ranks(kind, fake_meshes):
         lat = ("batch", "kv_seq", None)
         args = [((Bf, 1, H, 16), QKV, F32), ((Bf, 1, H, 8), QKV, F32),
                 ((Bf, Sf, 16), lat, F32), ((Bf, Sf, 8), lat, F32)]
-    grad = kind in ("train", "mla_train", "encoder")
-    one = _traced(fn, None, *args, grad=grad)
+    one = _traced(fn, None, *args)
     attn.MESH_PATHS.clear()
-    per_device = _traced(fn, mesh, *args, grad=grad)
+    per_device = _traced(fn, mesh, *args)
     assert one > 0 and per_device * 8 == one, (per_device, one)
-    assert set(attn.MESH_PATHS) == {"keys" if "decode" in kind else "queries"}
+    assert set(attn.MESH_PATHS) == {"keys"}
+
+
+@pytest.mark.parametrize("kind", ["gqa", "mla_kv", "cross"])
+def test_projection_flops_are_split_over_the_ranks(kind, fake_meshes, monkeypatch):
+    """A train layer's whole attention branch (projections, core, ``wo``),
+    forward and backward, on the (2, 4) mesh with 6 heads counts 1/8 of
+    its one-device FLOPs a device: each rank projects its rows' block of
+    positions, MLA expands its latents on them."""
+    one, per_device, paths = _branch_flops(kind, fake_meshes[0], monkeypatch)
+    assert paths == {"queries": 1}
+    assert one > 0 and per_device * 8 == one, (per_device, one)
 
 
 def test_decode_step_gathers_no_cache(fake_meshes, monkeypatch, tmp_path):

@@ -16,9 +16,10 @@ its results; the tests hold them to the unsharded port, and the outputs
 ``repro.models.layers.mlp`` / ``unembed`` and ``repro.train.train_step.
 cross_entropy`` on the same numpy-seeded inputs.  The gradients of the
 tokens, the router and the expert weights (the MLP's weights, the
-table) are held to the unsharded port's.  Two cases keep the DTensor path
-of the unsharded code and are named so: experts that ``model`` does not
-divide, and the ``gather`` dispatch.  The sharded draw equals the
+table) are held to the unsharded port's, and the MLP's (a decode step's
+with its weights in place too) to the reference's.  Two cases keep the
+DTensor path of the unsharded code and are named so: experts that
+``model`` does not divide, and the ``gather`` dispatch.  The sharded draw equals the
 unsharded counter draw on the whole batch bit for bit (the ``gumbel``
 draw also the reference's per-shard body).
 
@@ -31,8 +32,9 @@ another order than one einsum, and XLA contracts in its own order.
 On a fake process group of 16 ranks (a (data, model) (2, 4) mesh,
 ``FakeTensorMode``): the FLOPs a device of the dispatch, combine and
 experts, of the MLP and of the odd-vocabulary unembedding are the
-unsharded count over the ranks that share it, and arctic-480b's SMOKE
-prefill traces on the mesh (its combined output a DTensor).
+unsharded count over the ranks that share it, a decode step's MLP
+moves no weight, and arctic-480b's SMOKE prefill traces on the mesh
+(its combined output a DTensor).
 """
 
 import contextlib
@@ -68,7 +70,9 @@ CASES = {
                                 grad=True, dispatch="gather"),
     "mlp_1x4": dict(fn="mlp", arch="pixtral-12b", mesh="1x4", B=2, S=16, grad=True),
     "mlp_2x2": dict(fn="mlp", arch="hymba-1.5b", mesh="2x2", B=2, S=8, grad=True),
-    "mlp_decode_2x2": dict(fn="mlp", arch="pixtral-12b", mesh="2x2", B=4, S=1),
+    "mlp_decode_2x2": dict(fn="mlp", arch="pixtral-12b", mesh="2x2", B=4, S=1, grad=True),
+    "mlp_decode_1x4": dict(fn="mlp", arch="hymba-1.5b", mesh="1x4", B=2, S=1, grad=True),
+    "mlp_decode_one_row_2x2": dict(fn="mlp", arch="llama3-8b", mesh="2x2", B=1, S=1, grad=True),
     "mlp_one_row_2x2": dict(fn="mlp", arch="arctic-480b", mesh="2x2", B=1, S=8, grad=True),
     "unembed_decode_1x4": dict(fn="unembed", mesh="1x4", B=4, S=1, V=130),
     "unembed_decode_padded_2x2": dict(fn="unembed", mesh="2x2", B=4, S=1, V=129, vocab=126),
@@ -318,6 +322,38 @@ def test_mesh_matches_unsharded_and_reference(name, ranks_out):
         _close(got[k], want, f"{name} {k}: mesh vs reference")
 
 
+def _reference_mlp_grads(name):
+    """The gradients of an MLP case's loss by the reference's
+    ``repro.models.layers.mlp`` (``jax.grad``), keyed as :func:`_port`
+    keys them."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import layers as jl
+
+    a, act = _arrays(name), _cfg(name, port=False).act
+
+    def loss(p, x):
+        return jnp.sum(jl.mlp(p, x, act) * jnp.asarray(a["w"]))
+
+    gp, gx = jax.grad(loss, argnums=(0, 1))(jax.tree.map(jnp.asarray, a["params"]),
+                                            jnp.asarray(a["x"]))
+    return {"grad.x": np.asarray(gx), **{f"grad.{k}": np.asarray(v) for k, v in gp.items()}}
+
+
+@pytest.mark.parametrize("name", [n for n, c in CASES.items() if c["fn"] == "mlp"])
+def test_mlp_gradients_match_the_reference(name, ranks_out):
+    """Each MLP case on its mesh (sequence-parallel, or a decode step's
+    weights in place): the input's gradient and every weight's match the
+    reference's."""
+    with np.load(ranks_out / f"{name}.npz") as z:
+        got = {k: z[k] for k in z.files if k.startswith("grad.")}
+    want = _reference_mlp_grads(name)
+    assert sorted(got) == sorted(want)
+    for k in got:
+        _close(got[k], want[k], f"{name} {k}: mesh vs reference")
+
+
 def test_moe_paths(ranks_out):
     """Every MoE case where ``model`` divides the experts took the
     per-shard dispatch once; experts that ``model`` does not divide (6 on
@@ -380,6 +416,11 @@ def _traced(fn, mesh, *shapes_axes, grad=False):
     """FLOPs a device of ``fn`` on fake tensors of the given (shape, axes)
     placed on ``mesh`` by the rules (one device where ``mesh`` is None),
     its gradient too with ``grad``."""
+    return _tally(fn, mesh, *shapes_axes, grad=grad).flops
+
+
+def _tally(fn, mesh, *shapes_axes, grad=False):
+    """The ``dryrun.StepTally`` of :func:`_traced`'s trace."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -398,7 +439,7 @@ def _traced(fn, mesh, *shapes_axes, grad=False):
             y = fn(*ins)
             if grad:
                 torch.autograd.grad(y.sum(), ins)
-    return tally.flops
+    return tally
 
 
 def _moe_cfg(E=8):
@@ -462,6 +503,30 @@ def test_mlp_flops_are_split_over_the_ranks(S, fake_mesh):
     one = _traced(fn, None, *args, grad=S > 1)
     per_device = _traced(fn, fake_mesh, *args, grad=S > 1)
     assert one > 0 and per_device * 8 == one, (per_device, one)
+
+
+def test_decode_mlp_moves_no_weight(fake_mesh):
+    """A decode step's MLP on the (2, 4) mesh keeps its weights in place:
+    each of its collectives carries fewer values than a rank's block of a
+    weight (the rows to this rank's columns of d_model, the gate and up
+    products, the output), so no weight is gathered."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+
+    cfg = get_config("pixtral-12b", smoke=True)
+    D, F = cfg.d_model, cfg.d_ff
+    spec = layers.mlp_spec(D, F)
+    args = [((8, 1, D), ("batch", None, None))] + [(sp.shape, sp.axes) for sp in spec.values()]
+
+    def fn(x, *ws):
+        return layers.mlp(dict(zip(spec, ws)), x, cfg.act)
+
+    moved = _tally(fn, fake_mesh, *args).collectives
+    assert moved
+    block = D * F // 8   # a rank's block of a weight: D over 2 data ranks, d_ff over 4
+    big = [(kind, shapes) for kind, shapes, _ in moved
+           if max(int(np.prod(s)) for s in shapes) >= block]
+    assert not big, big
 
 
 @pytest.mark.parametrize("tied", [False, True])
