@@ -48,7 +48,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import sampling
+from repro_torch import sampling, tracing
 from repro_torch.kernels import runtime
 from repro_torch.lda.corpus import Corpus
 from repro_torch.sampling import distribution as _dist
@@ -197,19 +197,24 @@ def draw_z(state: LDAState, docs, method: str = "auto", W: Optional[int] = None,
     M, maxN = docs.shape
     K = state.theta.shape[-1]
     rows = (min(chunk, M) if M else chunk) * maxN
-    p = _chunk_plan(rows, K, method, W, state.theta.dtype, dev.type)
-    method, Wr = p.method, p.W
-    keyed = method in _dist.KEY_VARIANTS
-    z = torch.empty((M, maxN), dtype=torch.int32, device=dev) if out is None else out
-    for start, end, theta_c, docs_c in _chunks(state.theta, docs, chunk):
-        u = None if keyed else torch.rand(docs_c.numel(), generator=state.key, device=dev)
-        if dists is None:
-            zc = _draw_chunk(theta_c, state.phi, docs_c, u, method, Wr, state.key)
-        else:
-            dist = _chunk_dist(theta_c, state.phi, docs_c, method, Wr, dists.get(start))
-            dists[start] = dist
-            zc = _dist.draw(dist, generator=state.key, u=u).view(docs_c.shape)
-        z[start:end] = zc[: end - start]
+    with tracing.span("lda.draw_z"):
+        with tracing.span("autotune.plan"):
+            p = _chunk_plan(rows, K, method, W, state.theta.dtype, dev.type)
+        method, Wr = p.method, p.W
+        keyed = method in _dist.KEY_VARIANTS
+        z = torch.empty((M, maxN), dtype=torch.int32, device=dev) if out is None else out
+        tracing.count("lda.chunks", -(-M // min(chunk, M)) if M else 0)
+        for start, end, theta_c, docs_c in _chunks(state.theta, docs, chunk):
+            u = None if keyed else torch.rand(docs_c.numel(), generator=state.key,
+                                              device=dev)
+            if dists is None:
+                zc = _draw_chunk(theta_c, state.phi, docs_c, u, method, Wr, state.key)
+            else:
+                dist = _chunk_dist(theta_c, state.phi, docs_c, method, Wr,
+                                   dists.get(start))
+                dists[start] = dist
+                zc = _dist.draw(dist, generator=state.key, u=u).view(docs_c.shape)
+            z[start:end] = zc[: end - start]
     return z
 
 
@@ -279,29 +284,41 @@ def gibbs_step(state: LDAState, corpus: Corpus, alpha: float = 0.1, beta: float 
     (``sparse.gibbs_step_sparse``)."""
     _check_method(method)
     dev = state.theta.device
-    if sparse:
-        from repro_torch.lda import sparse as _sparse
+    with tracing.span("lda.sweep", state.step):
+        tracing.count("lda.sweeps")
+        if sparse:
+            from repro_torch.lda import sparse as _sparse
 
-        use_sparse = True
-        if sparse == "auto":
-            from repro_torch import autotune
+            use_sparse = True
+            if sparse == "auto":
+                from repro_torch import autotune
 
-            meth, _ = autotune.resolve(int(corpus.total_words), state.theta.shape[-1],
-                                       factored=True, sparse=True, backend=dev.type)
-            use_sparse = meth in autotune.SPARSE_METHODS
-        if use_sparse:
-            return _sparse.gibbs_step_sparse(
-                state, corpus, alpha=alpha, beta=beta, mh_steps=mh_steps,
-                word_proposal=word_proposal, cache=sparse_cache, chunk=chunk)
-    docs = torch.as_tensor(corpus.docs, device=dev)
-    mask = torch.as_tensor(corpus.mask, device=dev)
-    K = state.theta.shape[-1]
-    V = state.phi.shape[0]
-    z = draw_z(state, docs, method=method, W=W, chunk=chunk, dists=dists, out=state.z)
-    doc_topic, word_topic = _counts(z, docs, mask, K, V)
-    theta = _update_theta(state.key, doc_topic, alpha)
-    phi = _update_phi(state.key, word_topic, beta)
-    return LDAState(theta=theta, phi=phi, z=z, key=state.key, step=state.step + 1)
+                with tracing.span("sync.total_words"):
+                    if torch.is_tensor(corpus.lengths):
+                        tracing.count("host_syncs")
+                    total = corpus.total_words
+                with tracing.span("autotune.plan"):
+                    meth, _ = autotune.resolve(int(total), state.theta.shape[-1],
+                                               factored=True, sparse=True,
+                                               backend=dev.type)
+                use_sparse = meth in autotune.SPARSE_METHODS
+            if use_sparse:
+                return _sparse.gibbs_step_sparse(
+                    state, corpus, alpha=alpha, beta=beta, mh_steps=mh_steps,
+                    word_proposal=word_proposal, cache=sparse_cache, chunk=chunk)
+        docs = torch.as_tensor(corpus.docs, device=dev)
+        mask = torch.as_tensor(corpus.mask, device=dev)
+        K = state.theta.shape[-1]
+        V = state.phi.shape[0]
+        z = draw_z(state, docs, method=method, W=W, chunk=chunk, dists=dists,
+                   out=state.z)
+        with tracing.span("lda.counts"):
+            doc_topic, word_topic = _counts(z, docs, mask, K, V)
+        with tracing.span("lda.theta"):
+            theta = _update_theta(state.key, doc_topic, alpha)
+        with tracing.span("lda.phi"):
+            phi = _update_phi(state.key, word_topic, beta)
+        return LDAState(theta=theta, phi=phi, z=z, key=state.key, step=state.step + 1)
 
 
 def log_likelihood(theta, phi, docs, mask, chunk: int = 256) -> torch.Tensor:

@@ -49,6 +49,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.kernels import rng as _rng
 from repro_torch.kernels import runtime
 from repro_torch.kernels.sparse_mh import mh_sweep
@@ -98,7 +99,11 @@ _counts_scatter = _counts
 
 
 def _nnz_max(doc_topic) -> int:
-    return int((doc_topic > 0).sum(dim=1).max()) if doc_topic.shape[0] else 0
+    if not doc_topic.shape[0]:
+        return 0
+    with tracing.span("sync.nnz_max"):
+        tracing.count("host_syncs")
+        return int((doc_topic > 0).sum(dim=1).max())
 
 
 def _phi_cdf(phi) -> torch.Tensor:
@@ -120,7 +125,9 @@ def pow2_capacity(nnz: int, cap_min: int = DEFAULT_CAP_MIN,
 class SparseSweepCache:
     """Caller-held state the sparse sweep carries across sweeps: the
     capacity bucket, the sparse counts entering the next sweep, and the
-    bucket / acceptance history."""
+    bucket / acceptance history.  The last sweep's MH counts stay on the
+    device (``last_counts``: word accepts, doc accepts, proposals) until
+    :attr:`last_stats` reads them."""
 
     cap_min: int = DEFAULT_CAP_MIN
     cap_max: int = DEFAULT_CAP_MAX
@@ -128,7 +135,13 @@ class SparseSweepCache:
     counts: Optional[SparseDocTopics] = None
     nnz_max: int = 0
     caps_history: List[int] = dataclasses.field(default_factory=list)
-    last_stats: Optional[Dict[str, float]] = None
+    last_counts: Optional[tuple] = None
+
+    @property
+    def last_stats(self) -> Optional[Dict[str, float]]:
+        """The last sweep's accept rates and proposals per kind, read from
+        the device on access (None before the first sweep)."""
+        return None if self.last_counts is None else _stats_dict(*self.last_counts)
 
     def update_capacity(self, nnz_max: int) -> int:
         """Hysteretic pow2 bucketing: grow at once when the max support
@@ -241,25 +254,38 @@ def _prepare(state: LDAState, docs, mask, cache: SparseSweepCache):
     mask = torch.as_tensor(mask, device=dev)
     K = state.theta.shape[-1]
     if cache.counts is None or cache.cap is None:
-        doc_topic, _ = _counts(state.z, docs, mask, K, state.phi.shape[0])
+        with tracing.span("lda.counts"):
+            doc_topic, _ = _counts(state.z, docs, mask, K, state.phi.shape[0])
         cache.update_capacity(_nnz_max(doc_topic))
-        cache.counts = sparse_counts(doc_topic, min(cache.cap, K))
+        with tracing.span("lda.sparse.sort"):
+            cache.counts = sparse_counts(doc_topic, min(cache.cap, K))
     return docs, mask
 
 
 def _draw(state: LDAState, docs, mask, cache, mh_steps, word_proposal, alpha, chunk,
           row0):
     K, V = state.theta.shape[-1], state.phi.shape[0]
-    # the token count only feeds "auto" (counting synchronises the card)
-    tokens = int((mask > 0).sum()) * mh_steps if word_proposal == "auto" else None
+    tokens = None
+    if word_proposal == "auto":
+        # the token count only feeds "auto" (counting synchronises the card)
+        with tracing.span("sync.tokens"):
+            tracing.count("host_syncs")
+            tokens = int((mask > 0).sum()) * mh_steps
     mode = resolve_word_proposal(word_proposal, K, V, tokens=tokens,
                                  backend=state.theta.device.type)
-    tbl_a, tbl_b = word_proposal_tables(state.phi, mode)
-    return _mh_sweep(state.z, docs, mask, state.theta, state.phi, cache.counts.ids,
-                     cache.counts.cnt, tbl_a, tbl_b,
-                     sweep_seed(_rng.generator_seed(state.key), state.step),
-                     row0, alpha, steps=mh_steps, cap=min(cache.cap, K), mode=mode,
-                     chunk=chunk)
+    cap = min(cache.cap, K)
+    tracing.gauge("sparse.cap", cap)
+    with tracing.span("lda.sparse.tables"):
+        tbl_a, tbl_b = word_proposal_tables(state.phi, mode)
+    with tracing.span("lda.sparse.mh"):
+        out = _mh_sweep(state.z, docs, mask, state.theta, state.phi, cache.counts.ids,
+                        cache.counts.cnt, tbl_a, tbl_b,
+                        sweep_seed(_rng.generator_seed(state.key), state.step),
+                        row0, alpha, steps=mh_steps, cap=cap, mode=mode, chunk=chunk)
+    for name, n in zip(("sparse.word_accepts", "sparse.doc_accepts", "sparse.proposals"),
+                       out[1:]):
+        tracing.count(name, n)
+    return out
 
 
 def draw_z_sparse(state: LDAState, docs, mask, mh_steps: int = 2,
@@ -299,13 +325,18 @@ def gibbs_step_sparse(state: LDAState, corpus: Corpus, alpha: float = 0.1,
     K, V = state.theta.shape[-1], state.phi.shape[0]
     z, wa, da, props = _draw(state, docs, mask, cache, mh_steps, word_proposal, alpha,
                              chunk, row0)
-    doc_topic, word_topic = _counts(z, docs, mask, K, V)
-    theta = _update_theta(state.key, doc_topic, alpha)
-    phi = _update_phi(state.key, word_topic, beta)
+    with tracing.span("lda.counts"):
+        doc_topic, word_topic = _counts(z, docs, mask, K, V)
+    with tracing.span("lda.theta"):
+        theta = _update_theta(state.key, doc_topic, alpha)
+    with tracing.span("lda.phi"):
+        phi = _update_phi(state.key, word_topic, beta)
     # the next sweep's proposal counts (and the capacity bucket they live in)
     cache.update_capacity(_nnz_max(doc_topic))
-    cache.counts = sparse_counts(doc_topic, min(cache.cap, K))
-    cache.last_stats = _stats_dict(wa, da, props)
+    with tracing.span("lda.sparse.sort"):
+        cache.counts = sparse_counts(doc_topic, min(cache.cap, K))
+    # kept on the device: reading them here would wait for the sort
+    cache.last_counts = (wa, da, props)
     return LDAState(theta=theta, phi=phi, z=z, key=state.key, step=state.step + 1)
 
 
