@@ -151,16 +151,23 @@ Phases, each of which raises on failure (exit code != 0, no result line):
    masked out, row counters that wrap at 2**32, K = 2,048 (8,192
    documents), every document masked, cap 1 and cap = K, doc proposals
    exactly at K alpha and on a cc value, documents of 307 positions, and
-   K = 16,384 (where the rule takes "position"); at K = 240, 1,024 and
+   K = 16,384 (where the rule takes "position"); S2 (the sweep's counts
+   and lists in one pass a document) against its plain version bit for
+   bit in every output, with and without the word side, over the corpus
+   padded to the sparse cell's 110 positions at K = 240, 1,024 and 2,048
+   (width 64), and at K = 240 with tied counts, widths 1 and K, documents
+   masked out and one document; at K = 240, 1,024 and
    2,048, 3 ``gibbs_step(sparse=True)`` sweeps each with cdf,
-   alias_device and auto tables (S1 once a sweep, K13 once a sweep with
-   alias_device tables), one ``sparse="auto"`` sweep (its resolution
-   printed) and 3 sweeps of the dense default, each path's launches read
-   around it; in a fresh process (this script with ``--sparse-profile``,
-   whose traces hold every launch), S1's event and device times in both
-   layouts at K = 240, 1,024 and 2,048 (cdf and alias_device tables)
-   beside its plain version and bound, and the sparse sweep profiled,
-   S1's count in its trace; 2 sweeps of ``StreamingSparseLDA`` over
+   alias_device and auto tables (S1 once a sweep, S2 once a sweep and
+   once for the fresh cache, K13 once a sweep with alias_device tables),
+   one ``sparse="auto"`` sweep (its resolution printed) and 3 sweeps of
+   the dense default, each path's launches read around it; in a fresh
+   process (this script with ``--sparse-profile``, whose traces hold
+   every launch), S1's event and device times in both layouts at K =
+   240, 1,024 and 2,048 (cdf and alias_device tables) beside its plain
+   version and bound, S2's beside its plain version, its library calls
+   and its bound, and the sparse sweep profiled, S1's and S2's counts in
+   its trace; 2 sweeps of ``StreamingSparseLDA`` over
    ``zipf_shard_source`` (50,000 documents in 4 shards, the corpus's
    vocabulary) with tokens/s.
 8. Serving, the decoder path (``repro_torch.models`` and
@@ -341,6 +348,8 @@ from repro_torch.kernels.butterfly_table import ref as KTR  # noqa: E402
 from repro_torch.kernels.lda_draw import kernel as KL  # noqa: E402
 from repro_torch.kernels.lda_draw import ops  # noqa: E402
 from repro_torch.kernels.lda_draw.ref import boundary_ties  # noqa: E402
+from repro_torch.kernels.sparse_counts import kernel as KC  # noqa: E402
+from repro_torch.kernels.sparse_counts import ref as counts_ref  # noqa: E402
 from repro_torch.kernels.sparse_mh import kernel as KS  # noqa: E402
 from repro_torch.kernels.sparse_mh import ref as sparse_ref  # noqa: E402
 from repro_torch.lda import corpus as corpus_mod  # noqa: E402
@@ -388,6 +397,10 @@ KERNELS = {  # wrapper name -> (kernel-table id, source, TPU kernel it replaces,
     # S1 replaces no pallas_call: the reference's MH sweep is XLA
     "sparse_mh": ("S1", _CSRC.format("sparse_mh"), "src/repro/lda/sparse.py:192",
                   KS.LAUNCHES),
+    # S2 replaces no pallas_call either: the reference's counts
+    # (_counts_scatter) and lists (lax.top_k) are XLA
+    "sparse_counts": ("S2", _CSRC.format("sparse_counts"), "src/repro/lda/sparse.py:106",
+                      KC.LAUNCHES),
 }
 # decode widths: gemma2-9b's vocabulary (top-k 64, top-p 0.95), whose
 # rows K9 reads from L2, and the 32,000-token vocabulary of the repo's
@@ -425,7 +438,7 @@ def path_layouts(L: int) -> dict:
 
 
 def reset_counts() -> None:
-    for mod in (KT, KB, KL, KA, KS):
+    for mod in (KT, KB, KL, KA, KS, KC):
         mod.reset_launches()
 
 
@@ -1220,6 +1233,8 @@ def phase_profile(state, corpus, method, W, label=None, **kw):
         log(f"  {us / 1e3:9.3f} ms  x{n:<5d} {key[:90]}")
     return state, {"wall_s": wall, "device_busy_s": busy,
                    "launches": {"sparse_mh": sum(n for _, n, k in rows if "sparse_mh" in k),
+                                "sparse_counts": sum(n for _, n, k in rows
+                                                     if "sparse_counts" in k),
                                 "kernels": sum(n for _, n, _ in rows)},
                    "top": [{"ms": us / 1e3, "count": n, "name": key[:120]}
                            for us, n, key in rows[:10]]}
@@ -3145,9 +3160,10 @@ def s1_bound(inp, z_out, tables, steps, mode):
             "fp32_ms": t_fp32, "uniforms": uniforms}
 
 
-def s1_device_per_launch(fn, reps: int = 20):
-    """S1's device time a launch from a torch.profiler trace of ``reps``
-    calls of ``fn`` (one S1 launch each) -> (ms, launches the trace held)."""
+def kernel_device_per_launch(fn, key: str = "sparse_mh", reps: int = 20):
+    """The device time a launch of the kernel whose name holds ``key`` (S1's
+    by default) from a torch.profiler trace of ``reps`` calls of ``fn`` (one
+    launch each) -> (ms, launches the trace held)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3158,7 +3174,7 @@ def s1_device_per_launch(fn, reps: int = 20):
             fn()
         torch.cuda.synchronize()
     rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "sparse_mh" in e.key]
+            if e.device_type == DeviceType.CUDA and key in e.key]
     n = sum(e.count for e in rows)
     return (sum(e.self_device_time_total for e in rows) / n / 1e3 if n else None), n
 
@@ -3177,7 +3193,7 @@ def _s1_times(args, mode, reps: int = 20) -> dict:
         ev[lay].append(cuda_ms(runs[lay], reps=reps))
     out = {}
     for lay in lays:
-        ms, n = s1_device_per_launch(runs[lay], reps)
+        ms, n = kernel_device_per_launch(runs[lay], reps=reps)
         out[lay] = {"ms": min(ev[lay]), "events_ms": ev[lay], "device_ms": ms,
                     "launches_seen": n}
     return out
@@ -3235,9 +3251,11 @@ def s1_timing(dev, seed) -> dict:
 
 def phase_sparse_profile(dev, seed) -> dict:
     """``--sparse-profile``, run by :func:`sparse_profile_fresh` in a
-    process of its own: S1's times (:func:`s1_timing`), then the sparse
-    cdf sweep at K = 240 profiled after one unprofiled sweep."""
+    process of its own: S1's times (:func:`s1_timing`), S2's
+    (:func:`s2_timing`), then the sparse cdf sweep at K = 240 profiled
+    after one unprofiled sweep."""
     timing = s1_timing(dev, seed)
+    s2 = s2_timing(dev, seed)
     corpus = paper_corpus(seed, CONFIG.M, CONFIG.V)
     dev_corpus = corpus_mod.Corpus(docs=torch.as_tensor(corpus.docs, device=dev),
                                    lengths=corpus.lengths,
@@ -3248,7 +3266,7 @@ def phase_sparse_profile(dev, seed) -> dict:
     state = gibbs.gibbs_step(state, dev_corpus, sparse=True, sparse_cache=cache)
     prof = phase_profile(state, dev_corpus, "auto", None, label="sparse (cdf), fresh process",
                          sparse=True, sparse_cache=cache)[1]
-    return {"timing": timing, "profile": prof}
+    return {"timing": timing, "s2_timing": s2, "profile": prof}
 
 
 def sparse_profile_fresh(seed: int) -> dict:
@@ -3349,6 +3367,142 @@ def phase_sparse_kernel(corpus, dev, seed, tally):
     return res
 
 
+S2_CELL_L = 110                        # the sparse cell's positions a document
+S2_WIDTH = 64                          # the sparse sweep's widest list
+S2_OUTPUTS = ("doc_topic", "word_topic", "ids", "cnt", "nnz_max")
+
+
+def s2_inputs(corpus, dev, g, K: int):
+    """S2's inputs over the corpus padded to the sparse cell's positions a
+    document (the padding masked out): uniform topics z, docs and mask."""
+    M, L = corpus.docs.shape
+    Lc = max(L, S2_CELL_L)
+    docs = torch.zeros((M, Lc), dtype=torch.int32, device=dev)
+    mask = torch.zeros((M, Lc), dtype=torch.bool, device=dev)
+    docs[:, :L] = torch.as_tensor(corpus.docs, device=dev)
+    mask[:, :L] = torch.as_tensor(corpus.mask, device=dev)
+    z = torch.randint(0, K, (M, Lc), generator=g, device=dev, dtype=torch.int32)
+    return z, docs, mask
+
+
+def phase_counts_kernel(corpus, dev, seed, tally):
+    """Phase 7a': S2, the sparse sweep's counts and lists in one pass a
+    document, against its plain version ``counts_ref.sparse_counts_torch``
+    bit for bit in every output (doc-topic and word-topic counts, ids, cnt,
+    the largest support), with and without the word side: the corpus padded
+    to the sparse cell's 110 positions, width 64, with uniform topics at
+    K = 240, 1,024 and 2,048 (phase 7b's), and at K = 240 with few topics
+    a document (tied counts), widths 1 and K, documents masked out, and one
+    document."""
+    K, V = CONFIG.K, corpus.vocab_size
+    g = torch.Generator(device=dev).manual_seed(seed + 75)
+    res = {}
+
+    def check(case, z, docs, mask, Kc, width):
+        for word in (True, False):
+            got = KC.sparse_counts(z, docs, mask, Kc, V, width, word=word)
+            want = counts_ref.sparse_counts_torch(z, docs, mask, Kc, V, width, word=word)
+            for name, a, b in zip(S2_OUTPUTS, got, want):
+                if b is None or a is None:
+                    if (a, b) != (None, None):
+                        raise AssertionError(f"S2 {case}: {name} given by one side only")
+                    continue
+                if a.dtype != b.dtype or a.shape != b.shape:
+                    raise AssertionError(f"S2 {case}: {name} {a.dtype} {tuple(a.shape)} "
+                                         f"against {b.dtype} {tuple(b.shape)}")
+                tally.same("sparse_counts", f"{case}{'' if word else ' (no word)'} {name}",
+                           a, b)
+        res[case] = {"M": z.shape[0], "L": z.shape[1], "K": Kc, "width": width,
+                     "nnz_max": int(got[4])}
+
+    log(f"phase 7a': S2 (the sparse sweep's counts and lists) vs plain over the corpus "
+        f"padded to L={S2_CELL_L}, V={V}, K={SPARSE_KS}")
+    z = None
+    for Kc in SPARSE_KS:
+        zk, docs, mask = s2_inputs(corpus, dev, g, Kc)
+        check(f"corpus K={Kc} width {S2_WIDTH}", zk, docs, mask, Kc, S2_WIDTH)
+        z = zk if Kc == K else z
+    M, Lc = z.shape
+    few = (torch.randint(0, K, (M, 1), generator=g, device=dev, dtype=torch.int32)
+           + torch.randint(0, 6, (M, Lc), generator=g, device=dev, dtype=torch.int32)) % K
+    check(f"few topics K={K} width {S2_WIDTH}", few.contiguous(), docs, mask, K, S2_WIDTH)
+    for width in (1, K):
+        check(f"K={K} width {width}", z, docs, mask, K, width)
+    masked = mask.clone()
+    masked[::7] = False
+    check(f"K={K} every 7th document masked", z, docs, masked, K, S2_WIDTH)
+    check(f"K={K} one document", z[:1], docs[:1], mask[:1], K, S2_WIDTH)
+    return res
+
+
+def s2_bytes(M: int, L: int, K: int, V: int, width: int, word: bool = True) -> int:
+    """S2's least bytes: z, docs and mask read (9 bytes a position), the
+    doc-topic rows and the lists written, and the word-topic counts written
+    once."""
+    return M * L * 9 + M * K * 4 + M * width * 8 + (V * K * 4 if word else 0)
+
+
+def s2_timing(dev, seed) -> dict:
+    """S2's times over the corpus padded to the sparse cell's 110 positions,
+    uniform topics, width 64: at K = 240 the CUDA-event time (the better of
+    two means of 20 launches) and the device time a launch from a profiler
+    trace, with and without the word side, beside its bound (bytes,
+    :func:`s2_bytes`), its plain version (``counts_ref.sparse_counts_torch``)
+    and the library calls it replaces (the two ``index_add_`` and the stable
+    ``torch.sort``, on index tensors made beforehand); at K = 1,024 and
+    2,048 its times and bound.  -> phase 7's S2 record for the ``kernels``
+    line."""
+    corpus = paper_corpus(seed, CONFIG.M, CONFIG.V)
+    V, K = corpus.vocab_size, CONFIG.K
+    g = torch.Generator(device=dev).manual_seed(seed + 76)
+    by_k, out = {}, {}
+    for Kc in SPARSE_KS:
+        z, docs, mask = s2_inputs(corpus, dev, g, Kc)
+        M, L = z.shape
+        t = {}
+        for word in ((True, False) if Kc == K else (True,)):
+            def run(word=word):
+                return KC.sparse_counts(z, docs, mask, Kc, V, S2_WIDTH, word=word)
+            ms = min(cuda_ms(run), cuda_ms(run))
+            dms, n = kernel_device_per_launch(run, "sparse_counts")
+            nbytes = s2_bytes(M, L, Kc, V, S2_WIDTH, word)
+            t["word" if word else "no word"] = {
+                "ms": ms, "device_ms": dms, "launches_seen": n, "bytes": nbytes,
+                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}
+        by_k[f"K={Kc}"] = t["word"]
+        log(f"  sparse_counts K={Kc} width {S2_WIDTH} at M={M} x L={L}: "
+            + ", ".join(f"{k} events {v['ms']:.4f} ms device {v['device_ms']} ms "
+                        f"({v['launches_seen']} launches in the trace), bound "
+                        f"{v['bound_ms']:.5f} ms ({v['bytes'] / 1e6:.1f} MB)"
+                        for k, v in t.items()))
+        if Kc == K:
+            out = {**t, "shape": [M, L, K, S2_WIDTH]}
+            pms = cuda_ms(lambda: counts_ref.sparse_counts_torch(
+                z, docs, mask, K, V, S2_WIDTH), reps=5)
+            live = mask.reshape(-1).to(torch.float32)
+            rows = (torch.arange(M, device=dev)[:, None] * K + z.long()).reshape(-1)
+            cells = (docs.long() * K + z.long()).reshape(-1)
+
+            def library():
+                dt = torch.zeros(M * K, dtype=torch.float32, device=dev)
+                dt.index_add_(0, rows, live)
+                torch.zeros(V * K, dtype=torch.float32, device=dev).index_add_(0, cells, live)
+                return torch.sort(dt.view(M, K).to(torch.int32), dim=-1, descending=True,
+                                  stable=True)
+
+            lms = cuda_ms(library, reps=5)
+            log(f"  sparse_counts (K={K}) {t['word']['ms']:.4f} ms, plain {pms:.4f} ms, "
+                f"library (index_add_ x2 + stable sort) {lms:.4f} ms, bound "
+                f"{t['word']['bound_ms'] * 1e3:.2f} us (bytes)")
+            del rows, cells, live
+        del z, docs, mask
+    w, nw = out["word"], out["no word"]
+    return {"ms": w["ms"], "device_ms": w["device_ms"], "plain_ms": pms,
+            "bound_ms": w["bound_ms"], "bound_by": "bytes", "bytes": w["bytes"],
+            "library_ms": lms, "no_word_ms": nw["ms"], "no_word_device_ms": nw["device_ms"],
+            "no_word_bound_ms": nw["bound_ms"], "by_K": by_k, "shape": out["shape"]}
+
+
 def sparse_sweeps(corpus, dev, seed, K, n, **kw):
     """``n`` ``gibbs_step(sparse=True, ...)`` sweeps from a fresh state and
     cache, timed: (state, seconds, cache)."""
@@ -3367,10 +3521,11 @@ def sparse_sweeps(corpus, dev, seed, K, n, **kw):
 def phase_sparse(corpus, dev, seed):
     """Phase 7b: at K = 240, 1,024 and 2,048, 3 ``gibbs_step(sparse=True)``
     sweeps each with ``word_proposal`` cdf, alias_device and auto (S1 once a
-    sweep; K13 once a sweep where the tables are alias_device), one
+    sweep; S2 once a sweep and once for the fresh cache; K13 once a sweep
+    where the tables are alias_device), one
     ``sparse="auto"`` sweep (the tuner's pick), and 3 sweeps of the dense
     default beside them, each path's launches read around it; then, in a
-    fresh process, S1's times and the sparse sweep (cdf, K = 240)
+    fresh process, S1's and S2's times and the sparse sweep (cdf, K = 240)
     profiled."""
     from repro_torch import autotune
 
@@ -3389,8 +3544,9 @@ def phase_sparse(corpus, dev, seed):
             reset_counts()
             state, times, cache = sparse_sweeps(corpus, dev, seed, K, 3, word_proposal=wp)
             counts = read_counts()
-            expect = {"sparse_mh": 3, **({"alias_assemble": 3}
-                                         if mode == "alias_device" else {})}
+            # S2 once a sweep and once for the fresh cache's lists
+            expect = {"sparse_mh": 3, "sparse_counts": 4,
+                      **({"alias_assemble": 3} if mode == "alias_device" else {})}
             check_path(f"sparse sweep K={K} {wp} ({mode})", counts, expect)
             check_state(state, K)
             ppl = gibbs.perplexity(state, corpus)
@@ -3410,7 +3566,8 @@ def phase_sparse(corpus, dev, seed):
         reset_counts()
         t = step_seconds(lambda: gibbs.gibbs_step(state, corpus, sparse="auto"), 1)
         counts = read_counts()
-        expect = ({"sparse_mh": 1} if ra["method"] in autotune.SPARSE_METHODS
+        expect = ({"sparse_mh": 1, "sparse_counts": 2}
+                  if ra["method"] in autotune.SPARSE_METHODS
                   else auto_expect(dense_auto["method"], nchunks))
         check_path(f"sparse='auto' K={K} -> {ra['method']}", counts, expect)
         log(f"  sparse='auto' resolves to {ra}: {t} s")
@@ -3435,8 +3592,10 @@ def phase_sparse(corpus, dev, seed):
     # trace's S1 count against the one launch a sweep
     fresh = sparse_profile_fresh(seed)
     res["profile"], res["s1_timing"] = fresh["profile"], fresh["timing"]
-    log(f"  profile: the trace holds S1 x{res['profile']['launches']['sparse_mh']} of 1 "
-        f"launch, {res['profile']['launches']['kernels']} kernels")
+    res["s2_timing"] = fresh["s2_timing"]
+    n = res["profile"]["launches"]
+    log(f"  profile: the trace holds S1 x{n['sparse_mh']} and S2 x{n['sparse_counts']} of 1 "
+        f"launch each, {n['kernels']} kernels")
     return launches, res
 
 
@@ -4895,9 +5054,11 @@ def main(argv=None) -> int:
     add_counts(launches, counts)
     log("phase 7: sparse LDA (the MH-alias sweep, S1)")
     main_res["sparse_kernel"] = phase_sparse_kernel(corpus, dev, args.seed, tally)
+    main_res["counts_kernel"] = phase_counts_kernel(corpus, dev, args.seed, tally)
     counts, main_res["sparse"] = phase_sparse(dev_corpus, dev, args.seed)
     add_counts(launches, counts)
     timing["sparse_mh"] = main_res["sparse"].pop("s1_timing")
+    timing["sparse_counts"] = main_res["sparse"].pop("s2_timing")
     counts, main_res["streaming"] = phase_streaming(dev, args.seed)
     add_counts(launches, counts)
     del dev_corpus, phi, inputs
@@ -4951,6 +5112,10 @@ def main(argv=None) -> int:
                                           for lay in KS.LAYOUTS if lay in t}
                                    | {"bound_ms": t["bound"]["bound_ms"]}
                                    for case, t in tm["by_K"].items()}
+        if name == "sparse_counts":  # without the word side, and K = 1,024 and 2,048
+            kernels[-1].update({k: tm[k] for k in (
+                "device_ms", "no_word_ms", "no_word_device_ms", "no_word_bound_ms",
+                "bytes", "shape", "by_K")})
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({

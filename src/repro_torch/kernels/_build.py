@@ -42,6 +42,7 @@ SOURCES: Dict[str, str] = {
     "lda_draw": "lda_draw/csrc/lda_draw.cu",
     "alias_build": "alias_build/csrc/alias_build.cu",
     "sparse_mh": "sparse_mh/csrc/sparse_mh.cu",
+    "sparse_counts": "sparse_counts/csrc/sparse_counts.cu",
 }
 _INCLUDES = ("csrc",)
 

@@ -26,6 +26,11 @@ phi: ``cdf`` (one cumsum), ``alias`` (Vose's build on the host) or
 kinds through the digest-keyed ``autotune.tables`` cache; ``auto``
 arbitrates by :func:`resolve_word_proposal`.
 
+The counts after the draw, the next sweep's lists and their largest
+support come from one pass a document (the Hopper kernel
+``kernels.sparse_counts``) on the card wherever a document fits a block;
+elsewhere from ``_counts`` and a stable sort.
+
 Randomness.  The port's state carries a ``torch.Generator``.  A sweep's
 (2,) counter seed is derived, as the distributed sweep derives its own,
 from the generator's initial seed (``rng.generator_seed``) and the
@@ -52,6 +57,7 @@ import torch
 from repro_torch import tracing
 from repro_torch.kernels import rng as _rng
 from repro_torch.kernels import runtime
+from repro_torch.kernels import sparse_counts as _fused
 from repro_torch.kernels.sparse_mh import mh_sweep
 from repro_torch.lda.corpus import Corpus
 from repro_torch.lda.gibbs import (
@@ -94,16 +100,31 @@ def sparse_counts(doc_topic: torch.Tensor, cap: int) -> SparseDocTopics:
 
 # (doc_topic (M, K), word_topic (V, K)) float32 counts by scatter-add: the
 # dense sweep's gibbs._counts (index_add_, no one-hot), which the
-# reference's sparse module writes anew because its dense count is a one-hot
+# reference's sparse module writes anew because its dense count is a one-hot;
+# the sparse sweep takes it off the kernel's route
 _counts_scatter = _counts
 
 
-def _nnz_max(doc_topic) -> int:
+def _support_max(doc_topic) -> torch.Tensor:
+    """The largest number of nonzero topics in a document, a 0-d tensor on
+    the counts' device (0 where there are no documents)."""
     if not doc_topic.shape[0]:
+        return torch.zeros((), dtype=torch.int64, device=doc_topic.device)
+    return (doc_topic > 0).sum(dim=1).max()
+
+
+def _read_nnz_max(nnz: torch.Tensor, M: int) -> int:
+    """The largest support ``nnz`` of M documents read on the host: the
+    sweep's one forced read (none where there are no documents)."""
+    if not M:
         return 0
     with tracing.span("sync.nnz_max"):
         tracing.count("host_syncs")
-        return int((doc_topic > 0).sum(dim=1).max())
+        return int(nnz)
+
+
+def _nnz_max(doc_topic) -> int:
+    return _read_nnz_max(_support_max(doc_topic), doc_topic.shape[0])
 
 
 def _phi_cdf(phi) -> torch.Tensor:
@@ -252,14 +273,56 @@ def _prepare(state: LDAState, docs, mask, cache: SparseSweepCache):
     dev = state.theta.device
     docs = torch.as_tensor(docs, device=dev)
     mask = torch.as_tensor(mask, device=dev)
-    K = state.theta.shape[-1]
+    K, V = state.theta.shape[-1], state.phi.shape[0]
     if cache.counts is None or cache.cap is None:
         with tracing.span("lda.counts"):
-            doc_topic, _ = _counts(state.z, docs, mask, K, state.phi.shape[0])
-        cache.update_capacity(_nnz_max(doc_topic))
-        with tracing.span("lda.sparse.sort"):
-            cache.counts = sparse_counts(doc_topic, min(cache.cap, K))
+            _, _, lists, nnz = _counts_and_lists(state.z, docs, mask, K, V, cache,
+                                                 word=False)
+        _next_lists(cache, lists, nnz, K)
     return docs, mask
+
+
+def _list_width(cache: SparseSweepCache, K: int) -> int:
+    """The width of the lists built after a draw: the widest capacity the
+    cache can pick."""
+    return min(max(cache.cap_min, cache.cap_max), K)
+
+
+def _fused_route(z, K: int) -> bool:
+    """Whether the counts and lists of topics ``z`` take the kernel's one
+    pass: on the card, where a document fits a block (by shape)."""
+    return z.is_cuda and _fused.fits(K, z.shape[1], z.device)
+
+
+def _counts_and_lists(z, docs, mask, K: int, V: int, cache: SparseSweepCache,
+                      word: bool = True):
+    """``(doc_topic, word_topic, lists, nnz)`` of topics ``z``: the counts,
+    each document's list :func:`_list_width` wide in the order of a stable
+    descending sort, and the largest support as a 0-d tensor, nothing read
+    on the host.  On the :func:`_fused_route`, one pass a document
+    (``kernels.sparse_counts``, counted by ``sparse.fused_counts``;
+    ``word=False`` skips its word side); elsewhere ``_counts``,
+    :func:`sparse_counts` and :func:`_support_max`."""
+    width = _list_width(cache, K)
+    if not _fused_route(z, K):
+        doc_topic, word_topic = _counts(z, docs, mask, K, V)
+        return (doc_topic, word_topic, sparse_counts(doc_topic, width),
+                _support_max(doc_topic))
+    tracing.count("sparse.fused_counts")
+    doc_topic, word_topic, ids, cnt, nnz = _fused.sparse_counts(z, docs, mask, K, V, width,
+                                                                word=word)
+    return doc_topic, word_topic, SparseDocTopics(ids=ids, cnt=cnt), nnz
+
+
+def _next_lists(cache: SparseSweepCache, lists: SparseDocTopics, nnz, K: int) -> None:
+    """The capacity bucket from the documents' largest support ``nnz`` (the
+    sweep's one host read), and the cache's lists cut to that capacity (no
+    copy at the lists' full width)."""
+    cache.update_capacity(_read_nnz_max(nnz, lists.ids.shape[0]))
+    cap = min(cache.cap, K)
+    with tracing.span("lda.sparse.sort"):
+        cache.counts = SparseDocTopics(ids=lists.ids[:, :cap].contiguous(),
+                                       cnt=lists.cnt[:, :cap].contiguous())
 
 
 def _draw(state: LDAState, docs, mask, cache, mh_steps, word_proposal, alpha, chunk,
@@ -311,7 +374,8 @@ def gibbs_step_sparse(state: LDAState, corpus: Corpus, alpha: float = 0.1,
                       cache: Optional[SparseSweepCache] = None, chunk: int = 256,
                       row0: int = 0) -> LDAState:
     """One full sparse Gibbs sweep with the dense ``gibbs_step``'s state in
-    and out: MH z-draw, scatter counts, Dirichlet theta / phi resample.
+    and out: MH z-draw, counts and next lists, Dirichlet theta / phi
+    resample.
     Pass the same ``cache`` every sweep to carry the sparse counts and the
     capacity bucket (a fresh cache rebuilds them from ``state.z``).
 
@@ -326,16 +390,14 @@ def gibbs_step_sparse(state: LDAState, corpus: Corpus, alpha: float = 0.1,
     z, wa, da, props = _draw(state, docs, mask, cache, mh_steps, word_proposal, alpha,
                              chunk, row0)
     with tracing.span("lda.counts"):
-        doc_topic, word_topic = _counts(z, docs, mask, K, V)
+        doc_topic, word_topic, lists, nnz = _counts_and_lists(z, docs, mask, K, V, cache)
     with tracing.span("lda.theta"):
         theta = _update_theta(state.key, doc_topic, alpha)
     with tracing.span("lda.phi"):
         phi = _update_phi(state.key, word_topic, beta)
     # the next sweep's proposal counts (and the capacity bucket they live in)
-    cache.update_capacity(_nnz_max(doc_topic))
-    with tracing.span("lda.sparse.sort"):
-        cache.counts = sparse_counts(doc_topic, min(cache.cap, K))
-    # kept on the device: reading them here would wait for the sort
+    _next_lists(cache, lists, nnz, K)
+    # kept on the device: reading them here would wait for the resample
     cache.last_counts = (wa, da, props)
     return LDAState(theta=theta, phi=phi, z=z, key=state.key, step=state.step + 1)
 

@@ -28,9 +28,10 @@ Span names in the sweeps: ``lda.sweep`` (the root), ``autotune.plan``,
 ``lda.draw_z``, ``lda.counts``, ``lda.theta``, ``lda.phi``,
 ``lda.sparse.tables``, ``lda.sparse.mh``, ``lda.sparse.sort`` and one
 ``sync.<site>`` around each read of a device value that a sweep forces.
-Counters: ``lda.sweeps``, ``lda.chunks``, ``host_syncs``, ``sparse.cap``
-and the MH ``sparse.word_accepts``, ``sparse.doc_accepts`` and
-``sparse.proposals``.
+Counters: ``lda.sweeps``, ``lda.chunks``, ``host_syncs``, ``sparse.cap``,
+the MH ``sparse.word_accepts``, ``sparse.doc_accepts`` and
+``sparse.proposals``, and ``sparse.fused_counts`` (lists built by the
+``sparse_counts`` kernel's pass).
 """
 
 from __future__ import annotations

@@ -131,13 +131,15 @@ def test_dense_sweep_counts_chunks_no_host_reads_and_keeps_the_state(chunk):
     assert rec.launches == {}
 
 
-def test_sparse_sweep_forces_one_host_read_after_the_first_and_sums_accepts():
+def _sparse_recording(device):
+    """Four recorded sparse sweeps against the same sweeps unrecorded, on
+    ``device``: the counters and spans the two sparse tests assert."""
     corpus = _corpus()
     n = 4
 
     def run(record):
         cache = ts.SparseSweepCache()
-        s = tg.init_state(9, corpus, 12, device=CPU)
+        s = tg.init_state(9, corpus, 12, device=device)
         counts, caps = [], []
 
         def step(s):
@@ -168,6 +170,25 @@ def test_sparse_sweep_forces_one_host_read_after_the_first_and_sums_accepts():
     assert len(mh) == n and all(rec.spans[s.parent].name == "lda.sweep" for s in mh)
     assert sum(s.name == "lda.sparse.sort" for s in rec.spans) == n + 1
     assert [s.sweep for s in rec.spans if s.name == "lda.sweep"] == list(range(n))
+    return rec, n
+
+
+def test_sparse_sweep_forces_one_host_read_after_the_first_and_sums_accepts():
+    rec, _ = _sparse_recording(CPU)
+    # the plain version builds the lists on the CPU: no kernel pass counted
+    assert rec.counters.get("sparse.fused_counts", 0) == 0
+    assert rec.launches == {}
+
+
+@pytest.mark.cuda
+def test_sparse_sweep_counts_the_fused_pass_on_the_card():
+    """On the card each sweep's lists, and the fresh cache's, come from the
+    sparse_counts kernel's pass: sweeps + 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the sparse_counts kernel runs only on the card")
+    rec, n = _sparse_recording(torch.device("cuda"))
+    assert rec.counters["sparse.fused_counts"] == n + 1
+    assert rec.launches["sparse_counts.sparse_counts"] == n + 1
 
 
 def test_sparse_auto_routes_count_their_forced_reads(tmp_path, monkeypatch):
